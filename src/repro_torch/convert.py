@@ -1,0 +1,59 @@
+"""Carry JAX parameters across to the port.
+
+The JAX package's ``transformer.init_params`` returns a pytree whose layers
+are stacked for ``lax.scan``: ``params["layers"]`` is a tuple over the
+window/MoE group positions, each leaf shaped ``(ngroups, ...)``
+(``repro/models/transformer.py:116-122``). The port keeps one dict per
+layer, so layer ``l`` is group ``l // group_size`` of position
+``l % group_size``. Leaf shapes are otherwise unchanged: ``wq``/``wk``/``wv``
+stay ``(d, heads, hd)`` and are flattened to ``(d, heads·hd)`` at use, as
+the JAX model does.
+
+The input is the pytree with its leaves as numpy arrays (e.g.
+``jax.tree.map(np.asarray, params)``) — this module never imports JAX.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.errors import ConfigError
+from repro_torch.models.transformer import model_dtype
+
+__all__ = ["from_jax_params"]
+
+
+def _tensor(leaf, dtype, device) -> torch.Tensor:
+    arr = np.asarray(leaf)
+    if arr.dtype.kind == "V" or str(arr.dtype) == "bfloat16":
+        # ml_dtypes bfloat16 arrives as a 2-byte type numpy cannot cast;
+        # go through float32, which holds every bfloat16 exactly
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.array(arr)).to(device=device, dtype=dtype)
+
+
+def from_jax_params(tree: dict, cfg: ModelConfig, *,
+                    device: str | torch.device | None = None) -> dict:
+    """The port's parameter dict from a JAX ``init_params`` pytree of numpy
+    leaves, cast to the config's dtype on ``device``."""
+    if cfg.family != "dense":
+        raise ConfigError(f"conversion of family {cfg.family!r} comes with "
+                          f"its slice of the port")
+    dev = resolve_device(device)
+    dtype = model_dtype(cfg)
+    gsz = cfg.group_size
+
+    def conv(node: Any, index: int):
+        if isinstance(node, dict):
+            return {k: conv(v, index) for k, v in node.items()}
+        return _tensor(np.asarray(node)[index], dtype, dev)
+
+    out = {k: _tensor(v, dtype, dev) for k, v in tree.items()
+           if k != "layers"}
+    out["layers"] = [conv(tree["layers"][l % gsz], l // gsz)
+                     for l in range(cfg.n_layers)]
+    return out

@@ -1,0 +1,72 @@
+"""SC-GEMM as a drop-in layer numeric with a straight-through gradient (port
+of ``repro/core/sc_layers.py``).
+
+``sc_dense`` replaces ``x @ w`` with the stochastic-multiplier GEMM in the
+forward pass and backpropagates as if the matmul were exact (STE), the
+usual recipe for quantization-aware training.
+
+Dtype contract: the tensors saved for backward are the caller's ``x`` and
+``w`` in their original dtype — the float32 upcast the SC kernels need
+happens only inside the forward call and is never saved.
+"""
+from __future__ import annotations
+
+import torch
+
+from .sc_matmul import resolve_impl, sc_matmul
+
+__all__ = ["sc_dense", "sc_proj", "ScDense"]
+
+
+def _sc_forward(x: torch.Tensor, w: torch.Tensor, bits: int,
+                impl: str | None) -> torch.Tensor:
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    # row_quant: per-token activation scales, so a token's output is
+    # independent of whatever else shares the batch — the serving engine's
+    # batch-invariance rests on this.
+    out = sc_matmul(x2.to(torch.float32), w.to(torch.float32), bits=bits,
+                    impl=resolve_impl(impl), row_quant=True)
+    return out.reshape(*lead, w.shape[-1]).to(x.dtype)
+
+
+class ScDense(torch.autograd.Function):
+    """``x @ w`` through SC-GEMM forward, exact-matmul gradients backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, bits, impl):
+        ctx.save_for_backward(x, w)
+        return _sc_forward(x, w, bits, impl)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        # straight-through: gradients of the exact matmul, accumulated in
+        # float32, delivered in the activation/parameter dtypes
+        g32 = g.to(torch.float32)
+        gx = torch.einsum("...n,kn->...k", g32,
+                          w.to(torch.float32)).to(x.dtype)
+        gw = torch.einsum("...k,...n->kn", x.to(torch.float32),
+                          g32).to(w.dtype)
+        return gx, gw, None, None
+
+
+def sc_dense(x: torch.Tensor, w: torch.Tensor, bits: int = 8,
+             impl: str | None = None) -> torch.Tensor:
+    """``x @ w`` through SC-GEMM. ``x: (..., K)``, ``w: (K, N)``.
+
+    ``impl`` ∈ {None/"auto", "ref", "mxu_split", "pallas", "pallas_tuned"};
+    None defers to ``$REPRO_SC_IMPL`` and then the device choice.
+    """
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return ScDense.apply(x, w, bits, impl)
+    return _sc_forward(x, w, bits, impl)
+
+
+def sc_proj(x: torch.Tensor, w: torch.Tensor, cfg) -> torch.Tensor:
+    """Config-driven dense projection — the dispatch point every model
+    matmul goes through: exact ``x @ w``, or :func:`sc_dense` with the
+    config's ``sc_bits``/``sc_impl`` when ``cfg.use_sc_gemm``."""
+    if cfg.use_sc_gemm:
+        return sc_dense(x, w, cfg.sc_bits, cfg.sc_impl)
+    return x @ w

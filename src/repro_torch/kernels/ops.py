@@ -1,0 +1,38 @@
+"""Public wrappers around the port's kernels: quantization, packing and
+dequantization around the SC-GEMM counts kernel (port of
+``repro/kernels/ops.py::sc_matmul_pallas``).
+
+The TPU wrapper padded every operand to its block multiples (signs with +1,
+magnitudes with 0) because Pallas blocks must tile the array. The CUDA
+kernel masks its ragged M/N/K edges itself, so nothing is padded here and
+nothing is sliced off afterwards.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.sc_numerics import quantize_sign_magnitude
+from repro_torch.core.tcu import stream_length
+
+from .sc_matmul import pack_signed, sc_matmul_counts_signed
+
+__all__ = ["sc_matmul"]
+
+
+def sc_matmul(a: torch.Tensor, b: torch.Tensor, *, bits: int = 8,
+              row_quant: bool = False) -> torch.Tensor:
+    """SC-GEMM ``a @ b`` through the counts kernel. ``a: (M, K)``,
+    ``b: (K, N)`` float.
+
+    Quantize (per-row LHS scales when ``row_quant``), pack each operand's
+    sign and magnitude into one signed plane, count, and dequantize by
+    ``N·Δa·Δb``. Tensors on the card launch the CUDA kernel; tensors on the
+    CPU take its plain version.
+    """
+    qa = quantize_sign_magnitude(a.to(torch.float32), bits=bits,
+                                 axis=-1 if row_quant else None)
+    qb = quantize_sign_magnitude(b.to(torch.float32), bits=bits)
+    counts = sc_matmul_counts_signed(pack_signed(qa.sign, qa.mag, bits),
+                                     pack_signed(qb.sign, qb.mag, bits),
+                                     bits=bits)
+    return counts * (stream_length(bits) * qa.scale * qb.scale)

@@ -1,0 +1,172 @@
+"""Serving entry point of the port: a CLI over the continuous-batching engine,
+and the sequential per-request :func:`generate` baseline (port of
+``repro/launch/serve.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
+        --sc-gemm [--requests 8 --prompt-len 64 --gen 64] [--device cpu]
+
+Runs on the card unless ``--device cpu`` is given. The flags of the JAX
+CLI that this slice does not carry (prefix cache, SC attention,
+speculative decoding) come with their slices.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import ARCHS
+from repro_torch.launch.steps import decode_step, prefill_step
+from repro_torch.models import bind
+
+__all__ = ["generate", "main"]
+
+
+def generate(cfg, params, prompts, *, gen_tokens: int,
+             temperature: float = 0.0, seed: int = 0,
+             device: str | torch.device | None = None) -> torch.Tensor:
+    """``prompts: (B, S)`` int token ids → ``(B, gen_tokens)`` sampled
+    continuations, every sequence decoding ``gen_tokens`` steps in
+    lockstep over a dense cache. With B=1 and greedy sampling this is the
+    reference stream the serving engine reproduces token for token."""
+    m = bind(cfg, device)
+    prompts = torch.as_tensor(np.asarray(prompts), device=m.device)
+    b = prompts.shape[0]
+    logits, cache = prefill_step(m, params, {"tokens": prompts},
+                                 extra_slots=gen_tokens)
+    # host-side draws from one seeded generator, as the engine samples a
+    # request's stream — so a B=1 sampled stream matches the engine's too
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(gen_tokens):
+        step_logits = logits[:, -1].to(torch.float32)
+        if temperature > 0:
+            probs = torch.softmax(step_logits.cpu().double() / temperature,
+                                  dim=-1)
+            tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
+        else:
+            tok = torch.argmax(step_logits, dim=-1)
+        tok = tok.to(device=m.device, dtype=torch.int32)
+        out.append(tok)
+        logits, cache = decode_step(m, params, cache,
+                                    {"tokens": tok.reshape(b, 1)})
+    return torch.stack(out, dim=1)
+
+
+def main(argv=None) -> None:
+    from repro_torch.core.sc_matmul import SC_IMPLS
+    from repro_torch.serving import Engine, Request
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=sorted(ARCHS), required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card, 'cuda')")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random parameters")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="number of requests in the synthetic workload")
+    ap.add_argument("--capacity", type=int, default=4,
+                    help="slot-pool capacity (decode batch)")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=32,
+                    help="max new tokens per request; the synthetic workload "
+                         "mixes lengths in [gen/4, gen]")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--no-continuous", action="store_true",
+                    help="static batching A/B")
+    ap.add_argument("--no-paged", action="store_true",
+                    help="contiguous slot stripes instead of pages")
+    ap.add_argument("--block", type=int, default=64,
+                    help="paged cache page size in tokens")
+    ap.add_argument("--pages", type=int, default=None,
+                    help="paged cache page budget (n_blocks); default "
+                         "capacity * ceil(max_seq / block)")
+    ap.add_argument("--sc-gemm", action="store_true",
+                    help="serve through the SC-GEMM numeric")
+    ap.add_argument("--sc-impl", choices=SC_IMPLS, default=None,
+                    help="SC-GEMM implementation (overrides the config)")
+    ap.add_argument("--paged-attn", choices=("auto", "jnp", "pallas_tuned"),
+                    default=None,
+                    help="paged decode-attention dispatch: the CUDA kernel "
+                         "('auto'/'pallas_tuned') or the gathered plain "
+                         "version ('jnp')")
+    ap.add_argument("--no-fused-paged", action="store_true",
+                    help="paged decode through gather → decode → commit")
+    ap.add_argument("--prefill-mode", choices=("chunked", "oneshot"),
+                    default="chunked")
+    ap.add_argument("--chunk", type=int, default=16,
+                    help="prefill chunk length in tokens")
+    ap.add_argument("--prefill-budget", type=int, default=None,
+                    help="prefill tokens per engine step (default: a chunk)")
+    ap.add_argument("--stream", action="store_true",
+                    help="print an SSE-style event per token as it lands")
+    args = ap.parse_args(argv)
+
+    cfg = ARCHS[args.arch]
+    if args.reduced:
+        cfg = cfg.reduced(dtype="float32")
+    over = {}
+    if args.sc_gemm:
+        over["use_sc_gemm"] = True
+    if args.sc_impl is not None:
+        over["sc_impl"] = args.sc_impl
+    if args.paged_attn is not None:
+        over["paged_attn_kernel"] = args.paged_attn
+    if over:
+        cfg = dataclasses.replace(cfg, **over).validate()
+    m = bind(cfg, args.device)
+    params = m.init_params(args.seed)
+
+    rng = np.random.default_rng(1)
+    gens = rng.integers(max(args.gen // 4, 1), args.gen + 1,
+                        size=args.requests)
+    requests = [
+        Request(uid=f"req-{i}",
+                prompt=rng.integers(0, cfg.vocab_size, size=(args.prompt_len,),
+                                    dtype=np.int32),
+                max_new_tokens=int(g), temperature=args.temperature, seed=i)
+        for i, g in enumerate(gens)
+    ]
+    engine = Engine(cfg, params, device=m.device, capacity=args.capacity,
+                    max_seq=args.prompt_len + args.gen,
+                    continuous=not args.no_continuous,
+                    paged=not args.no_paged, block=args.block,
+                    n_blocks=args.pages, fused=not args.no_fused_paged,
+                    prefill_mode=args.prefill_mode, chunk=args.chunk,
+                    prefill_budget=args.prefill_budget)
+    t0 = time.time()
+    if args.stream:
+        def on_token(uid, index, tok, reason):
+            tail = f" finish={reason}" if reason else ""
+            print(f"data: {{uid: {uid}, index: {index}, "
+                  f"token: {np.asarray(tok).tolist()}}}{tail}")
+        for r in requests:
+            engine.submit(r, on_token=on_token)
+        results = engine.run()
+        results.sort(key=lambda r: int(r.uid.rsplit("-", 1)[1]))
+    else:
+        results = engine.run(requests)
+    dt = time.time() - t0
+    st = engine.stats
+    pages = (f", pages peak {st['peak_pages']}/{st['n_blocks']}"
+             f" (block {st['block']}, {st['preemptions']} preemptions)"
+             if st["layout"] == "paged" else "")
+    print(f"[serve] {st['device']} {st['mode']}/{st['layout']}/"
+          f"{st['prefill_mode']}: {st['requests']} requests, "
+          f"{st['generated_tokens']} tokens in {dt:.1f}s "
+          f"({st['tok_per_s']:.1f} tok/s), {st['decode_steps']} decode steps "
+          f"({st['decode_ms_per_step']:.1f} ms/step), "
+          f"p50 {st['p50_latency_s'] * 1e3:.0f}ms "
+          f"p99 {st['p99_latency_s'] * 1e3:.0f}ms, "
+          f"ttft p50 {st['ttft_p50_s'] * 1e3:.0f}ms "
+          f"itl p50 {st['itl_p50_s'] * 1e3:.1f}ms "
+          f"({st['prefill_chunks']} prefill chunks){pages}")
+    print(f"[serve] first stream: {results[0].tokens[:16]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,406 @@
+"""Decoder-only transformer, dense family (port of the dense path of
+``repro/models/transformer.py``).
+
+Parameters are a plain dict with the JAX package's leaf shapes — ``wq``
+``(d, H, hd)``, ``wk``/``wv`` ``(d, KV, hd)``, ``wo`` ``(H, hd, d)`` — except
+that the layers are a list (one dict per layer) instead of a scanned stack;
+``repro_torch.convert`` carries JAX parameters across. The KV cache keeps
+the JAX layout: ``k``/``v`` are tuples over the window/MoE group positions
+of ``(ngroups, B, S, KV, hd)`` tensors (the slot axis at 1), and layer
+``l`` lives at ``k[l % group][l // group]``.
+
+With ``cfg.use_sc_gemm`` every dense projection — QKV/O, MLP, and the LM
+head — runs through ``core.sc_layers.sc_proj``, i.e. the SC-GEMM counts
+kernel on the card.
+
+The decode steps update the cache in place (the page pool and the slot
+cache are the largest tensors of a serving process) and return it.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.sc_layers import sc_proj
+from repro_torch.device import resolve_device
+from repro_torch.errors import CacheLayoutError
+
+from .layers import (PagedKV, apply_rope, decode_attention, flash_attention,
+                     paged_decode_attention, rms_norm, rope, softcap)
+
+__all__ = ["init_params", "forward_hidden", "logits_from_hidden",
+           "prefill_step", "prefill_chunk_step", "KVCache", "init_kv_cache",
+           "decode_step", "paged_decode_step", "model_dtype", "params_to"]
+
+
+def model_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+# ----------------------------------------------------------------- params
+
+def init_params(cfg: ModelConfig, seed: int = 0, *,
+                device: str | torch.device | None = None) -> dict:
+    """Random parameters from ``seed`` with the JAX package's shapes and
+    scales (``transformer.py:93-123``): normal weights scaled by
+    ``fan_in ** -0.5``, unit norms. Drawn on ``device`` in float32 from a
+    ``torch.Generator`` there, then cast to the model dtype. The draws
+    differ from JAX's; tests carry JAX's parameters across with
+    ``repro_torch.convert`` instead."""
+    cfg.validate()
+    dev = resolve_device(device)
+    dtype = model_dtype(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    d, h, kv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim, cfg.d_ff)
+
+    def normal(shape, scale):
+        w = torch.randn(shape, generator=gen, device=dev,
+                        dtype=torch.float32) * scale
+        return w.to(dtype)
+
+    def ones(n):
+        return torch.ones((n,), dtype=dtype, device=dev)
+
+    params: dict[str, Any] = {
+        "embed": normal((cfg.vocab_size, d), d ** -0.5),
+        "final_norm": ones(d),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((d, cfg.vocab_size), d ** -0.5)
+    layers = []
+    for _ in range(cfg.n_layers):
+        attn = {
+            "wq": normal((d, h, hd), d ** -0.5),
+            "wk": normal((d, kv, hd), d ** -0.5),
+            "wv": normal((d, kv, hd), d ** -0.5),
+            "wo": normal((h, hd, d), (h * hd) ** -0.5),
+        }
+        if cfg.qkv_bias:
+            attn["bq"] = torch.zeros((h, hd), dtype=dtype, device=dev)
+            attn["bk"] = torch.zeros((kv, hd), dtype=dtype, device=dev)
+            attn["bv"] = torch.zeros((kv, hd), dtype=dtype, device=dev)
+        if cfg.qk_norm:
+            attn["q_norm"] = ones(hd)
+            attn["k_norm"] = ones(hd)
+        layer = {"ln1": ones(d), "ln2": ones(d), "attn": attn,
+                 "mlp": {"w1": normal((d, f), d ** -0.5),
+                         "w3": normal((d, f), d ** -0.5),
+                         "w2": normal((f, d), f ** -0.5)}}
+        if cfg.post_norms:
+            layer["ln1_post"] = ones(d)
+            layer["ln2_post"] = ones(d)
+        layers.append(layer)
+    params["layers"] = layers
+    return params
+
+
+def params_to(params, device: str | torch.device):
+    """The parameter tree with every tensor moved to ``device``."""
+    if isinstance(params, dict):
+        return {k: params_to(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(params_to(v, device) for v in params)
+    return params.to(device)
+
+
+# ------------------------------------------------------------------ cache
+
+class KVCache(NamedTuple):
+    """Decode cache: ``k``/``v`` tuples over group positions of
+    ``(ngroups, B, S, KV, hd)`` tensors (or page pools
+    ``(ngroups, P, block, KV, hd)`` in the paged layout); ``pos`` the
+    per-sequence ``(B,)`` int32 positions."""
+    k: Any
+    v: Any
+    pos: torch.Tensor
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+                  device: str | torch.device | None = None) -> KVCache:
+    dev = resolve_device(device)
+    dtype = model_dtype(cfg)
+    ngroups = cfg.n_layers // cfg.group_size
+    shape = (ngroups, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    k = tuple(torch.zeros(shape, dtype=dtype, device=dev)
+              for _ in range(cfg.group_size))
+    v = tuple(torch.zeros(shape, dtype=dtype, device=dev)
+              for _ in range(cfg.group_size))
+    return KVCache(k=k, v=v, pos=torch.zeros((batch,), dtype=torch.int32,
+                                             device=dev))
+
+
+def _layer_kv(cache: KVCache, cfg: ModelConfig, layer: int):
+    gsz = cfg.group_size
+    return cache.k[layer % gsz][layer // gsz], cache.v[layer % gsz][layer // gsz]
+
+
+# ---------------------------------------------------------------- forward
+
+def _project(x, w, cfg, b=None):
+    out = sc_proj(x, w, cfg)
+    return out + b if b is not None else out
+
+
+def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
+    b, s, d = x.shape
+    hd = cfg.head_dim
+
+    def proj(w, bias):
+        # (d, heads, hd) is a matmul with the head axes flattened
+        nh = w.shape[1]
+        out = sc_proj(x, w.reshape(d, nh * hd), cfg).reshape(b, s, nh, hd)
+        return out + bias if bias is not None else out
+
+    q = proj(p["wq"], p.get("bq"))
+    k = proj(p["wk"], p.get("bk"))
+    v = proj(p["wv"], p.get("bv"))
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], eps=cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], eps=cfg.norm_eps)
+    cos, sin = rope(positions, hd, cfg.rope_theta)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _out_proj(p: dict, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    b, s = out.shape[:2]
+    hd, h, d = cfg.head_dim, cfg.n_heads, cfg.d_model
+    return sc_proj(out.reshape(b, s, h * hd), p["wo"].reshape(h * hd, d), cfg)
+
+
+def _mlp_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    act = F.silu if cfg.act == "silu" else F.gelu
+    h = act(_project(x, p["w1"], cfg)) * _project(x, p["w3"], cfg)
+    return _project(h, p["w2"], cfg)
+
+
+def _layer(layer: dict, x: torch.Tensor, cfg: ModelConfig, attend):
+    """One pre-norm block; ``attend(q, k, v)`` is the attention site."""
+    attn_in = rms_norm(x, layer["ln1"], eps=cfg.norm_eps,
+                       plus_one=cfg.norm_plus_one)
+    attn_out = _out_proj(layer["attn"], attend(layer["attn"], attn_in), cfg)
+    if cfg.post_norms:
+        attn_out = rms_norm(attn_out, layer["ln1_post"], eps=cfg.norm_eps,
+                            plus_one=cfg.norm_plus_one)
+    x = x + attn_out
+    ff_in = rms_norm(x, layer["ln2"], eps=cfg.norm_eps,
+                     plus_one=cfg.norm_plus_one)
+    ff_out = _mlp_forward(layer["mlp"], ff_in, cfg)
+    if cfg.post_norms:
+        ff_out = rms_norm(ff_out, layer["ln2_post"], eps=cfg.norm_eps,
+                          plus_one=cfg.norm_plus_one)
+    return x + ff_out
+
+
+def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor):
+    x = params["embed"][tokens.to(torch.long)]
+    if cfg.emb_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def _final(params, cfg, x):
+    return rms_norm(x, params["final_norm"], eps=cfg.norm_eps,
+                    plus_one=cfg.norm_plus_one)
+
+
+def _full_sequence(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                   collect: bool):
+    """Causal forward over whole sequences at positions ``0..S-1``; returns
+    the final hidden states and, with ``collect``, each layer's K/V."""
+    x = _embed_tokens(params, cfg, tokens)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+    kvs = []
+    for i, layer in enumerate(params["layers"]):
+        window = cfg.window_at(i % cfg.group_size)
+
+        def attend(p, h, window=window):
+            q, k, v = _qkv(p, h, cfg, positions)
+            if collect:
+                kvs.append((k, v))
+            return flash_attention(
+                q, k, v, q_positions=positions, kv_positions=positions,
+                causal=True, window=window, logit_softcap=cfg.attn_softcap,
+                q_block=min(cfg.q_block, s), kv_block=min(cfg.kv_block, s),
+                skip_masked_blocks=cfg.skip_masked_blocks,
+                bf16_probs=cfg.bf16_probs)
+
+        x = _layer(layer, x, cfg, attend)
+    return _final(params, cfg, x), kvs
+
+
+def forward_hidden(params: dict, cfg: ModelConfig,
+                   batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward → (hidden ``(B, S, d)`` after the final norm,
+    aux loss — zero for the dense family)."""
+    hidden, _ = _full_sequence(params, cfg, batch["tokens"], collect=False)
+    return hidden, torch.zeros((), dtype=torch.float32, device=hidden.device)
+
+
+def logits_from_hidden(params: dict, cfg: ModelConfig,
+                       hidden: torch.Tensor) -> torch.Tensor:
+    """LM head: ``lm_head``, or the tied ``embed.T`` (``K = d``,
+    ``N = vocab``; the largest SC-GEMM of every step) through ``sc_proj``."""
+    head = params["lm_head"] if "lm_head" in params else params["embed"].T
+    logits = sc_proj(hidden, head, cfg)
+    return softcap(logits.to(torch.float32), cfg.final_softcap)
+
+
+def _stack_cache(cfg: ModelConfig, kvs, extra_slots: int) -> tuple:
+    """Per-layer ``(B, S, KV, hd)`` pairs → the grouped cache tuples."""
+    gsz = cfg.group_size
+
+    def leaf(i, which):
+        t = torch.stack([kvs[l][which] for l in range(i, cfg.n_layers, gsz)])
+        if extra_slots:
+            pad = list(t.shape)
+            pad[2] = extra_slots
+            t = torch.cat([t, t.new_zeros(pad)], dim=2)
+        return t
+
+    return (tuple(leaf(i, 0) for i in range(gsz)),
+            tuple(leaf(i, 1) for i in range(gsz)))
+
+
+def prefill_step(params: dict, cfg: ModelConfig, batch: dict, *,
+                 extra_slots: int = 0) -> tuple[torch.Tensor, KVCache]:
+    """Process the full prompt → (last-token logits ``(B, 1, V)``, filled
+    :class:`KVCache`); ``extra_slots`` pads the cache's sequence axis."""
+    hidden, kvs = _full_sequence(params, cfg, batch["tokens"], collect=True)
+    b, s = hidden.shape[:2]
+    logits = logits_from_hidden(params, cfg, hidden[:, -1:])
+    k, v = _stack_cache(cfg, kvs, extra_slots)
+    pos = torch.full((b,), s, dtype=torch.int32, device=hidden.device)
+    return logits, KVCache(k=k, v=v, pos=pos)
+
+
+def prefill_chunk_step(params: dict, cfg: ModelConfig, cache: KVCache,
+                       batch: dict) -> tuple[torch.Tensor, KVCache]:
+    """Commit one prompt chunk into a B=1 staging cache at the cache's
+    current position (chunked prefill).
+
+    ``batch["tokens"]: (1, T)`` is the chunk, zero-padded past
+    ``batch["n_valid"]`` real tokens. Returns the logits of the last valid
+    row ``(1, 1, V)`` and the cache (updated in place) advanced by
+    ``n_valid``. Pad rows write garbage K/V past the prompt, which
+    ``cache_ops.truncate_seq`` slices away before pool admission.
+    """
+    tokens = batch["tokens"]
+    x = _embed_tokens(params, cfg, tokens)
+    b, t, _ = x.shape
+    n_valid = int(torch.as_tensor(batch["n_valid"]).reshape(-1)[0])
+    off = int(cache.pos.reshape(-1)[0])
+    pos = cache.pos.expand(b) if cache.pos.numel() == 1 else cache.pos
+    positions = (pos[:, None].to(torch.int32)
+                 + torch.arange(t, dtype=torch.int32, device=x.device)[None])
+    e = cache.k[0].shape[2]
+    if off + t > e:
+        raise CacheLayoutError(f"chunk [{off}, {off + t}) overruns the "
+                               f"staging cache extent {e}")
+    kv_pos = torch.arange(e, dtype=torch.int32, device=x.device).expand(b, e)
+    for i, layer in enumerate(params["layers"]):
+        k_cache, v_cache = _layer_kv(cache, cfg, i)
+        window = cfg.window_at(i % cfg.group_size)
+
+        def attend(p, h, k_cache=k_cache, v_cache=v_cache, window=window):
+            q, k, v = _qkv(p, h, cfg, positions)
+            # every row of the chunk sits at the shared staging offset;
+            # columns past the filled prefix are causally masked, so bucket
+            # padding and pad-row writes are exact no-ops for valid rows
+            k_cache[:, off:off + t] = k.to(k_cache.dtype)
+            v_cache[:, off:off + t] = v.to(v_cache.dtype)
+            return flash_attention(
+                q, k_cache, v_cache, q_positions=positions,
+                kv_positions=kv_pos, causal=True, window=window,
+                logit_softcap=cfg.attn_softcap,
+                q_block=min(cfg.q_block, t), kv_block=min(cfg.kv_block, e),
+                skip_masked_blocks=False, bf16_probs=cfg.bf16_probs)
+
+        x = _layer(layer, x, cfg, attend)
+    x = _final(params, cfg, x)
+    logits = logits_from_hidden(params, cfg, x[:, n_valid - 1:n_valid])
+    return logits, KVCache(k=cache.k, v=cache.v, pos=cache.pos + n_valid)
+
+
+# ------------------------------------------------------------------ decode
+
+def _run_decode(params: dict, cfg: ModelConfig, cache: KVCache, batch: dict,
+                attend_cached) -> tuple[torch.Tensor, KVCache]:
+    """Shared one-token decode: embed, run the layers, project.
+    ``attend_cached(layer_index, q, k, v, pos, window)`` writes this
+    token's K/V into the cache and attends."""
+    x = _embed_tokens(params, cfg, batch["tokens"])
+    b = x.shape[0]
+    pos = cache.pos.expand(b) if cache.pos.numel() == 1 else cache.pos
+    positions = pos[:, None]
+    for i, layer in enumerate(params["layers"]):
+        window = cfg.window_at(i % cfg.group_size)
+
+        def attend(p, h, i=i, window=window):
+            q, k, v = _qkv(p, h, cfg, positions)
+            return attend_cached(i, q, k, v, pos, window)
+
+        x = _layer(layer, x, cfg, attend)
+    x = _final(params, cfg, x)
+    logits = logits_from_hidden(params, cfg, x)
+    return logits, KVCache(k=cache.k, v=cache.v, pos=pos + 1)
+
+
+def decode_step(params: dict, cfg: ModelConfig, cache: KVCache,
+                batch: dict) -> tuple[torch.Tensor, KVCache]:
+    """One token for every sequence of a dense cache.
+    ``batch["tokens"]: (B, 1)``; positions are per sequence."""
+
+    def attend_cached(i, q, k, v, pos, window):
+        k_cache, v_cache = _layer_kv(cache, cfg, i)
+        b, s = k_cache.shape[:2]
+        rows = torch.arange(b, device=q.device)
+        # a position past the cache extent (an idle slot drifting) is
+        # dropped, never clamped onto a live row's tail
+        inside = pos.to(torch.long) < s
+        col = torch.clamp(pos.to(torch.long), max=s - 1)
+        keep = inside[:, None, None]
+        k_cache[rows, col] = torch.where(keep, k[:, 0].to(k_cache.dtype),
+                                         k_cache[rows, col])
+        v_cache[rows, col] = torch.where(keep, v[:, 0].to(v_cache.dtype),
+                                         v_cache[rows, col])
+        return decode_attention(q, k_cache, v_cache, q_position=pos,
+                                window=window,
+                                logit_softcap=cfg.attn_softcap)
+
+    return _run_decode(params, cfg, cache, batch, attend_cached)
+
+
+def paged_decode_step(params: dict, cfg: ModelConfig, cache: KVCache,
+                      tables: torch.Tensor,
+                      batch: dict) -> tuple[torch.Tensor, KVCache]:
+    """One token for every slot, straight on the paged pool.
+
+    ``cache`` is the ``cache_ops.paged_init`` layout (page pools
+    ``(ngroups, P, block, KV, hd)``) and ``tables`` the shared
+    ``(capacity, max_blocks)`` block table. Each layer scatters its token
+    into its page — ``(tables[slot, pos // block], pos % block)``, a free
+    slot's −1 entry landing in the trash page — and attends through the
+    table (``layers.paged_decode_attention``)."""
+    from .cache_ops import paged_token_entry
+
+    def attend_cached(i, q, k, v, pos, window):
+        k_pages, v_pages = _layer_kv(cache, cfg, i)
+        paged = PagedKV(k_pages, v_pages, tables)
+        entry, off = paged_token_entry(tables, pos, block=paged.block)
+        bid = torch.where(entry < 0, paged.trash, entry).to(torch.long)
+        off = off.to(torch.long)
+        k_pages[bid, off] = k[:, 0].to(k_pages.dtype)
+        v_pages[bid, off] = v[:, 0].to(v_pages.dtype)
+        return paged_decode_attention(q, paged, q_position=pos, window=window,
+                                      logit_softcap=cfg.attn_softcap,
+                                      kernel_impl=cfg.paged_attn_kernel)
+
+    return _run_decode(params, cfg, cache, batch, attend_cached)

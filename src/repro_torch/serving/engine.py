@@ -1,0 +1,562 @@
+"""Continuous-batching serving engine (port of ``repro/serving/engine.py``
+without the prefix cache and speculative decoding, which come with later
+slices).
+
+The engine is a step scheduler: one :meth:`Engine.step` spends a bounded
+budget of prefill-chunk work, admits a completed prefill into the pool, and
+runs one batched decode over every live slot; :meth:`Engine.run` and
+:meth:`Engine.stream` are loops over it.
+
+* *Chunked prefill (default)*: a prompt is prefilled ``chunk`` tokens at a
+  time into a B=1 staging cache of its prompt-bucket extent
+  (``launch.steps.prompt_buckets``); each step spends at most
+  ``prefill_budget`` tokens on it, so admission never stalls batched decode
+  for more than a chunk. The finished staging cache is truncated to the
+  prompt (``cache_ops.truncate_seq``) and admitted like a one-shot prefill.
+  ``prefill_mode="oneshot"`` keeps whole-prompt admission as the A/B.
+* *Grow (paged)*: before each decode step every live slot's next write
+  position gets its page (``PagedSlotPool.ensure_page``); exhaustion
+  preempts youngest-first — an in-flight staging prefill included — and
+  re-queues the request, whose restarted stream is identical.
+* *Decode*: one paged (or dense) decode step advances all slots a token;
+  tokens are pushed through per-request ``on_token`` callbacks or pulled
+  through :meth:`Engine.stream`.
+* *Evict*: a request leaves on EOS or length; its slot and pages free on
+  the same step.
+
+Determinism: with SC-GEMM on, per-request streams equal the sequential
+``launch.serve.generate`` baseline token for token — the projections are
+integer-exact with per-row scales, and every float reduction on the path
+is batch-invariant by construction (``models.layers``), on the CPU and on
+the card alike.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Iterator, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.errors import ConfigError, EngineInvariantError
+from repro_torch.launch.steps import (bucket_for, chunked_prefill_step,
+                                      decode_step, paged_decode_step,
+                                      prefill_step, prompt_buckets)
+from repro_torch.models import bind, cache_ops
+from repro_torch.models.transformer import params_to
+
+from .queue import Request, RequestQueue, RequestResult
+from .slots import PagedSlotPool, PoolExhausted, SlotEntry, SlotPool
+
+__all__ = ["Engine"]
+
+#: ``on_token(uid, index, token, finished_reason)`` — ``index`` is the
+#: 0-based position in the stream; ``finished_reason`` is None until the
+#: final token ("eos" / "length"). A preempted-and-readmitted request
+#: replays its stream from index 0; ``Engine.stream`` dedupes by index.
+TokenCallback = Callable[[str, int, np.ndarray, "str | None"], None]
+
+
+@dataclass
+class _StagingPrefill:
+    """One in-flight chunked prefill: the queue head being committed, chunk
+    by chunk, into a B=1 staging cache of ``bucket`` extent. ``rows``
+    holds the final chunk's logit row once complete."""
+    entry: SlotEntry
+    bucket: int
+    cache: Any
+    rows: np.ndarray | None = None
+
+    @property
+    def done(self) -> bool:
+        return self.entry.prefill_offset >= self.entry.request.prompt_len
+
+
+class Engine:
+    """Slot-pool serving engine over one bound model.
+
+    ``capacity`` is the decode batch; ``max_seq`` bounds ``prompt +
+    max_new`` per request. ``paged=True`` backs the pool with pages of
+    ``block`` tokens under a budget of ``n_blocks`` pages (default no
+    oversubscription); ``fused=False`` decodes through the gather → dense
+    decode → commit round-trip instead of attending on the pages.
+    ``continuous=False`` is static (gang) batching. ``prefill_mode`` is
+    "chunked" (``chunk`` tokens per chunk, ``prefill_budget`` tokens per
+    step) or "oneshot".
+
+    ``device=None`` means the card; a machine without CUDA raises
+    :class:`ConfigError` unless ``device="cpu"`` is asked for. The prefix
+    cache (``prefix_cache=True``), speculative decoding
+    (``speculate_k > 0``) and SC attention (``cfg.attn_sc``) come with later
+    slices of the port and are refused here.
+    """
+
+    def __init__(self, cfg, params, *, capacity: int = 4, max_seq: int = 256,
+                 device: str | torch.device | None = None,
+                 continuous: bool = True, paged: bool = True, block: int = 64,
+                 n_blocks: int | None = None, fused: bool = True,
+                 prefill_mode: str = "chunked", chunk: int = 16,
+                 prefill_budget: int | None = None,
+                 prefix_cache: bool = False,
+                 speculate_k: int | None = None):
+        cfg.validate()
+        if prefill_mode not in ("chunked", "oneshot"):
+            raise ConfigError(f"unknown prefill_mode {prefill_mode!r}")
+        if prefix_cache:
+            raise ConfigError("the copy-on-write prefix cache comes with the "
+                              "prefix-cache slice of the port; pass "
+                              "prefix_cache=False")
+        spec = cfg.speculate_k if speculate_k is None else speculate_k
+        if spec:
+            raise ConfigError("speculative decoding (speculate_k > 0) comes "
+                              "with the speculative-decoding slice of the "
+                              "port")
+        if cfg.attn_sc:
+            raise ConfigError("SC attention (attn_sc=True) comes with the "
+                              "SC-attention slice of the port")
+        self._m = bind(cfg, device)
+        self.device = self._m.device
+        self.cfg = cfg
+        self.capacity = capacity
+        self.max_seq = max_seq
+        self.continuous = continuous
+        self.paged = paged
+        self.fused = fused and paged
+        self.prefill_mode = prefill_mode
+        self.chunk = chunk
+        self.prefill_budget = chunk if prefill_budget is None \
+            else prefill_budget
+        self.buckets = prompt_buckets(max_seq, chunk)
+        self._params = params_to(params, self.device)
+
+        if paged:
+            block, max_blocks, n_blocks = PagedSlotPool.plan(
+                capacity, max_seq, block, n_blocks)
+            self.pool: Any = PagedSlotPool(self._m, capacity, max_seq,
+                                           block=block, n_blocks=n_blocks)
+        else:
+            self.pool = SlotPool(self._m, capacity, max_seq)
+
+        self._tok_buf = np.zeros((capacity, 1), np.int32)
+        self.queue = RequestQueue()
+        self.stats: dict[str, Any] = {}
+        self._step = 0          # decode-step counter (admissions are free)
+        self._n_prefills = 0
+        self._n_prefill_chunks = 0
+        self._n_preemptions = 0
+        self._admit_counter = 0
+        self._staging: _StagingPrefill | None = None
+        self._results: dict[str, RequestResult] = {}
+        self._callbacks: dict[str, TokenCallback] = {}
+        self._first_token_at: dict[str, float] = {}
+        self._prefill_shapes: set[tuple[int, int]] = set()
+        self._last_decode_end: float | None = None
+        self._max_decode_gap = 0.0
+        self._decode_s = 0.0
+        self._backpressure: dict[str, list[dict]] = {"admission": [],
+                                                     "decode": []}
+
+    # ------------------------------------------------------------ plumbing
+
+    @property
+    def has_work(self) -> bool:
+        """Anything queued, staging, or live in a slot."""
+        return (bool(self.queue) or bool(self.pool.entries)
+                or self._staging is not None)
+
+    def _check_request(self, req: Request) -> None:
+        if req.prompt.ndim != 1:
+            raise ConfigError(f"request {req.uid!r}: codebook prompts come "
+                              f"with the audio slice of the port")
+        self.pool.check_fits(req)
+
+    def _rows(self, logits: torch.Tensor) -> np.ndarray:
+        return logits[:, -1].to(torch.float32).cpu().numpy()
+
+    def _sample(self, entry: SlotEntry, row: np.ndarray) -> np.ndarray:
+        """One token from a logit row. Greedy is argmax; temperature > 0
+        draws from a per-request ``torch.Generator`` seeded by the request,
+        so the stream depends on the request alone."""
+        req = entry.request
+        if req.temperature <= 0:
+            return np.argmax(row, axis=-1).astype(np.int32)
+        if entry.generator is None:
+            entry.generator = torch.Generator().manual_seed(req.seed)
+        probs = torch.softmax(torch.as_tensor(row, dtype=torch.float64)
+                              / req.temperature, dim=-1)
+        tok = torch.multinomial(probs, 1, generator=entry.generator)
+        return np.asarray(int(tok[0]), np.int32)
+
+    def _finish_reason(self, entry: SlotEntry, tok: np.ndarray) -> str | None:
+        req = entry.request
+        if req.eos_id is not None and int(tok) == req.eos_id:
+            return "eos"
+        if entry.n_generated >= req.max_new_tokens:
+            return "length"
+        return None
+
+    def _emit(self, slot: int, entry: SlotEntry, tok: np.ndarray) -> None:
+        """Record a sampled token, push it to the request's stream, and
+        finish + evict or park it for the next decode step."""
+        entry.generated.append(tok)
+        uid = entry.request.uid
+        self._first_token_at.setdefault(uid, time.perf_counter())
+        reason = self._finish_reason(entry, tok)
+        cb = self._callbacks.get(uid)
+        if cb is not None:
+            cb(uid, entry.n_generated - 1, tok, reason)
+        if reason is not None:
+            self.pool.evict(slot)
+            self._callbacks.pop(uid, None)
+            req = entry.request
+            self._results[uid] = RequestResult(
+                uid=uid,
+                tokens=np.stack(entry.generated).astype(np.int32),
+                prompt_len=req.prompt_len,
+                finished_reason=reason,
+                enqueued_at=req.enqueued_at,
+                admitted_at=entry.admitted_at,
+                finished_at=time.perf_counter(),
+                admit_step=entry.admit_step,
+                finish_step=self._step,
+                first_token_at=self._first_token_at.pop(uid),
+            )
+        else:
+            self._tok_buf[slot] = tok
+
+    # ----------------------------------------------------- chunked prefill
+
+    def _start_prefill(self, req: Request) -> _StagingPrefill:
+        """Pop the queue head into a fresh staging prefill of its bucket;
+        the entry is created now, so it is the youngest for preemption."""
+        self.pool.check_fits(req)
+        bucket = bucket_for(req.prompt_len, self.buckets)
+        self._prefill_shapes.add((bucket, self.chunk))
+        entry = SlotEntry(request=req, admitted_at=0.0, admit_step=self._step,
+                          admit_index=self._admit_counter)
+        self._admit_counter += 1
+        return _StagingPrefill(entry=entry, bucket=bucket,
+                               cache=self._m.init_cache(1, bucket))
+
+    def _prefill_chunk_once(self, st: _StagingPrefill) -> None:
+        """Commit one chunk of the staging prompt (the final chunk is
+        zero-padded past its real tokens)."""
+        req = st.entry.request
+        off = st.entry.prefill_offset
+        nv = min(self.chunk, req.prompt_len - off)
+        toks = np.zeros((self.chunk,), np.int32)
+        toks[:nv] = req.prompt[off:off + nv]
+        batch = {"tokens": torch.as_tensor(toks, device=self.device)[None],
+                 "n_valid": nv}
+        logits, st.cache = chunked_prefill_step(self._m, self._params,
+                                                st.cache, batch)
+        st.entry.prefill_offset = off + nv
+        self._n_prefill_chunks += 1
+        if st.done:
+            st.rows = self._rows(logits)[0]
+
+    def _can_admit_staged(self, st: _StagingPrefill) -> bool:
+        if not self.pool.has_free:
+            return False
+        if not self.paged:
+            return True
+        return self.pool.can_admit(st.entry.request)
+
+    def _admit_staged(self) -> None:
+        """Completed staging prefill → pool admission: truncate the bucket
+        padding to the prompt, insert, and emit the first token from the
+        held final-chunk logits."""
+        st = self._staging
+        self._staging = None
+        req = st.entry.request
+        single = cache_ops.truncate_seq(st.cache, req.prompt_len)
+        st.entry.admitted_at = time.perf_counter()
+        st.entry.admit_step = self._step
+        slot = self.pool.admit(st.entry, single)
+        self._n_prefills += 1
+        self._emit(slot, st.entry, self._sample(st.entry, st.rows))
+
+    def _advance_prefill(self, budget_tokens: int) -> None:
+        """Spend up to ``budget_tokens`` of prefill-chunk work and admit the
+        staging prompt the moment it completes and fits; a completed but
+        unadmittable prompt is held while the live slots decode."""
+        chunks_left = max(1, budget_tokens // self.chunk)
+        while True:
+            if self._staging is None:
+                if not self.queue:
+                    return
+                self._staging = self._start_prefill(self.queue.pop())
+            st = self._staging
+            while not st.done and chunks_left > 0:
+                self._prefill_chunk_once(st)
+                chunks_left -= 1
+            if not st.done:
+                return
+            if not self._can_admit_staged(st):
+                self._note_backpressure("admission", st.entry.request.uid)
+                return
+            self._admit_staged()
+            if chunks_left <= 0:
+                return
+
+    # --------------------------------------------------- one-shot admission
+
+    def _may_admit_next(self) -> bool:
+        if not self.paged:
+            return True
+        return self.pool.can_admit(self.queue.peek())
+
+    def _admit_one(self, req: Request) -> None:
+        self._prefill_shapes.add((req.prompt_len, 0))
+        batch = {"tokens": torch.as_tensor(req.prompt, device=self.device)[None]}
+        logits, single = prefill_step(self._m, self._params, batch)
+        entry = SlotEntry(request=req, admitted_at=time.perf_counter(),
+                          admit_step=self._step,
+                          admit_index=self._admit_counter,
+                          prefill_offset=req.prompt_len)
+        self._admit_counter += 1
+        self._n_prefills += 1
+        slot = self.pool.admit(entry, single)
+        self._emit(slot, entry, self._sample(entry, self._rows(logits)[0]))
+
+    # ----------------------------------------------------------- the pool
+
+    def _preempt_youngest(self) -> None:
+        """Evict the most recently admitted slot — or drop the in-flight
+        staging prefill if it is younger — and re-queue its request."""
+        cands: list[tuple[int, int | None]] = [
+            (e.admit_index, s) for s, e in self.pool.entries.items()]
+        if self._staging is not None:
+            cands.append((self._staging.entry.admit_index, None))
+        _, victim = max(cands, key=lambda t: t[0])
+        if victim is None:
+            st = self._staging
+            self._staging = None
+            self.queue.requeue(st.entry.request)
+        else:
+            entry = self.pool.evict(victim)
+            self.queue.requeue(entry.request)
+        self._n_preemptions += 1
+
+    def _note_backpressure(self, reason: str, uid: str | None,
+                           pages_needed: int | None = None,
+                           pages_free: int | None = None) -> None:
+        events = self._backpressure[reason]
+        if events and events[-1]["uid"] == uid:
+            return
+        if pages_free is None and self.paged:
+            pages_free = self.pool.free_pages
+        events.append({"uid": uid, "pages_needed": pages_needed,
+                       "pages_free": pages_free})
+
+    def _grow_pages(self) -> None:
+        """Allocate each live slot's next write page, oldest first,
+        preempting youngest-first under pressure."""
+        for slot in sorted(self.pool.entries,
+                           key=lambda s: self.pool.entries[s].admit_index):
+            while slot in self.pool.entries:
+                entry = self.pool.entries[slot]
+                try:
+                    self.pool.ensure_page(slot, entry.next_write_pos)
+                    break
+                except PoolExhausted as e:
+                    self._note_backpressure(e.reason, e.uid,
+                                            e.pages_needed, e.pages_free)
+                    if len(self.pool.entries) <= 1 and self._staging is None:
+                        raise   # run() pre-check makes this unreachable
+                    self._preempt_youngest()
+
+    @torch.no_grad()
+    def _decode_once(self) -> np.ndarray:
+        """One batched decode step over every slot; returns the ``(C, V)``
+        last-token logit rows."""
+        t0 = time.perf_counter()
+        batch = {"tokens": torch.as_tensor(self._tok_buf, device=self.device)}
+        if self.paged:
+            self._grow_pages()
+            tables = torch.as_tensor(self.pool.tables, device=self.device)
+            if self.fused:
+                logits, self.pool.cache = paged_decode_step(
+                    self._m, self._params, self.pool.cache, tables, batch)
+            else:
+                block = self.pool.block
+                dense = cache_ops.paged_gather(self.pool.cache, tables,
+                                               block=block)
+                logits, dense = decode_step(self._m, self._params, dense,
+                                            batch)
+                self.pool.cache = cache_ops.paged_commit(
+                    self.pool.cache, dense, tables, block=block)
+        else:
+            logits, self.pool.cache = decode_step(self._m, self._params,
+                                                  self.pool.cache, batch)
+        self._step += 1
+        rows = self._rows(logits)
+        now = time.perf_counter()
+        self._decode_s += now - t0
+        if self._last_decode_end is not None:
+            self._max_decode_gap = max(self._max_decode_gap,
+                                       now - self._last_decode_end)
+        self._last_decode_end = now
+        return rows
+
+    # ------------------------------------------------------ the scheduler
+
+    def step(self) -> bool:
+        """One scheduler step: ≤ ``prefill_budget`` tokens of prefill work
+        (admitting completed prompts), then one batched decode over the live
+        slots. Returns whether work remains."""
+        if not self.has_work:
+            return False
+        if self.prefill_mode == "chunked":
+            if self.continuous:
+                self._advance_prefill(self.prefill_budget)
+            elif not self.pool.entries:
+                self._advance_prefill(self.max_seq * self.capacity)
+        else:
+            may_admit = self.continuous or not self.pool.entries
+            while may_admit and self.pool.has_free and self.queue \
+                    and self._may_admit_next():
+                self._admit_one(self.queue.pop())
+                if not self.continuous and not self.pool.has_free:
+                    break
+        if not self.pool.entries:
+            # an empty pool has every slot and page free, so anything still
+            # refused now can never be admitted — fail, don't spin
+            st = self._staging
+            if st is not None and st.done and not self._can_admit_staged(st):
+                self._staging = None
+                raise PoolExhausted(
+                    f"request {st.entry.request.uid!r} cannot be admitted "
+                    f"even into an empty pool", uid=st.entry.request.uid)
+            if (self.prefill_mode == "oneshot" and self.queue
+                    and not self._may_admit_next()):
+                raise PoolExhausted(
+                    f"request {self.queue.peek().uid!r} cannot be admitted "
+                    f"even into an empty pool", uid=self.queue.peek().uid)
+            return self.has_work
+        rows = self._decode_once()
+        for slot in self.pool.active_slots:
+            entry = self.pool.entries[slot]
+            self._emit(slot, entry, self._sample(entry, rows[slot]))
+        return self.has_work
+
+    # ------------------------------------------------- streaming surface
+
+    def submit(self, request: Request,
+               on_token: TokenCallback | None = None) -> None:
+        """Queue a request; ``on_token`` receives every emitted token
+        (including post-preemption replays). Unfittable requests are
+        refused here, before any device work."""
+        self._check_request(request)
+        self.queue.submit(request)
+        if on_token is not None:
+            self._callbacks[request.uid] = on_token
+
+    def stream(self, request: Request) -> Iterator[np.ndarray]:
+        """Submit ``request`` and yield its tokens as they are generated,
+        driving the engine; replayed indexes after a preemption are
+        deduped, so each token is seen once."""
+        buf: list[tuple[int, np.ndarray]] = []
+        done: list[str] = []
+
+        def on_token(uid, index, tok, reason):
+            buf.append((index, tok))
+            if reason is not None:
+                done.append(reason)
+
+        self.submit(request, on_token=on_token)
+        nxt = 0
+        while True:
+            while buf:
+                index, tok = buf.pop(0)
+                if index == nxt:
+                    nxt += 1
+                    yield tok
+            if done:
+                self._results.pop(request.uid, None)
+                return
+            self.step()
+            if not self.has_work and not buf and not done:
+                raise EngineInvariantError(
+                    f"engine drained without finishing {request.uid!r}")
+
+    # ----------------------------------------------------------- the loop
+
+    def run(self, requests: Sequence[Request] = ()) -> list[RequestResult]:
+        """Drain ``requests`` (plus anything already queued); returns
+        results in submission order and fills ``self.stats``."""
+        for r in requests:
+            self._check_request(r)
+        order = [r.uid for r in requests]
+        for r in requests:
+            self.queue.submit(r)
+        t0 = time.perf_counter()
+        steps0, prefills0 = self._step, self._n_prefills
+        chunks0, preempt0 = self._n_prefill_chunks, self._n_preemptions
+        decode0 = self._decode_s
+        self._backpressure = {"admission": [], "decode": []}
+        self._last_decode_end = None
+        self._max_decode_gap = 0.0
+
+        while self.step():
+            pass
+
+        wall = time.perf_counter() - t0
+        if order:
+            out = [self._results.pop(uid) for uid in order]
+        else:
+            out = sorted(self._results.values(), key=lambda r: r.admitted_at)
+            self._results.clear()
+        generated = sum(r.n_generated for r in out)
+
+        def pctl(values, q):
+            v = sorted(values) or [0.0]
+            if q == 0.5:
+                return v[len(v) // 2]
+            return v[min(len(v) - 1, int(np.ceil(q * len(v))) - 1)]
+
+        lats = [r.latency_s for r in out]
+        ttfts = [r.ttft_s for r in out]
+        itls = [r.itl_s for r in out if r.n_generated > 1]
+        steps = self._step - steps0
+        self.stats = {
+            "mode": "continuous" if self.continuous else "static",
+            "layout": "paged" if self.paged else "contiguous",
+            "prefill_mode": self.prefill_mode,
+            "device": str(self.device),
+            "requests": len(out),
+            "generated_tokens": generated,
+            "decode_steps": steps,
+            "decode_s": self._decode_s - decode0,
+            "decode_ms_per_step": ((self._decode_s - decode0) * 1e3
+                                   / max(steps, 1)),
+            "prefills": self._n_prefills - prefills0,
+            "prefill_chunks": self._n_prefill_chunks - chunks0,
+            "preemptions": self._n_preemptions - preempt0,
+            "wall_s": wall,
+            "tok_per_s": generated / wall if wall > 0 else float("inf"),
+            "p50_latency_s": pctl(lats, 0.5),
+            "p99_latency_s": pctl(lats, 0.99),
+            "ttft_p50_s": pctl(ttfts, 0.5),
+            "ttft_p99_s": pctl(ttfts, 0.99),
+            "itl_p50_s": pctl(itls, 0.5),
+            "itl_p99_s": pctl(itls, 0.99),
+            "max_decode_gap_s": self._max_decode_gap,
+            "chunk": self.chunk,
+            "buckets": self.buckets,
+            "prefill_shapes": len(self._prefill_shapes),
+            "prefix_cache": False,
+            "speculative": False,
+        }
+        if self.paged:
+            self.stats.update({
+                "block": self.pool.block,
+                "n_blocks": self.pool.n_blocks,
+                "pages_in_use": self.pool.pages_in_use,
+                "pages_live": self.pool.pages_live,
+                "peak_pages": self.pool.peak_pages,
+                "decode_path": "fused" if self.fused else "gather",
+                "backpressure": self._backpressure,
+            })
+        return out

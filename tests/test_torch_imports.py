@@ -1,0 +1,146 @@
+"""The PyTorch port's package boundary: it imports neither JAX nor the JAX
+package, its entry points default to the card and refuse to fall back to
+the CPU silently, and its configs describe the same architectures as the
+JAX package's."""
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro.configs.registry import ARCHS as JAX_ARCHS
+from repro_torch.configs.registry import ARCHS
+from repro_torch.errors import ConfigError
+
+# several pytest workers share the machine: a few threads each
+torch.set_num_threads(2)
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+PORT_MODULES = [
+    "repro_torch", "repro_torch.errors", "repro_torch.device",
+    "repro_torch.convert",
+    "repro_torch.configs.base", "repro_torch.configs.registry",
+    "repro_torch.core.tcu", "repro_torch.core.sc_numerics",
+    "repro_torch.core.sc_matmul", "repro_torch.core.sc_layers",
+    "repro_torch.kernels.build", "repro_torch.kernels.sc_matmul",
+    "repro_torch.kernels.ops", "repro_torch.kernels.ref",
+    "repro_torch.kernels.paged_attention", "repro_torch.models",
+    "repro_torch.models.layers", "repro_torch.models.transformer",
+    "repro_torch.models.cache_ops", "repro_torch.models.model_zoo",
+    "repro_torch.serving", "repro_torch.serving.queue",
+    "repro_torch.serving.slots", "repro_torch.serving.engine",
+    "repro_torch.launch.steps", "repro_torch.launch.serve",
+]
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = ("import importlib, sys\n"
+            f"for m in {PORT_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = {"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    src = (SRC.parent / "chip_smoke.py").read_text()
+    assert "import jax" not in src and "from jax" not in src
+    assert "from repro." not in src and "import repro\n" not in src
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """Without CUDA, every entry point that defaults to the card raises a
+    typed ConfigError at once; asking for the CPU runs."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import bind
+    from repro_torch.models.transformer import init_kv_cache, init_params
+    from repro_torch.serving import Engine, Request
+    _no_cuda(monkeypatch)
+    cfg = ARCHS["smollm-360m"].reduced(dtype="float32")
+    params = init_params(cfg, 0, device="cpu")
+    with pytest.raises(ConfigError, match="CUDA"):
+        Engine(cfg, params)
+    with pytest.raises(ConfigError, match="CUDA"):
+        bind(cfg)
+    with pytest.raises(ConfigError, match="CUDA"):
+        init_params(cfg, 0)
+    with pytest.raises(ConfigError, match="CUDA"):
+        init_kv_cache(cfg, 1, 8)
+    with pytest.raises(ConfigError, match="CUDA"):
+        generate(cfg, params, torch.zeros((1, 4), dtype=torch.int32),
+                 gen_tokens=1)
+    engine = Engine(cfg, params, device="cpu", capacity=1, max_seq=16)
+    out = engine.run([Request(uid="a", prompt=[1, 2, 3], max_new_tokens=2)])
+    assert out[0].n_generated == 2 and engine.stats["device"] == "cpu"
+
+
+def test_serve_cli_defaults_to_the_card(monkeypatch):
+    from repro_torch.launch.serve import main
+    _no_cuda(monkeypatch)
+    with pytest.raises(ConfigError, match="CUDA"):
+        main(["--arch", "smollm-360m", "--reduced"])
+
+
+def test_serve_cli_runs_on_the_cpu(capsys):
+    from repro_torch.launch.serve import main
+    main(["--arch", "smollm-360m", "--reduced", "--device", "cpu",
+          "--sc-gemm", "--requests", "3", "--prompt-len", "8", "--gen", "4",
+          "--capacity", "2", "--block", "4"])
+    out = capsys.readouterr().out
+    assert "[serve] cpu continuous/paged/chunked: 3 requests" in out
+
+
+def test_later_slices_are_refused():
+    from repro_torch.models import bind
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import Engine
+    cfg = ARCHS["smollm-360m"].reduced(dtype="float32")
+    params = init_params(cfg, 0, device="cpu")
+    with pytest.raises(ConfigError, match="prefix-cache"):
+        Engine(cfg, params, device="cpu", prefix_cache=True)
+    with pytest.raises(ConfigError, match="speculative"):
+        Engine(cfg, params, device="cpu", speculate_k=2)
+    with pytest.raises(ConfigError, match="SC-attention"):
+        Engine(dataclasses.replace(cfg, attn_sc=True), params, device="cpu")
+    with pytest.raises(ConfigError, match="slice"):
+        bind(ARCHS["mamba2-130m"].reduced(), "cpu")
+
+
+@pytest.mark.parametrize("arch", sorted(JAX_ARCHS))
+def test_configs_match_the_jax_package(arch):
+    """Same fields, same values, same reduced() rule, same derived
+    properties for every registered architecture."""
+    ours, theirs = ARCHS[arch], JAX_ARCHS[arch]
+    fields = [f.name for f in dataclasses.fields(ours)]
+    assert fields == [f.name for f in dataclasses.fields(theirs)]
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert (dataclasses.asdict(ours.reduced(dtype="float32"))
+            == dataclasses.asdict(theirs.reduced(dtype="float32")))
+    assert ours.group_size == theirs.group_size
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["checkout", "alone"])
+def test_chip_smoke_refuses_without_a_card_or_the_port(tmp_path, alone):
+    """Without CUDA (here), and in a directory that holds nothing of the
+    repository, chip_smoke.py exits non-zero and prints no result line."""
+    script = SRC.parent / "chip_smoke.py"
+    if alone:
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+        script = tmp_path / "chip_smoke.py"
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True,
+                          text=True, cwd=tmp_path, timeout=120,
+                          env={"PATH": "/usr/bin:/bin"})
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
