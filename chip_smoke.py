@@ -2,30 +2,40 @@
 """Quickest proof that the PyTorch/CUDA port (``src/repro_torch``) starts on
 the GPU: builds its CUDA kernels from this checkout's sources, holds each
 kernel against its plain PyTorch version on the card, then serves requests
-through the port's engine at smollm-360m's full width and checks the
-streams against the sequential baseline.
+through the port's engine at smollm-360m's full width — float attention,
+then SC attention — and checks the streams against the sequential
+baseline.
 
     python3 chip_smoke.py            # one CUDA card; ~10 minutes at most
-    python3 chip_smoke.py --only build,sc_gemm   # a subset, for debugging
+    python3 chip_smoke.py --only build,flash   # a subset, for debugging
 
 Phases (each raises on failure, so any failure exits non-zero):
 
 1. the card's name and power limit, as ``nvidia-smi`` prints them;
-2. build both kernels (one ``nvcc`` per source, started together);
+2. build the three kernels (one ``nvcc`` per source, started together;
+   each library keyed by its source and the shared header);
 3. SC-GEMM counts kernel vs its plain version at the main path's shapes
    (decode M=4 and chunked-prefill M=16) plus ragged and other-width
    cases — counts must be exactly equal; kernel ms, plain ms and the bound;
 4. paged decode-attention kernel vs its plain version at smollm's layout,
-   f32 and bf16, fragmented tables, one windowed case;
-5. a reduced smollm-360m (float32) cross-check: prefill logits on the
+   f32 and bf16, float and SC at 4 and 8 bits, fragmented tables, windows,
+   a single-KV-head layout (SC);
+5. flash-attention kernel vs its plain version: f32 and bf16, float and SC
+   at 4 and 8 bits, D 64 and 128, G 3, 2 and 1, ragged Sq/Skv, smollm's
+   one-shot and chunked shapes; chunked rows must equal one-shot rows bit
+   for bit through the kernel; kernel, plain, bound and (float)
+   ``scaled_dot_product_attention`` ms;
+6. a reduced smollm-360m (float32) cross-check: prefill logits on the
    card agree with the CPU's, and the engine's streams on both are
    compared;
-6. serve 8 requests at full width (smollm-360m, bf16, SC-GEMM on, random
+7. serve 8 requests at full width (smollm-360m, bf16, SC-GEMM on, random
    weights from seed 0) through ``Engine(capacity=4, max_seq=256, block=64,
-   chunk=16)``; the launch counters, set to 0 just before, must show both
-   kernels on every decode step; streams must equal the sequential
-   ``generate`` baseline on the card;
-7. a ``torch.profiler`` pass over two full-width decode steps: device
+   chunk=16)``; the launch counters, set to 0 just before, must show the
+   kernels on every decode step and prefill chunk; streams must equal the
+   sequential ``generate`` baseline on the card;
+8. the same with SC attention at 8 bits, chunked and then one-shot
+   prefill, each against the sequential baseline;
+9. a ``torch.profiler`` pass over two full-width decode steps: device
    time by kernel and host time by operator (where a step's time goes).
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -81,6 +91,32 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def check_close(got, want, *, rtol, atol, v=None, bits=None, what=""):
+    """Kernel vs plain version. Float: ``allclose(rtol, atol)``. SC: the
+    scores and planes repeat the plain float32 operations one for one, so
+    the same tolerance holds for all but 1% of the elements; a probability
+    within an ulp of a rounding boundary may move one magnitude step, so
+    no element may differ by more than one output quantization step
+    ``max|v| / (2**bits - 1)`` plus the float tolerance. Returns the max
+    abs error."""
+    import torch
+    from repro_torch.kernels.flash_attention import sc_tolerance
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    worst = err.max().item() if err.numel() else 0.0
+    loose = ~torch.isclose(got, want, rtol=rtol, atol=atol)
+    if bits is None:
+        ok = not bool(loose.any())
+    else:
+        step = sc_tolerance(v, bits)
+        ok = (worst <= step + atol + rtol * want.abs().max().item()
+              and loose.float().mean().item() <= 0.01)
+    if not ok:
+        raise AssertionError(f"{what}: kernel disagrees with its plain "
+                             f"version, max abs err {worst}")
+    return worst
 
 
 def phase_card() -> str:
@@ -212,49 +248,214 @@ def phase_paged() -> dict:
     # f32: the kernel reassociates the softmax sums over 32-token tiles
     # (online rescaling) against the plain version's one exact softmax, a
     # few float32 ulps; bf16: both cast the float32 result to bf16 once,
-    # so they may land one bf16 ulp (2**-8 relative) apart.
+    # so they may land one bf16 ulp (2**-8 relative) apart. SC: the same,
+    # plus one quantization step at most (check_close).
     tol = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1.6e-2, 1e-2)}
-    cases = [(torch.float32, None, [100, 255, 37, 64]),
-             (torch.bfloat16, None, [100, 255, 37, 64]),
-             (torch.float32, 40, [100, 255, 37, 64]),
-             (torch.bfloat16, 40, [200, 3, 130, 191]),
-             (torch.float32, None, [0, 63, 127, 191])]
+    f32, bf16 = torch.float32, torch.bfloat16
+    main = [100, 255, 37, 64]
+    # (dtype, window, positions, sc_bits, layout overrides)
+    cases = [(f32, None, main, None, {}), (bf16, None, main, None, {}),
+             (f32, 40, main, None, {}), (bf16, 40, [200, 3, 130, 191], None, {}),
+             (f32, None, [0, 63, 127, 191], None, {})]
+    for bits in (4, 8):
+        cases += [(f32, None, main, bits, {}), (bf16, None, main, bits, {}),
+                  (f32, 40, [200, 3, 130, 191], bits, {}),
+                  (bf16, None, [0, 63, 127, 191], bits, {}),
+                  (f32, None, [90, 17, 255, 0], bits, dict(kv=1, g=1)),
+                  (bf16, 33, [90, 17, 255, 130], bits, dict(kv=1, g=1, d=128,
+                                                           block=32, mb=8))]
     rows = []
-    for dtype, window, positions in cases:
+    for dtype, window, positions, bits, geom in cases:
         q, k, v, tables, qpos = _paged_case(dtype, window, positions, gen,
-                                            dev)
-        got = paged_attention(q, k, v, tables, qpos, window=window)
-        want = paged_attention_torch(q, k, v, tables, qpos, window=window)
+                                            dev, **geom)
+        got = paged_attention(q, k, v, tables, qpos, window=window,
+                              sc_bits=bits)
+        want = paged_attention_torch(q, k, v, tables, qpos, window=window,
+                                     sc_bits=bits)
         torch.cuda.synchronize()
         rtol, atol = tol[dtype]
-        err = (got.float() - want.float()).abs().max().item()
-        if not torch.allclose(got.float(), want.float(), rtol=rtol,
-                              atol=atol):
-            raise AssertionError(f"paged kernel disagrees ({dtype}, window "
-                                 f"{window}, positions {positions}): max abs "
-                                 f"err {err}")
-        ms = cuda_ms(lambda: paged_attention(q, k, v, tables, qpos,
-                                             window=window), iters=200)
-        plain_ms = cuda_ms(lambda: paged_attention_torch(
-            q, k, v, tables, qpos, window=window), iters=20)
+        err = check_close(got, want, rtol=rtol, atol=atol, v=v, bits=bits,
+                          what=f"paged ({dtype}, window {window}, sc_bits "
+                               f"{bits}, positions {positions}, {geom})")
         c, kv, g, d = q.shape
-        esz = q.element_size()
-        rows_read = sum(min(p + 1, window or p + 1) for p in positions)
-        nbytes = (2 * rows_read * kv * d * esz + 2 * q.numel() * esz
-                  + tables.numel() * 4 + qpos.numel() * 4)
-        ops = 4 * rows_read * kv * g * d
-        rate = BF16_OPS_S if dtype == torch.bfloat16 else FP32_OPS_S
-        bound = max(nbytes / HBM_BYTES_S, ops / rate) * 1e3
         row = {"dtype": str(dtype).replace("torch.", ""), "window": window,
-               "positions": positions, "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound,
-               "bound_by": "bytes" if nbytes / HBM_BYTES_S >= ops / rate
-               else "operations", "bytes": nbytes, "ops": ops}
+               "positions": positions, "sc_bits": bits, "layout": {
+                   "C": c, "KV": kv, "G": g, "D": d, "block": k.shape[1],
+                   "MB": tables.shape[1]}, "max_abs_err": err}
+        timed = not geom and window is None and positions == main
+        if timed:
+            ms = cuda_ms(lambda: paged_attention(q, k, v, tables, qpos,
+                                                 window=window, sc_bits=bits),
+                         iters=200)
+            plain_ms = cuda_ms(lambda: paged_attention_torch(
+                q, k, v, tables, qpos, window=window, sc_bits=bits),
+                iters=20)
+            esz = q.element_size()
+            rows_read = sum(min(p + 1, window or p + 1) for p in positions)
+            nbytes = (2 * rows_read * kv * d * esz + 2 * q.numel() * esz
+                      + tables.numel() * 4 + qpos.numel() * 4)
+            ops = 4 * rows_read * kv * g * d
+            rate = (INT8_OPS_S if bits else BF16_OPS_S
+                    if dtype == torch.bfloat16 else FP32_OPS_S)
+            bound = max(nbytes / HBM_BYTES_S, ops / rate) * 1e3
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                       bound_by="bytes" if nbytes / HBM_BYTES_S >= ops / rate
+                       else "operations", bytes=nbytes, ops=ops)
         rows.append(row)
-        log(f"[paged] {row['dtype']:8s} window={window} pos={positions}: "
-            f"max abs err {err:.2e} (rtol {rtol}, atol {atol}), kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.5f} ms")
+        timing = (f", kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} "
+                  f"ms, bound {row['bound_ms']:.5f} ms" if timed else "")
+        log(f"[paged] {row['dtype']:8s} sc={bits} window={window} "
+            f"pos={positions} {geom or ''}: max abs err {err:.2e}{timing}")
     return {"cases": rows}
+
+
+def _flash_inputs(dtype, b, h, kv, sq, skv, d, gen, dev, model_layout):
+    """Random q, k, v in the kernel's (B, heads, S, D) shape; with
+    ``model_layout`` they are transposed views of (B, S, heads, D) tensors,
+    as the model passes them."""
+    import torch
+
+    def rnd(heads, s):
+        if model_layout:
+            return torch.randn((b, s, heads, d), generator=gen, device=dev
+                               ).to(dtype).transpose(1, 2)
+        return torch.randn((b, heads, s, d), generator=gen,
+                           device=dev).to(dtype)
+    return rnd(h, sq), rnd(kv, skv), rnd(kv, skv)
+
+
+def _flash_bound(q, k, q_offset, bits):
+    """Least time for one call: q read and out written once, and the K/V
+    rows the causal rows need read once, against the QKᵀ and PV operations
+    those rows need, at the peak for the operands' type."""
+    import torch
+    b, h, sq, d = q.shape
+    kv, skv = k.shape[1], k.shape[2]
+    keys = sum(min(skv, q_offset + i + 1) for i in range(sq))
+    kv_rows = min(skv, q_offset + sq)
+    esz = q.element_size()
+    nbytes = esz * (2 * b * h * sq * d + 2 * b * kv * kv_rows * d)
+    ops = 4 * b * h * d * keys
+    rate = (INT8_OPS_S if bits else BF16_OPS_S if q.dtype == torch.bfloat16
+            else FP32_OPS_S)
+    bound = max(nbytes / HBM_BYTES_S, ops / rate) * 1e3
+    return bound, ("bytes" if nbytes / HBM_BYTES_S >= ops / rate
+                   else "operations"), nbytes, ops
+
+
+def phase_flash() -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_torch)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    # f32: sums reassociated (kernel: per key in order and a warp butterfly;
+    # plain: pairwise tree sums); bf16: one bf16 rounding of the output on
+    # each side. SC: the same plus one quantization step (check_close).
+    tol = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1.6e-2, 1e-2)}
+    # (b, h, kv, sq, skv, d, q_offset, group, model layout, causal)
+    geoms = [(1, 15, 5, 64, 64, 64, 0, 64, True, True),     # smollm one-shot
+             (1, 15, 5, 16, 64, 64, 48, 64, True, True),    # chunk at 48 / 64
+             (1, 15, 5, 16, 128, 64, 16, 128, True, True),  # chunk at 16 / 128
+             (1, 15, 5, 16, 256, 64, 0, 256, True, True),   # chunk at 0 / 256
+             (2, 6, 2, 37, 53, 128, 16, 24, False, True),   # D 128, ragged
+             (2, 4, 4, 45, 45, 128, 0, 32, False, True),    # G 1, D 128
+             (1, 4, 2, 70, 100, 64, 30, 100, False, True),  # G 2, ragged
+             (1, 4, 2, 33, 47, 64, 0, 16, False, False)]    # not causal
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for bits in (None, 4, 8):
+            for b, h, kv, sq, skv, d, off, group, model, causal in geoms:
+                q, k, v = _flash_inputs(dtype, b, h, kv, sq, skv, d, gen,
+                                        dev, model)
+                kw = dict(causal=causal, q_offset=off, group=group,
+                          sc_bits=bits)
+                got = flash_attention(q, k, v, **kw)
+                want = flash_attention_torch(q, k, v, **kw)
+                torch.cuda.synchronize()
+                rtol, atol = tol[dtype]
+                shape = (b, h, kv, sq, skv, d, off, group, causal)
+                err = check_close(got, want, rtol=rtol, atol=atol, v=v,
+                                  bits=bits, what=f"flash {dtype} sc={bits} "
+                                                  f"{shape}")
+                rows.append({"dtype": str(dtype).replace("torch.", ""),
+                             "sc_bits": bits, "shape": shape,
+                             "max_abs_err": err})
+            log(f"[flash] {str(dtype)[6:]:8s} sc={bits}: {len(geoms)} shapes "
+                f"agree, max abs err "
+                f"{max(r['max_abs_err'] for r in rows[-len(geoms):]):.2e}")
+
+    # chunked rows == one-shot rows, bit for bit, through the kernel: a
+    # 64-token prompt one-shot (group 64) against 16-row chunks at their
+    # staging offsets over larger extents (group = extent, garbage past
+    # the prompt), as the engine's two prefill modes and the baseline run
+    h, kv, d, s = 15, 5, 64, 64
+    invariance = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for bits in (None, 4, 8):
+            q, k, v = _flash_inputs(dtype, 1, h, kv, s, s, d, gen, dev, True)
+            one = flash_attention(q, k, v, q_offset=0, group=s, sc_bits=bits)
+            for off in (0, 16, 32, 48):
+                for extent in (64, 128, 256):
+                    kx = 50 * torch.randn((1, kv, extent, d), generator=gen,
+                                          device=dev).to(dtype)
+                    vx = 50 * torch.randn((1, kv, extent, d), generator=gen,
+                                          device=dev).to(dtype)
+                    kx[:, :, :s], vx[:, :, :s] = k, v
+                    got = flash_attention(q[:, :, off:off + 16], kx, vx,
+                                          q_offset=off, group=extent,
+                                          sc_bits=bits)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, one[:, :, off:off + 16]):
+                        raise AssertionError(
+                            f"flash {dtype} sc={bits}: chunk at {off} over "
+                            f"{extent} differs from the one-shot rows")
+            invariance.append({"dtype": str(dtype)[6:], "sc_bits": bits,
+                               "bitwise_equal": True})
+    log("[flash] chunked rows == one-shot rows bit for bit (f32, bf16; float, "
+        "SC 4 and 8; chunks at 0/16/32/48 over extents 64/128/256)")
+
+    # timing at the main path's shapes (bf16): the four chunk calls of a
+    # 64-token prompt's chunked prefill over its 64-token bucket, and one
+    # one-shot call; SDPA (float only) is the library yardstick, with the
+    # same causal mask, and is never called by the port
+    timing = {}
+    for bits in (None, 8):
+        calls = [(16, 64, off) for off in (0, 16, 32, 48)] + [(64, 64, 0)]
+        per = []
+        for sq, skv, off in calls:
+            q, k, v = _flash_inputs(torch.bfloat16, 1, h, kv, sq, skv, d,
+                                    gen, dev, True)
+            kw = dict(q_offset=off, group=skv, sc_bits=bits)
+            ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), iters=100)
+            plain_ms = cuda_ms(lambda: flash_attention_torch(q, k, v, **kw),
+                               iters=10)
+            bound, by, nbytes, ops = _flash_bound(q, k, off, bits)
+            lib_ms = None
+            if bits is None:
+                kr = k.repeat_interleave(h // kv, dim=1)
+                vr = v.repeat_interleave(h // kv, dim=1)
+                mask = (off + torch.arange(sq, device=dev)[:, None]
+                        >= torch.arange(skv, device=dev)[None, :])
+                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, kr, vr, attn_mask=mask), iters=100)
+            per.append({"sq": sq, "skv": skv, "q_offset": off, "ms": ms,
+                        "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                        "ops": ops})
+            lib = f", SDPA {lib_ms:.4f} ms" if lib_ms is not None else ""
+            log(f"[flash] bf16 sc={bits} Sq={sq} Skv={skv} offset={off}: "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms{lib}, bound "
+                f"{bound:.6f} ms ({by})")
+        chunked = per[:4]
+        timing["float" if bits is None else f"sc{bits}"] = {
+            "calls": per,
+            "chunked_prefill": {key: (None if chunked[0][key] is None else
+                                      sum(c[key] for c in chunked))
+                                for key in ("ms", "plain_ms", "library_ms",
+                                            "bound_ms")}}
+    return {"cases": rows, "invariance": invariance, "timing": timing}
 
 
 def _workload(cfg, n, prompt_len, gen_lo, gen_hi, seed):
@@ -306,55 +507,54 @@ def phase_small_model() -> dict:
     return {"streams_equal": same, "prefill_logits_max_abs_err": err}
 
 
-def phase_serve() -> dict:
-    import numpy as np
-    import torch
-    import dataclasses
-    from repro_torch.configs.registry import ARCHS
+def _serve_launch_counters():
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.sc_matmul import sc_matmul_counts_signed
-    from repro_torch.launch.serve import generate
-    from repro_torch.models import bind
+    return {"sc_matmul_counts": sc_matmul_counts_signed,
+            "paged_attention": paged_attention,
+            "flash_attention": flash_attention}
+
+
+def _serve_run(cfg, params, reqs, mode, baseline):
+    """One engine run at full width: counters set to 0 just before and read
+    just after; streams checked against the sequential baseline."""
+    import dataclasses
+    import numpy as np
+    import torch
     from repro_torch.serving import Engine
-    cfg = dataclasses.replace(ARCHS["smollm-360m"],
-                              use_sc_gemm=True).validate()
-    t0 = time.perf_counter()
-    params = bind(cfg, "cuda").init_params(0)
-    torch.cuda.synchronize()
-    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, SC-GEMM "
-        f"{cfg.sc_bits}-bit; init {time.perf_counter() - t0:.1f}s")
-
-    def engine():
-        return Engine(cfg, params, device="cuda", capacity=4, max_seq=256,
-                      block=64, chunk=16, prefix_cache=False, speculate_k=0)
-
-    # warm-up: first calls load the kernels and PyTorch's own modules
-    engine().run(_workload(cfg, 1, 20, 2, 2, seed=99))
-    reqs = _workload(cfg, 8, 64, 16, 64, seed=5)
-    eng = engine()
+    eng = Engine(cfg, params, device="cuda", capacity=4, max_seq=256,
+                 block=64, chunk=16, prefill_mode=mode, prefix_cache=False,
+                 speculate_k=0)
+    # a request's TTFT runs from its enqueue stamp: stamp all of them now,
+    # as they are submitted together, not when the list was built
+    now = time.perf_counter()
+    reqs = [dataclasses.replace(r, enqueued_at=now) for r in reqs]
+    counters = _serve_launch_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    sc_matmul_counts_signed.launches = 0
-    paged_attention.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     results = eng.run(reqs)
     torch.cuda.synchronize()
-    launches = {"sc_matmul_counts": sc_matmul_counts_signed.launches,
-                "paged_attention": paged_attention.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
     st = eng.stats
     peak = torch.cuda.max_memory_allocated()
     steps = st["decode_steps"]
-    log(f"[serve] {st['requests']} requests, {st['generated_tokens']} tokens "
+    tag = f"[{'serve_sc' if cfg.attn_sc else 'serve'}:{mode}]"
+    log(f"{tag} {st['requests']} requests, {st['generated_tokens']} tokens "
         f"in {st['wall_s']:.2f}s: {st['tok_per_s']:.2f} tok/s, TTFT p50 "
         f"{st['ttft_p50_s'] * 1e3:.1f} ms, decode {st['decode_ms_per_step']:.2f}"
         f" ms/step over {steps} steps, {st['prefill_chunks']} prefill chunks, "
-        f"{st['preemptions']} preemptions, peak pages {st['peak_pages']}/"
-        f"{st['n_blocks']}")
-    log(f"[serve] launches: SC-GEMM {launches['sc_matmul_counts']} "
-        f"(>= {steps} x {7 * N_LAYERS + 1}), paged attention "
-        f"{launches['paged_attention']} (>= {steps} x {N_LAYERS}); "
-        f"max_memory_allocated {peak / 2**30:.3f} GiB")
+        f"{st['prefills']} prefills, {st['preemptions']} preemptions, peak "
+        f"pages {st['peak_pages']}/{st['n_blocks']}")
+    log(f"{tag} launches: SC-GEMM {launches['sc_matmul_counts']}, paged "
+        f"attention {launches['paged_attention']} (>= {steps} x {N_LAYERS}), "
+        f"flash attention {launches['flash_attention']} (>= "
+        f"{st['prefill_chunks'] + (st['prefills'] if mode == 'oneshot' else 0)}"
+        f" x {N_LAYERS}); max_memory_allocated {peak / 2**30:.3f} GiB")
+    if steps < 1:
+        raise AssertionError("the engine ran no decode step")
     if launches["sc_matmul_counts"] < steps * (7 * N_LAYERS + 1):
         raise AssertionError(f"SC-GEMM kernel launched "
                              f"{launches['sc_matmul_counts']} times in "
@@ -363,32 +563,75 @@ def phase_serve() -> dict:
         raise AssertionError(f"paged kernel launched "
                              f"{launches['paged_attention']} times in "
                              f"{steps} decode steps")
-    if steps < 1:
-        raise AssertionError("the engine ran no decode step")
-    # correctness: in-vocab streams of the requested lengths, identical to
-    # the sequential B=1 baseline on the card (batch invariance)
-    t1 = time.perf_counter()
+    prefill_calls = (st["prefill_chunks"] if mode == "chunked"
+                     else st["prefills"])
+    if prefill_calls < 1 or launches["flash_attention"] < \
+            prefill_calls * N_LAYERS:
+        raise AssertionError(f"flash kernel launched "
+                             f"{launches['flash_attention']} times for "
+                             f"{prefill_calls} prefill calls")
     mismatched = []
-    for req, res in zip(reqs, results):
+    for req, res, ref in zip(reqs, results, baseline):
         if res.n_generated != req.max_new_tokens:
             raise AssertionError(f"{req.uid}: {res.n_generated} tokens, "
                                  f"asked {req.max_new_tokens}")
         if not ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
             raise AssertionError(f"{req.uid}: token out of vocabulary")
-        ref = generate(cfg, params, req.prompt[None],
-                       gen_tokens=req.max_new_tokens,
-                       device="cuda")[0].cpu().numpy()
         if not np.array_equal(ref, res.tokens):
             first = int(np.argmax(ref != res.tokens))
             mismatched.append(f"{req.uid} first differs at {first}")
-    log(f"[serve] sequential baseline ({time.perf_counter() - t1:.1f}s): "
-        f"{len(reqs) - len(mismatched)}/{len(reqs)} streams identical")
+    log(f"{tag} {len(reqs) - len(mismatched)}/{len(reqs)} streams identical "
+        f"to the sequential baseline")
     if mismatched:
-        raise AssertionError("engine streams differ from the sequential "
-                             "baseline: " + "; ".join(mismatched))
+        raise AssertionError(f"{tag} engine streams differ from the "
+                             f"sequential baseline: " + "; ".join(mismatched))
     return {"stats": {k: v for k, v in st.items() if k != "backpressure"},
             "launches": launches, "max_memory_allocated": peak,
             "first_stream": results[0].tokens[:16].tolist()}
+
+
+def _serve_phase(attn_sc: bool, modes) -> dict:
+    """Serve 8 requests (64-token prompts, 16-64 new tokens) at smollm-360m's
+    full width with SC-GEMM on, in each prefill mode, against the
+    sequential B=1 ``generate`` baseline on the card (batch invariance)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import bind
+    from repro_torch.serving import Engine
+    cfg = dataclasses.replace(ARCHS["smollm-360m"], use_sc_gemm=True,
+                              attn_sc=attn_sc, sc_bits=8).validate()
+    t0 = time.perf_counter()
+    params = bind(cfg, "cuda").init_params(0)
+    torch.cuda.synchronize()
+    tag = "[serve_sc]" if attn_sc else "[serve]"
+    log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, SC-GEMM "
+        f"{cfg.sc_bits}-bit, attention "
+        f"{'SC %d-bit' % cfg.sc_bits if attn_sc else 'float'}; init "
+        f"{time.perf_counter() - t0:.1f}s")
+    # warm-up: first calls load the kernels and PyTorch's own modules
+    Engine(cfg, params, device="cuda", capacity=4, max_seq=256, block=64,
+           chunk=16).run(_workload(cfg, 1, 20, 2, 2, seed=99))
+    reqs = _workload(cfg, 8, 64, 16, 64, seed=5)
+    t1 = time.perf_counter()
+    baseline = [generate(cfg, params, r.prompt[None],
+                         gen_tokens=r.max_new_tokens,
+                         device="cuda")[0].cpu().numpy() for r in reqs]
+    log(f"{tag} sequential baseline: {len(reqs)} requests in "
+        f"{time.perf_counter() - t1:.1f}s")
+    return {mode: _serve_run(cfg, params, reqs, mode, baseline)
+            for mode in modes}
+
+
+def phase_serve() -> dict:
+    return _serve_phase(False, ("chunked",))["chunked"]
+
+
+def phase_serve_sc() -> dict:
+    return _serve_phase(True, ("chunked", "oneshot"))
 
 
 def phase_profile() -> dict:
@@ -504,8 +747,9 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     phases = (("build", phase_build), ("sc_gemm", phase_sc_gemm),
-              ("paged", phase_paged), ("small_model", phase_small_model),
-              ("serve", phase_serve), ("profile", phase_profile))
+              ("paged", phase_paged), ("flash", phase_flash),
+              ("small_model", phase_small_model), ("serve", phase_serve),
+              ("serve_sc", phase_serve_sc), ("profile", phase_profile))
     for name, fn in phases:
         if only is None or name in only:
             report[name] = fn()
@@ -522,32 +766,73 @@ def main() -> int:
 
     src = "src/repro_torch/kernels/csrc"
     step = report["sc_gemm"]["decode_step"]
-    paged_bf16 = next(r for r in report["paged"]["cases"]
-                      if r["dtype"] == "bfloat16" and r["window"] is None)
+    paged = report["paged"]["cases"]
+    serve, serve_sc = report["serve"], report["serve_sc"]
+
+    def paged_row(bits):
+        return next(r for r in paged if r["dtype"] == "bfloat16"
+                    and r["window"] is None and r["sc_bits"] == bits
+                    and "ms" in r)
+
+    def paged_entry(name, bits, launches):
+        row = paged_row(bits)
+        return {"name": name, "route": "cuda",
+                "source": f"{src}/paged_attention.cu",
+                "replaces": "src/repro/kernels/paged_attention.py:194",
+                "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in paged
+                                   if r["sc_bits"] == bits),
+                "ms": N_LAYERS * row["ms"],
+                "plain_ms": N_LAYERS * row["plain_ms"],
+                "bound_ms": N_LAYERS * row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": None,
+                "unit": f"one smollm-360m decode step: 32 calls at C=4 KV=5 "
+                        f"G=3 D=64 block=64 MB=4 bf16"
+                        f"{' SC %d-bit' % bits if bits else ''}, positions "
+                        f"{row['positions']}"}
+
+    def flash_entry(name, key, bits, launches):
+        t = report["flash"]["timing"][key]["chunked_prefill"]
+        lib = t["library_ms"]
+        by = {c["bound_by"] for c in report["flash"]["timing"][key]["calls"]}
+        return {"name": name, "route": "cuda",
+                "source": f"{src}/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:91",
+                "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in
+                                   report["flash"]["cases"]
+                                   if r["sc_bits"] in ((None,) if bits is None
+                                                       else (4, 8))),
+                "ms": N_LAYERS * t["ms"], "plain_ms": N_LAYERS * t["plain_ms"],
+                "bound_ms": N_LAYERS * t["bound_ms"],
+                "bound_by": by.pop() if len(by) == 1 else "bytes",
+                "library_ms": None if lib is None else N_LAYERS * lib,
+                "unit": "one 64-token prompt's chunked prefill: 32 layers x 4 "
+                        "chunk calls (16 rows at offsets 0/16/32/48 over the "
+                        "64-token bucket), H=15 KV=5 D=64 bf16"
+                        + (f" SC {bits}-bit" if bits else "")}
+
+    sc_launch = {name: sum(serve_sc[m]["launches"][name]
+                           for m in ("chunked", "oneshot"))
+                 for name in ("paged_attention", "flash_attention")}
     kernels = [
         {"name": "sc_matmul_counts", "route": "cuda",
          "source": f"{src}/sc_matmul.cu",
          "replaces": "src/repro/kernels/sc_matmul.py:89",
-         "launches": report["serve"]["launches"]["sc_matmul_counts"],
+         "launches": serve["launches"]["sc_matmul_counts"],
          "max_abs_err": 0.0,
          "ms": step["ms"], "plain_ms": step["plain_ms"],
          "bound_ms": step["bound_ms"], "bound_by": "bytes",
          "library_ms": None,
          "unit": "one smollm-360m decode step at M=4: 225 calls "
                  "(32 layers x 7 projections + the LM head)"},
-        {"name": "paged_attention", "route": "cuda",
-         "source": f"{src}/paged_attention.cu",
-         "replaces": "src/repro/kernels/paged_attention.py:194",
-         "launches": report["serve"]["launches"]["paged_attention"],
-         "max_abs_err": max(r["max_abs_err"]
-                            for r in report["paged"]["cases"]),
-         "ms": N_LAYERS * paged_bf16["ms"],
-         "plain_ms": N_LAYERS * paged_bf16["plain_ms"],
-         "bound_ms": N_LAYERS * paged_bf16["bound_ms"],
-         "bound_by": paged_bf16["bound_by"], "library_ms": None,
-         "unit": f"one smollm-360m decode step: 32 calls at C=4 KV=5 G=3 "
-                 f"D=64 block=64 MB=4 bf16, positions "
-                 f"{paged_bf16['positions']}"},
+        paged_entry("paged_attention", None,
+                    serve["launches"]["paged_attention"]),
+        paged_entry("paged_attention_sc", 8, sc_launch["paged_attention"]),
+        flash_entry("flash_attention", "float", None,
+                    serve["launches"]["flash_attention"]),
+        flash_entry("flash_attention_sc", "sc8", 8,
+                    sc_launch["flash_attention"]),
     ]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t0

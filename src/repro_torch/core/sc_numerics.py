@@ -42,7 +42,10 @@ def quantize_sign_magnitude(v: torch.Tensor, *, bits: int,
         absmax = av.amax()
     else:
         absmax = av.amax(dim=axis, keepdim=True)
-    scale = absmax.clamp_min(1e-12).to(torch.float32) / n_max
+    absmax = absmax.clamp_min(1e-12).to(torch.float32)
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, one ulp off the true quotient
+    scale = absmax / absmax.new_tensor(float(n_max))
     mag = torch.clamp(torch.round(av / scale), 0, n_max).to(torch.int32)
     sign = torch.where(v < 0, -1, 1).to(torch.int8)
     return SignMagnitude(sign=sign, mag=mag, scale=scale, bits=bits)

@@ -1,4 +1,6 @@
 """Hand-written CUDA kernels of the port, their ctypes wrappers and plain
-PyTorch versions: SC-GEMM counts (``sc_matmul``) and paged decode attention
-(``paged_attention``). Sources live in ``csrc/``; ``build`` compiles them
-with nvcc at first use."""
+PyTorch versions: SC-GEMM counts (``sc_matmul``), paged decode attention
+(``paged_attention``) and causal flash attention (``flash_attention``), the
+last two with SC variants whose helpers are shared (``sc_attention``).
+Sources live in ``csrc/``; ``build`` compiles them with nvcc at first
+use."""

@@ -6,7 +6,8 @@ wrappers load with ``ctypes``. Nothing includes PyTorch's headers, so a
 build takes seconds. The build happens at first use, from the checkout's
 sources only, into ``build/repro_torch_kernels/`` at the repository root
 (``$REPRO_TORCH_BUILD_DIR`` overrides it), under a name keyed by a hash of
-the source and the flags — an edited source never loads a stale library.
+the source, every shared header (``csrc/*.cuh``) and the flags — an edited
+source or header never loads a stale library.
 
 :func:`build` starts one ``nvcc`` per source at once and waits for all, so
 building every kernel costs about as long as the slowest one.
@@ -28,7 +29,7 @@ __all__ = ["SOURCES", "build", "load", "check", "library_path", "ptxas_log",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: Every kernel source of the port, by library name.
-SOURCES = ("sc_matmul", "paged_attention")
+SOURCES = ("sc_matmul", "paged_attention", "flash_attention")
 BUILD_ENV = "REPRO_TORCH_BUILD_DIR"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -57,9 +58,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return build_root() / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_root() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def ptxas_log(name: str) -> str:

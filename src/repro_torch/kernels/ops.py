@@ -1,6 +1,7 @@
 """Public wrappers around the port's kernels: quantization, packing and
 dequantization around the SC-GEMM counts kernel (port of
-``repro/kernels/ops.py::sc_matmul_pallas``).
+``repro/kernels/ops.py::sc_matmul_pallas``), and the flash kernel's entry
+at fixed tile sizes (port of ``flash_attention_tuned``).
 
 The TPU wrapper padded every operand to its block multiples (signs with +1,
 magnitudes with 0) because Pallas blocks must tile the array. The CUDA
@@ -14,9 +15,10 @@ import torch
 from repro_torch.core.sc_numerics import quantize_sign_magnitude
 from repro_torch.core.tcu import stream_length
 
+from .flash_attention import flash_attention
 from .sc_matmul import pack_signed, sc_matmul_counts_signed
 
-__all__ = ["sc_matmul"]
+__all__ = ["sc_matmul", "flash_attention_tuned"]
 
 
 def sc_matmul(a: torch.Tensor, b: torch.Tensor, *, bits: int = 8,
@@ -36,3 +38,17 @@ def sc_matmul(a: torch.Tensor, b: torch.Tensor, *, bits: int = 8,
                                      pack_signed(qb.sign, qb.mag, bits),
                                      bits=bits)
     return counts * (stream_length(bits) * qa.scale * qb.scale)
+
+
+def flash_attention_tuned(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, q_offset: int = 0,
+                          group: int = 64,
+                          sc_bits: int | None = None) -> torch.Tensor:
+    """The flash kernel in its layout ``q (B, H, Sq, D)``, ``k, v (B, KV,
+    Skv, D)``. The JAX package picks ``(bq, bk)`` through its autotuner;
+    here the tiles are fixed — ``flash_attention.BLOCK_Q`` = 16 query rows
+    per block, ``BLOCK_K`` = 32 keys per shared-memory tile, 128 threads —
+    and ``group`` (the SC quantization group, which the result depends on)
+    comes from the caller, never from a tuner."""
+    return flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                           group=group, sc_bits=sc_bits)

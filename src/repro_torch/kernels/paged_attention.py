@@ -2,18 +2,32 @@
 ``repro/kernels/paged_attention.py``).
 
 Replaces the Pallas TPU kernel ``paged_attention_pallas``
-(``repro/kernels/paged_attention.py:194``) with the CUDA kernel in
+(``repro/kernels/paged_attention.py:194``) with the CUDA kernels in
 ``csrc/paged_attention.cu``: one query token per slot, attended through the
 slot's block table against the page pool, with no gathered dense view.
 Bound by the bytes of K and V it reads; it walks only the pages up to each
-slot's position and keeps an online softmax, because the TPU kernel's
-whole-row buffer does not fit a block's shared memory at long contexts.
+slot's position.
 
-The TPU kernel matched the gathered-dense path bit for bit, an artefact of
-XLA-CPU lowering; the online softmax here agrees with the plain version to
-a stated tolerance instead (f32: rtol 1e-4 / atol 1e-5, sums reassociated
-over 32-token tiles; bf16: rtol 1.6e-2 / atol 1e-2, one bf16 rounding of the
-output). ``paged_attention.launches`` counts kernel launches.
+Float path: an online softmax over 32-token tiles, because the TPU
+kernel's whole-row buffer does not fit a block's shared memory at long
+contexts. The TPU kernel matched the gathered-dense path bit for bit, an
+artefact of XLA-CPU lowering; the online softmax here agrees with the
+plain version to a stated tolerance instead (f32: rtol 1e-4 / atol 1e-5,
+sums reassociated over 32-token tiles; bf16: rtol 1.6e-2 / atol 1e-2, one
+bf16 rounding of the output).
+
+SC path (``sc_bits``): the reference quantizes the *normalized*
+probability row over all keys (``paged_attention.py:172-185``), so it is
+two passes inside the block — SC scores, masks, row max and denominator,
+then the probabilities, their quantization and the SC PV. The score row
+sits in shared memory between the passes, or in a device workspace this
+wrapper allocates when the row is too long for it. Scores and quantized
+planes repeat the plain version's float32 operations one for one; the
+tolerance is the float path's, plus one output quantization step
+(``flash_attention.sc_tolerance``) should a probability land within an
+ulp of a rounding boundary. Every head layout is served under SC.
+
+``paged_attention.launches`` counts kernel launches, both paths.
 
 Layout: ``q (C, KV, G, D)``; ``k_pages, v_pages (P, block, KV, D)`` with
 page ``P - 1`` the trash page; ``tables (C, MB) int32`` (−1 = unallocated);
@@ -28,14 +42,20 @@ import torch
 from repro_torch.errors import ConfigError
 
 from . import build
+from .sc_attention import check_sc_bits
 
-__all__ = ["paged_attention", "paged_attention_torch"]
+__all__ = ["paged_attention", "paged_attention_torch", "SC_ROW_SMEM_BYTES"]
+
+#: Largest SC score row (G rows of MB·block float32 scores) kept in shared
+#: memory between the two passes; a longer one goes to a device workspace.
+SC_ROW_SMEM_BYTES = 64 * 1024
 
 
 def paged_attention_torch(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, tables: torch.Tensor,
                           q_positions: torch.Tensor, *,
-                          window: int | None = None) -> torch.Tensor:
+                          window: int | None = None,
+                          sc_bits: int | None = None) -> torch.Tensor:
     """Plain version: gather the pages dense (−1 → trash page) and run the
     exact-softmax decode attention of ``models.layers``."""
     from repro_torch.models.layers import _decode_attention_plain, _gather_pages
@@ -43,7 +63,7 @@ def paged_attention_torch(q: torch.Tensor, k_pages: torch.Tensor,
     out = _decode_attention_plain(
         q.reshape(c, 1, kv * g, d), _gather_pages(k_pages, tables),
         _gather_pages(v_pages, tables), q_position=q_positions.to(torch.int64),
-        window=window)
+        window=window, sc_bits=sc_bits)
     return out.reshape(c, kv, g, d)
 
 
@@ -54,9 +74,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     sc_bits: int | None = None) -> torch.Tensor:
     """Fused paged decode attention: the CUDA kernel for tensors on the
     card, the plain version for tensors on the CPU."""
-    if sc_bits is not None:
-        raise ConfigError("the SC score path of the paged kernel comes with "
-                          "the SC-attention slice; sc_bits is refused")
+    check_sc_bits(sc_bits)
     if logit_softcap is not None:
         raise ConfigError("the paged kernel takes no logit softcap; softcap "
                           "layers stay on the gathered path")
@@ -74,7 +92,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                           f"{tuple(q.shape)}")
     if q.device.type == "cpu":
         return paged_attention_torch(q, k_pages, v_pages, tables,
-                                     q_positions, window=window)
+                                     q_positions, window=window,
+                                     sc_bits=sc_bits)
     tensors = (q, k_pages, v_pages, tables, q_positions)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ConfigError("paged kernel: every operand must be on the "
@@ -91,16 +110,33 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     q_positions = q_positions.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     lib = build.load("paged_attention")
-    fn = lib.paged_attention_f32 if q.dtype == torch.float32 \
-        else lib.paged_attention_bf16
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            tables.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
-            c, kv, g, d, block, tables.shape[1], n_pages, d ** -0.5,
-            0 if window is None else int(window), stream)
+    dims = (c, kv, g, d, block, tables.shape[1], n_pages)
+    args = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            tables.data_ptr(), q_positions.data_ptr(), out.data_ptr()]
+    suffix = "f32" if q.dtype == torch.float32 else "bf16"
+    if sc_bits is None:
+        fn = getattr(lib, f"paged_attention_{suffix}")
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        rc = fn(*args, *dims, d ** -0.5,
+                0 if window is None else int(window), stream)
+    else:
+        # the score row of each (slot, KV head) between the two passes:
+        # in shared memory when it fits, else in this workspace
+        row = tables.shape[1] * block
+        work = None
+        if g * row * 4 > SC_ROW_SMEM_BYTES:
+            work = torch.empty((c, kv, g, row), dtype=torch.float32,
+                               device=q.device)
+        fn = getattr(lib, f"paged_attention_sc_{suffix}")
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        rc = fn(*args, 0 if work is None else work.data_ptr(), *dims,
+                d ** -0.5, 0 if window is None else int(window), sc_bits,
+                stream)
     build.check(rc, "paged_attention")
     paged_attention.launches += 1
     return out

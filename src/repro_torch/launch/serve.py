@@ -3,11 +3,13 @@ and the sequential per-request :func:`generate` baseline (port of
 ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
-        --sc-gemm [--requests 8 --prompt-len 64 --gen 64] [--device cpu]
+        --sc-gemm [--attn-sc [--attn-sc-bits 8]] \\
+        [--requests 8 --prompt-len 64 --gen 64] [--device cpu]
 
-Runs on the card unless ``--device cpu`` is given. The flags of the JAX
-CLI that this slice does not carry (prefix cache, SC attention,
-speculative decoding) come with their slices.
+Runs on the card unless ``--device cpu`` is given. ``generate`` is the
+sequential baseline for SC attention too. The flags of the JAX CLI that the
+port does not carry yet (prefix cache, speculative decoding) come with
+their slices.
 """
 from __future__ import annotations
 
@@ -18,7 +20,9 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.configs.base import sc_attention_bits_ok
 from repro_torch.configs.registry import ARCHS
+from repro_torch.errors import ConfigError
 from repro_torch.launch.steps import decode_step, prefill_step
 from repro_torch.models import bind
 
@@ -89,6 +93,12 @@ def main(argv=None) -> None:
                     help="serve through the SC-GEMM numeric")
     ap.add_argument("--sc-impl", choices=SC_IMPLS, default=None,
                     help="SC-GEMM implementation (overrides the config)")
+    ap.add_argument("--attn-sc", action="store_true",
+                    help="route attention's QK^T/PV contractions through the "
+                         "SC popcount path at the config's sc_bits width")
+    ap.add_argument("--attn-sc-bits", type=int, default=None,
+                    help="operand bit width for --attn-sc (overrides the "
+                         "config's sc_bits; 2..8)")
     ap.add_argument("--paged-attn", choices=("auto", "jnp", "pallas_tuned"),
                     default=None,
                     help="paged decode-attention dispatch: the CUDA kernel "
@@ -116,6 +126,13 @@ def main(argv=None) -> None:
         over["sc_impl"] = args.sc_impl
     if args.paged_attn is not None:
         over["paged_attn_kernel"] = args.paged_attn
+    if args.attn_sc or args.attn_sc_bits is not None:
+        over["attn_sc"] = True
+        if args.attn_sc_bits is not None:
+            if not sc_attention_bits_ok(args.attn_sc_bits):
+                raise ConfigError(f"--attn-sc-bits takes 2..8, got "
+                                  f"{args.attn_sc_bits}")
+            over["sc_bits"] = args.attn_sc_bits
     if over:
         cfg = dataclasses.replace(cfg, **over).validate()
     m = bind(cfg, args.device)
@@ -164,7 +181,8 @@ def main(argv=None) -> None:
           f"p99 {st['p99_latency_s'] * 1e3:.0f}ms, "
           f"ttft p50 {st['ttft_p50_s'] * 1e3:.0f}ms "
           f"itl p50 {st['itl_p50_s'] * 1e3:.1f}ms "
-          f"({st['prefill_chunks']} prefill chunks){pages}")
+          f"({st['prefill_chunks']} prefill chunks){pages}; attention "
+          f"{'SC %d-bit' % st['attn_sc_bits'] if st['attn_sc_bits'] else 'float'}")
     print(f"[serve] first stream: {results[0].tokens[:16]}")
 
 

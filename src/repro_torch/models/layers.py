@@ -5,6 +5,19 @@ Attention keeps the JAX package's formulations and layouts: a blocked
 online-softmax "flash" formulation with explicit positions for (chunked)
 prefill, a W-row exact-softmax decode attention against a dense cache, and
 decode attention straight against the paged pool through the block table.
+Each takes ``sc_bits``: the SC-attention path (``cfg.attn_sc``), whose QKᵀ
+and PV contractions run through the paper's popcount multiplier
+(``kernels/sc_attention.py``).
+
+**Flash-kernel dispatch departs from the reference.** The JAX package runs
+its fused flash kernel only for canonical positions at 128-aligned widths
+and sends chunked prefill through the jnp formulation. Here the kernel
+takes a ``q_offset`` (query row ``i`` at position ``q_offset + i``, keys at
+``0..Skv-1``), so on the card one-shot prefill (offset 0) and chunked
+prefill (the staging offset) both run it — and the chunked engine, the
+one-shot engine and the sequential baseline reduce each row identically.
+The MXU alignment is dropped: the gate is causal, no window, no softcap,
+not ``bf16_probs``, SC bits in 2..8.
 
 **Batch invariance.** The serving engine's streams must equal the
 sequential per-request baseline token for token on the card, where
@@ -23,6 +36,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.kernels.sc_attention import (sc_attention_bits_ok, sc_pv,
+                                              sc_scores)
 
 __all__ = ["rms_norm", "rope", "apply_rope", "flash_attention",
            "decode_attention", "paged_decode_attention", "PagedKV", "softcap",
@@ -105,22 +121,117 @@ def _pv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
                     -2)
 
 
+def _flash_kernel_eligible(*, causal: bool, window: int | None,
+                           logit_softcap: float | None, bf16_probs: bool,
+                           kv_block: int, d: int,
+                           sc_bits: int | None = None) -> bool:
+    """Calls the CUDA flash kernel serves: plain causal attention, no
+    window, no softcap, float32 probabilities (``bf16_probs`` would mix
+    probability precisions across a model's layers), SC bits in 2..8, and
+    a head dim and quantization group that fit the kernel's shared memory.
+    Unlike the TPU kernel's gate there is no 128-alignment of S or D."""
+    from repro_torch.kernels.flash_attention import MAX_D, MAX_GROUP
+    return (causal and window is None and logit_softcap is None
+            and not bf16_probs and sc_attention_bits_ok(sc_bits)
+            and d <= MAX_D and kv_block <= MAX_GROUP)
+
+
+class _FlashKernelCall(torch.autograd.Function):
+    """The flash kernel in the layer layout ``(B, S, H, D)``. Its backward
+    recomputes through the plain formulation (the kernel is forward only,
+    as the TPU kernel is), so this is a true VJP of the same math; under
+    SC the quantization steps make it piecewise constant, as in the JAX
+    package's ``_flash_kernel_call_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, kv_block, sc_bits, q_block,
+                skip_masked_blocks):
+        from repro_torch.kernels.ops import flash_attention_tuned
+        out = flash_attention_tuned(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), causal=True,
+                                    q_offset=q_offset, group=kv_block,
+                                    sc_bits=sc_bits)
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (q_offset, kv_block, sc_bits, q_block, skip_masked_blocks)
+        return out.transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = ctx.saved_tensors
+        q_offset, kv_block, sc_bits, q_block, skip = ctx.opts
+        b, sq = q.shape[:2]
+        skv = k.shape[1]
+        qpos = (q_offset + torch.arange(sq, dtype=torch.int32,
+                                        device=q.device)).expand(b, sq)
+        kpos = torch.arange(skv, dtype=torch.int32,
+                            device=q.device).expand(b, skv)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = _flash_plain(*leaves, q_positions=qpos, kv_positions=kpos,
+                               causal=True, window=None, logit_softcap=None,
+                               q_block=q_block, kv_block=kv_block,
+                               skip_masked_blocks=skip and q_offset == 0,
+                               bf16_probs=False, sc_bits=sc_bits)
+            grads = torch.autograd.grad(out, leaves, grad)
+        return (*grads, None, None, None, None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_positions: torch.Tensor, kv_positions: torch.Tensor,
                     causal: bool = True, window: int | None = None,
                     logit_softcap: float | None = None,
                     q_block: int = 512, kv_block: int = 1024,
                     skip_masked_blocks: bool = False,
-                    bf16_probs: bool = False) -> torch.Tensor:
+                    bf16_probs: bool = False, kernel_impl: str = "auto",
+                    q_offset: int | None = None,
+                    sc_bits: int | None = None) -> torch.Tensor:
     """Blocked online-softmax attention with grouped (GQA) heads.
 
     ``q: (B, Sq, H, D)``; ``k, v: (B, Skv, KV, D)`` with ``H % KV == 0``;
     ``*_positions: (B, Sq)/(B, Skv)`` absolute positions for the causal and
-    sliding-window masks. Plain PyTorch — the formulation the JAX package
-    computes outside Pallas, and the one chunked prefill always takes. The
-    fused flash kernel (canonical positions at 128-aligned widths) is not
-    ported yet, so every prefill takes this formulation.
+    sliding-window masks. ``sc_bits`` routes QKᵀ and PV through the SC
+    popcount path; probabilities are quantized per row over each
+    ``kv_block`` of keys.
+
+    ``q_offset`` declares the positions canonical: query row ``i`` at
+    ``q_offset + i`` and keys at ``0..Skv-1`` for every batch row. Only
+    then may the fused kernel serve the call (module docstring):
+    ``kernel_impl="auto"`` runs it for tensors on the card, "pallas_tuned"
+    goes through its wrapper on every eligible call (the plain version on
+    the CPU), "jnp" forces the plain formulation. The kernel quantizes SC
+    probabilities over the same ``kv_block`` groups of keys.
     """
+    if kernel_impl not in ("auto", "jnp", "pallas_tuned"):
+        raise ValueError(f"unknown attention kernel_impl {kernel_impl!r}")
+    if sc_bits is not None:
+        # the SC PV is a quantized contraction with float32 state; a bf16
+        # squeeze would only change the quantizer's inputs
+        bf16_probs = False
+    eligible = q_offset is not None and _flash_kernel_eligible(
+        causal=causal, window=window, logit_softcap=logit_softcap,
+        bf16_probs=bf16_probs, kv_block=kv_block, d=q.shape[-1],
+        sc_bits=sc_bits)
+    if eligible and (kernel_impl == "pallas_tuned"
+                     or (kernel_impl == "auto" and q.is_cuda)):
+        return _FlashKernelCall.apply(q, k, v, int(q_offset), kv_block,
+                                      sc_bits, q_block, skip_masked_blocks)
+    return _flash_plain(q, k, v, q_positions=q_positions,
+                        kv_positions=kv_positions, causal=causal,
+                        window=window, logit_softcap=logit_softcap,
+                        q_block=q_block, kv_block=kv_block,
+                        skip_masked_blocks=skip_masked_blocks,
+                        bf16_probs=bf16_probs, sc_bits=sc_bits)
+
+
+def _flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                 causal: bool, window: int | None,
+                 logit_softcap: float | None, q_block: int, kv_block: int,
+                 skip_masked_blocks: bool, bf16_probs: bool,
+                 sc_bits: int | None) -> torch.Tensor:
+    """The flash formulation in plain PyTorch (the JAX package's jnp
+    path): the CPU's prefill, the kernel's plain version, and its
+    backward."""
     b, sq, h, d = q.shape
     _, skv, kv_heads, _ = k.shape
     g = h // kv_heads
@@ -159,11 +270,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         for ki in range(limit):
             ks = slice(ki * kv_block, (ki + 1) * kv_block)
             kp = kv_positions[:, ks]
-            s = softcap(_scores(qb, kg[:, :, ks]) * scale, logit_softcap)
+            if sc_bits is not None:
+                # q (B, KV, G, Q, D) against k rows (B, KV, 1, K, D)
+                s = sc_scores(qb, kg[:, :, ks][:, :, None],
+                              bits=sc_bits) * scale
+            else:
+                s = _scores(qb, kg[:, :, ks]) * scale
+            s = softcap(s, logit_softcap)
             mask = torch.ones((b, q_block, kv_block), dtype=torch.bool,
                               device=q.device)
             if causal:
                 mask &= qp[:, :, None] >= kp[:, None, :]
+            elif pk and ki == nk - 1:
+                # the zero padding past Skv is no key; the causal test
+                # masks it through its position, a full mask must too
+                mask &= (ki * kv_block + torch.arange(
+                    kv_block, device=q.device) < skv)[None, None, :]
             if window is not None:
                 mask &= (qp[:, :, None] - kp[:, None, :]) < window
             s = torch.where(mask[:, None, None], s, NEG_INF)
@@ -172,12 +294,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             p = torch.exp(s - m_new[..., None])
             l = l * alpha + tree_sum(p, -1)
             vb = vg[:, :, ks]
-            if bf16_probs:
-                # probs and values squeezed to bf16 for the PV product,
-                # sums kept in float32
-                p = p.to(torch.bfloat16).to(torch.float32)
-                vb = vb.to(torch.bfloat16)
-            o = o * alpha[..., None] + _pv(p, vb)
+            if sc_bits is not None:
+                # block-local unnormalized probs (B, KV, G, Q, K) against
+                # value rows (B, KV, 1, 1, K, D)
+                pv = sc_pv(p, vb.to(torch.float32)[:, :, None, None],
+                           bits=sc_bits)
+            else:
+                if bf16_probs:
+                    # probs and values squeezed to bf16 for the PV
+                    # product, sums kept in float32
+                    p = p.to(torch.bfloat16).to(torch.float32)
+                    vb = vb.to(torch.bfloat16)
+                pv = _pv(p, vb)
+            o = o * alpha[..., None] + pv
             m = m_new
         out = o / torch.clamp(l, min=1e-30)[..., None]
         # (B, KV, G, Q, D) -> (B, Q, KV, G, D) -> (B, Q, H, D)
@@ -213,20 +342,25 @@ def _gather_pages(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     return g.reshape(c, mb * blk, *g.shape[3:])
 
 
-def _paged_kernel_eligible(g: int, kv: int,
-                           logit_softcap: float | None) -> bool:
+def _paged_kernel_eligible(g: int, kv: int, logit_softcap: float | None,
+                           sc_bits: int | None = None) -> bool:
     """Layouts the CUDA paged kernel serves. Unlike the TPU kernel there is
     no lane alignment to meet (``head_dim`` 64 is eligible); softcap layers
-    and single-KV-head full-MHA (``KV == 1``, ``G == 1``) stay on the
-    gathered path, as in the JAX package's dispatch."""
-    return logit_softcap is None and not (g == 1 and kv == 1)
+    stay on the gathered path, as in the JAX package's dispatch, and so
+    does float single-KV-head full-MHA (``KV == 1``, ``G == 1``). The SC
+    path widens the envelope to every head layout, as the reference's
+    does: its contraction is an integer popcount sum."""
+    if logit_softcap is not None or not sc_attention_bits_ok(sc_bits):
+        return False
+    return sc_bits is not None or not (g == 1 and kv == 1)
 
 
 def paged_decode_attention(q: torch.Tensor, paged: PagedKV, *,
                            q_position: torch.Tensor,
                            window: int | None = None,
                            logit_softcap: float | None = None,
-                           kernel_impl: str = "auto") -> torch.Tensor:
+                           kernel_impl: str = "auto",
+                           sc_bits: int | None = None) -> torch.Tensor:
     """Single-step attention straight against the paged KV pool.
 
     ``q: (C, 1, H, D)``; ``paged`` holds this site's pools and block table;
@@ -234,6 +368,7 @@ def paged_decode_attention(q: torch.Tensor, paged: PagedKV, *,
     paged kernel's wrapper on every eligible layout (the CUDA kernel on the
     card, its plain version on the CPU); ``"jnp"`` and ineligible layouts
     gather the pages and run :func:`decode_attention`'s plain formulation.
+    ``sc_bits`` selects the SC score and PV path.
     """
     if kernel_impl not in ("auto", "jnp", "pallas_tuned"):
         raise ValueError(f"unknown paged attention kernel_impl "
@@ -241,31 +376,41 @@ def paged_decode_attention(q: torch.Tensor, paged: PagedKV, *,
     c, _, h, d = q.shape
     kv = paged.k.shape[2]
     g = h // kv
-    if kernel_impl != "jnp" and _paged_kernel_eligible(g, kv, logit_softcap):
+    if kernel_impl != "jnp" and _paged_kernel_eligible(g, kv, logit_softcap,
+                                                       sc_bits):
         from repro_torch.kernels.paged_attention import paged_attention
         out = paged_attention(q[:, 0].reshape(c, kv, g, d), paged.k, paged.v,
-                              paged.tables, q_position, window=window)
+                              paged.tables, q_position, window=window,
+                              sc_bits=sc_bits)
         return out.reshape(c, 1, h, d)
     return _decode_attention_plain(q, _gather_pages(paged.k, paged.tables),
                                    _gather_pages(paged.v, paged.tables),
                                    q_position=q_position, window=window,
-                                   logit_softcap=logit_softcap)
+                                   logit_softcap=logit_softcap,
+                                   sc_bits=sc_bits)
 
 
 def _decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                             v_cache: torch.Tensor, *,
                             q_position: torch.Tensor,
                             window: int | None = None,
-                            logit_softcap: float | None = None
-                            ) -> torch.Tensor:
+                            logit_softcap: float | None = None,
+                            sc_bits: int | None = None) -> torch.Tensor:
     """W-row exact-softmax decode attention, plain PyTorch (the JAX
-    package's ``decode_attention`` formulation)."""
+    package's ``decode_attention`` formulation). Under ``sc_bits`` the
+    normalized probability row is quantized over the whole cache extent;
+    masked keys are exact zeros, so the extent does not matter."""
     b, w, h, d = q.shape
     _, s, kv_heads, _ = k_cache.shape
     g = h // kv_heads
     scale = d ** -0.5
     qg = q.reshape(b, w, kv_heads, g, d).permute(0, 2, 3, 1, 4)
-    scores = _scores(qg, k_cache.permute(0, 2, 1, 3)) * scale
+    if sc_bits is not None:
+        # q (B, KV, G, W, D) against k rows (B, KV, 1, S, D)
+        scores = sc_scores(qg, k_cache.permute(0, 2, 1, 3)[:, :, None],
+                           bits=sc_bits) * scale
+    else:
+        scores = _scores(qg, k_cache.permute(0, 2, 1, 3)) * scale
     scores = softcap(scores, logit_softcap)            # (B, KV, G, W, S)
     kpos = torch.arange(s, device=q.device)[None, None, :]
     row_pos = (q_position.to(torch.long)[:, None]
@@ -277,7 +422,12 @@ def _decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     mx = scores.amax(dim=-1, keepdim=True)
     un = torch.exp(scores - mx)
     p = un / tree_sum(un, -1)[..., None]
-    out = _pv(p, v_cache.permute(0, 2, 1, 3))          # (B, KV, G, W, D)
+    if sc_bits is not None:
+        # value rows (B, KV, 1, 1, S, D) against p (B, KV, G, W, S)
+        out = sc_pv(p, v_cache.to(torch.float32).permute(
+            0, 2, 1, 3)[:, :, None, None], bits=sc_bits)
+    else:
+        out = _pv(p, v_cache.permute(0, 2, 1, 3))      # (B, KV, G, W, D)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, w, h, d)
     return out.to(q.dtype)
 
@@ -285,30 +435,35 @@ def _decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, *, q_position: torch.Tensor,
                      window: int | None = None,
-                     logit_softcap: float | None = None) -> torch.Tensor:
+                     logit_softcap: float | None = None,
+                     sc_bits: int | None = None) -> torch.Tensor:
     """Decode-window attention against a (partly filled) dense KV cache.
 
     ``q: (B, W, H, D)`` — W consecutive query rows per sequence;
     ``k_cache, v_cache: (B, S, KV, D)``; ``q_position: (B,)`` position of
     the first row. Each row masks cache slots past its own position.
+    ``sc_bits`` selects the SC score and PV path.
 
     On the card a one-row step (``W == 1``) of an eligible layout runs the
     paged kernel over the cache viewed as one page per sequence — the same
     kernel, and so the same order of summation, as the engine's paged
     decode, which keeps the sequential baseline and the engine
-    token-identical. Everything else is the plain formulation.
+    token-identical, float and SC alike. Everything else is the plain
+    formulation.
     """
     b, w, h, d = q.shape
     _, s, kv, _ = k_cache.shape
     g = h // kv
     if (q.is_cuda and w == 1 and k_cache.is_contiguous()
             and v_cache.is_contiguous()
-            and _paged_kernel_eligible(g, kv, logit_softcap)):
+            and _paged_kernel_eligible(g, kv, logit_softcap, sc_bits)):
         from repro_torch.kernels.paged_attention import paged_attention
         tables = torch.arange(b, dtype=torch.int32,
                               device=q.device)[:, None]
         out = paged_attention(q[:, 0].reshape(b, kv, g, d), k_cache, v_cache,
-                              tables, q_position, window=window)
+                              tables, q_position, window=window,
+                              sc_bits=sc_bits)
         return out.reshape(b, 1, h, d)
     return _decode_attention_plain(q, k_cache, v_cache, q_position=q_position,
-                                   window=window, logit_softcap=logit_softcap)
+                                   window=window, logit_softcap=logit_softcap,
+                                   sc_bits=sc_bits)

@@ -31,9 +31,6 @@ class BoundModel:
                 raise ConfigError(f"unknown family {cfg.family!r}")
             raise ConfigError(f"family {cfg.family!r} is not ported yet: it "
                               f"comes with {later} of the port")
-        if cfg.attn_sc:
-            raise ConfigError("SC attention (attn_sc=True) comes with the "
-                              "SC-attention slice of the port")
         self.cfg = cfg
         self.device = resolve_device(device)
         self._mod = transformer

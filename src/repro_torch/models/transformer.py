@@ -11,7 +11,9 @@ of ``(ngroups, B, S, KV, hd)`` tensors (the slot axis at 1), and layer
 
 With ``cfg.use_sc_gemm`` every dense projection — QKV/O, MLP, and the LM
 head — runs through ``core.sc_layers.sc_proj``, i.e. the SC-GEMM counts
-kernel on the card.
+kernel on the card. With ``cfg.attn_sc`` every attention site takes
+``sc_bits = cfg.sc_bits`` (:func:`_attn_sc_bits`): prefill through the
+flash kernel, decode through the paged kernel, both on their SC path.
 
 The decode steps update the cache in place (the page pool and the slot
 cache are the largest tensors of a serving process) and return it.
@@ -204,6 +206,12 @@ def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor):
     return x
 
 
+def _attn_sc_bits(cfg: ModelConfig) -> int | None:
+    """The one resolution point of the attention numeric, so prefill, dense
+    decode and paged decode never disagree on it."""
+    return cfg.sc_bits if cfg.attn_sc else None
+
+
 def _final(params, cfg, x):
     return rms_norm(x, params["final_norm"], eps=cfg.norm_eps,
                     plus_one=cfg.norm_plus_one)
@@ -230,7 +238,8 @@ def _full_sequence(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 causal=True, window=window, logit_softcap=cfg.attn_softcap,
                 q_block=min(cfg.q_block, s), kv_block=min(cfg.kv_block, s),
                 skip_masked_blocks=cfg.skip_masked_blocks,
-                bf16_probs=cfg.bf16_probs)
+                bf16_probs=cfg.bf16_probs, kernel_impl=cfg.attn_kernel,
+                q_offset=0, sc_bits=_attn_sc_bits(cfg))
 
         x = _layer(layer, x, cfg, attend)
     return _final(params, cfg, x), kvs
@@ -313,7 +322,9 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, cache: KVCache,
             q, k, v = _qkv(p, h, cfg, positions)
             # every row of the chunk sits at the shared staging offset;
             # columns past the filled prefix are causally masked, so bucket
-            # padding and pad-row writes are exact no-ops for valid rows
+            # padding and pad-row writes are exact no-ops for valid rows.
+            # q_offset puts the chunk on the flash kernel on the card, so
+            # its rows reduce as a one-shot prefill's do.
             k_cache[:, off:off + t] = k.to(k_cache.dtype)
             v_cache[:, off:off + t] = v.to(v_cache.dtype)
             return flash_attention(
@@ -321,7 +332,9 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, cache: KVCache,
                 kv_positions=kv_pos, causal=True, window=window,
                 logit_softcap=cfg.attn_softcap,
                 q_block=min(cfg.q_block, t), kv_block=min(cfg.kv_block, e),
-                skip_masked_blocks=False, bf16_probs=cfg.bf16_probs)
+                skip_masked_blocks=False, bf16_probs=cfg.bf16_probs,
+                kernel_impl=cfg.attn_kernel, q_offset=off,
+                sc_bits=_attn_sc_bits(cfg))
 
         x = _layer(layer, x, cfg, attend)
     x = _final(params, cfg, x)
@@ -373,7 +386,8 @@ def decode_step(params: dict, cfg: ModelConfig, cache: KVCache,
                                          v_cache[rows, col])
         return decode_attention(q, k_cache, v_cache, q_position=pos,
                                 window=window,
-                                logit_softcap=cfg.attn_softcap)
+                                logit_softcap=cfg.attn_softcap,
+                                sc_bits=_attn_sc_bits(cfg))
 
     return _run_decode(params, cfg, cache, batch, attend_cached)
 
@@ -401,6 +415,7 @@ def paged_decode_step(params: dict, cfg: ModelConfig, cache: KVCache,
         v_pages[bid, off] = v[:, 0].to(v_pages.dtype)
         return paged_decode_attention(q, paged, q_position=pos, window=window,
                                       logit_softcap=cfg.attn_softcap,
-                                      kernel_impl=cfg.paged_attn_kernel)
+                                      kernel_impl=cfg.paged_attn_kernel,
+                                      sc_bits=_attn_sc_bits(cfg))
 
     return _run_decode(params, cfg, cache, batch, attend_cached)

@@ -28,7 +28,7 @@ Determinism: with SC-GEMM on, per-request streams equal the sequential
 ``launch.serve.generate`` baseline token for token — the projections are
 integer-exact with per-row scales, and every float reduction on the path
 is batch-invariant by construction (``models.layers``), on the CPU and on
-the card alike.
+the card alike, with SC attention (``cfg.attn_sc``) on or off.
 """
 from __future__ import annotations
 
@@ -86,10 +86,10 @@ class Engine:
     step) or "oneshot".
 
     ``device=None`` means the card; a machine without CUDA raises
-    :class:`ConfigError` unless ``device="cpu"`` is asked for. The prefix
-    cache (``prefix_cache=True``), speculative decoding
-    (``speculate_k > 0``) and SC attention (``cfg.attn_sc``) come with later
-    slices of the port and are refused here.
+    :class:`ConfigError` unless ``device="cpu"`` is asked for. SC attention
+    (``cfg.attn_sc``) is served, in both prefill modes. The prefix cache
+    (``prefix_cache=True``) and speculative decoding (``speculate_k > 0``)
+    come with later slices of the port and are refused here.
     """
 
     def __init__(self, cfg, params, *, capacity: int = 4, max_seq: int = 256,
@@ -112,9 +112,6 @@ class Engine:
             raise ConfigError("speculative decoding (speculate_k > 0) comes "
                               "with the speculative-decoding slice of the "
                               "port")
-        if cfg.attn_sc:
-            raise ConfigError("SC attention (attn_sc=True) comes with the "
-                              "SC-attention slice of the port")
         self._m = bind(cfg, device)
         self.device = self._m.device
         self.cfg = cfg
@@ -548,6 +545,7 @@ class Engine:
             "prefill_shapes": len(self._prefill_shapes),
             "prefix_cache": False,
             "speculative": False,
+            "attn_sc_bits": self.cfg.sc_bits if self.cfg.attn_sc else None,
         }
         if self.paged:
             self.stats.update({

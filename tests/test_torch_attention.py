@@ -99,8 +99,12 @@ def test_paged_bf16_pages_equal_jax():
 def test_paged_wrapper_refuses_what_it_does_not_serve():
     q, k, v, tables, qpos = (torch.as_tensor(x) for x in _paged_inputs(
         1, 2, 2, 8, 4, 2, [3], seed=0))
-    with pytest.raises(ConfigError, match="SC"):
-        paged_attention(q, k, v, tables, qpos, sc_bits=8)
+    # SC scores at 2..8 bits are served; other widths are refused
+    out = paged_attention(q, k, v, tables, qpos, sc_bits=8)
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    for bits in (1, 9):
+        with pytest.raises(ConfigError, match="SC attention"):
+            paged_attention(q, k, v, tables, qpos, sc_bits=bits)
     with pytest.raises(ConfigError, match="softcap"):
         paged_attention(q, k, v, tables, qpos, logit_softcap=30.0)
     with pytest.raises(ConfigError, match="layout"):

@@ -7,7 +7,9 @@ no JAX, so it runs where the card is (the machine has no JAX):
 (``--noconftest``: ``tests/conftest.py`` imports JAX.) ``chip_smoke.py``
 checks the same kernels at the main path's shapes; here the geometries are
 the odd ones: ragged extents, every row-block width, page sizes that are
-not tile multiples, windows, single-KV-head layouts.
+not tile multiples, windows, single-KV-head layouts, score rows too long
+for shared memory. Float and SC attention alike; the engine's streams are
+held to the sequential baseline with each.
 """
 import dataclasses
 
@@ -16,6 +18,10 @@ import pytest
 import torch
 
 from repro_torch.configs.registry import ARCHS
+from repro_torch.errors import ConfigError
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_torch,
+                                                 sc_tolerance)
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_torch)
 from repro_torch.kernels.sc_matmul import (pack_signed,
@@ -144,6 +150,179 @@ def test_engine_streams_equal_sequential_baseline_on_the_card(cuda, block):
                     block=block, chunk=16)
     res = engine.run([Request(uid=f"r{i}", prompt=p, max_new_tokens=g)
                       for i, (p, g) in enumerate(zip(prompts, gens))])
+    for r, p, g in zip(res, prompts, gens):
+        ref = generate(cfg, params, p[None], gen_tokens=g, device=cuda)
+        np.testing.assert_array_equal(r.tokens, ref[0].cpu().numpy())
+
+
+# ------------------------------------------------------- SC attention slice
+
+def _sc_close(got, want, v, bits, tol):
+    """Kernel vs plain version under SC: the scores and quantized planes
+    repeat the plain float32 operations one for one, so all but 1% of the
+    elements meet the float tolerance; a probability within an ulp of a
+    rounding boundary may move one magnitude step, so no element may differ
+    by more than one output quantization step ``max|v| / (2**bits - 1)``
+    plus that tolerance."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bound = (sc_tolerance(v, bits) + tol["atol"]
+             + tol["rtol"] * want.abs().max().item())
+    assert err.max().item() <= bound, (err.max().item(), bound)
+    loose = ~torch.isclose(got, want, **tol)
+    assert loose.float().mean().item() <= 0.01
+
+
+@pytest.mark.parametrize("bits", [None, 4, 8], ids=["float", "sc4", "sc8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("geom", [
+    # (B, H, KV, Sq, Skv, D, q_offset, group, causal)
+    (1, 15, 5, 64, 64, 64, 0, 64, True),       # smollm one-shot
+    (1, 15, 5, 16, 128, 64, 32, 128, True),    # smollm chunk over a bucket
+    (2, 6, 2, 37, 53, 128, 16, 24, True),      # ragged, D 128, small group
+    (2, 4, 4, 45, 45, 128, 0, 32, True),       # G 1
+    (1, 3, 1, 5, 300, 32, 290, 300, True),     # one KV head, long row
+    (1, 4, 2, 33, 47, 64, 0, 16, False),       # not causal
+], ids=range(6))
+def test_flash_kernel_equals_plain(cuda, geom, dtype, bits):
+    b, h, kv, sq, skv, d, off, group, causal = geom
+    rng = np.random.default_rng(sq * 7 + skv)
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape), dtype=dtype
+                               ).to(cuda)
+               for shape in ((b, h, sq, d), (b, kv, skv, d), (b, kv, skv, d)))
+    kw = dict(causal=causal, q_offset=off, group=group, sc_bits=bits)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == before + 1 and got.dtype == dtype
+    want = flash_attention_torch(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if bits is None:
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    else:
+        _sc_close(got, want, v, bits, TOL[dtype])
+
+
+@pytest.mark.parametrize("bits", [None, 4, 8], ids=["float", "sc4", "sc8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_chunked_rows_equal_oneshot_rows_bitwise(cuda, dtype, bits):
+    """Through the kernel: 16-row chunks at their staging offsets over
+    larger extents (garbage past the prompt) give the one-shot rows bit for
+    bit, with the group ``min(kv_block, extent)`` each call site passes."""
+    rng = np.random.default_rng(5)
+    h, kv, s, d = 15, 5, 64, 64
+    q = torch.as_tensor(rng.standard_normal((1, s, h, d)), dtype=dtype
+                        ).to(cuda).transpose(1, 2)
+    k, v = (torch.as_tensor(rng.standard_normal((1, kv, s, d)), dtype=dtype
+                            ).to(cuda) for _ in range(2))
+    one = flash_attention(q, k, v, q_offset=0, group=s, sc_bits=bits)
+    for off in (0, 16, 32, 48):
+        for extent in (64, 128, 256):
+            kx, vx = (torch.as_tensor(50 * rng.standard_normal(
+                (1, kv, extent, d)), dtype=dtype).to(cuda) for _ in range(2))
+            kx[:, :, :s], vx[:, :, :s] = k, v
+            got = flash_attention(q[:, :, off:off + 16], kx, vx, q_offset=off,
+                                  group=extent, sc_bits=bits)
+            assert torch.equal(got, one[:, :, off:off + 16]), (off, extent)
+
+
+def test_flash_kernel_backward_is_the_plain_vjp(cuda):
+    """The kernel's autograd wrapper differentiates through the plain
+    formulation: its gradients equal autograd's through that formulation."""
+    rng = np.random.default_rng(9)
+    b, s, h, kv, d = 2, 24, 6, 2, 32
+    base = [torch.as_tensor(rng.standard_normal(shape),
+                            dtype=torch.float32).to(cuda)
+            for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
+    grad = torch.as_tensor(rng.standard_normal((b, s, h, d)),
+                           dtype=torch.float32).to(cuda)
+    pos = torch.arange(s, dtype=torch.int32, device=cuda).expand(b, s)
+    kw = dict(q_positions=pos, kv_positions=pos, q_block=8, kv_block=16)
+    grads, outs = {}, {}
+    for impl in ("auto", "jnp"):
+        leaves = [t.clone().requires_grad_() for t in base]
+        out = layers.flash_attention(*leaves, kernel_impl=impl, q_offset=0,
+                                     **kw)
+        out.backward(grad)
+        grads[impl], outs[impl] = [t.grad for t in leaves], out.detach()
+    torch.testing.assert_close(outs["auto"], outs["jnp"],
+                               **TOL[torch.float32])
+    # the same float32 recompute on both sides; only the card's choice of
+    # reduction kernels in autograd's own backward could reorder a sum
+    for a, b_ in zip(grads["auto"], grads["jnp"]):
+        assert a is not None
+        torch.testing.assert_close(a, b_, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("geom", [
+    # (C, KV, G, D, block, MB, positions, window)
+    (4, 5, 3, 64, 64, 4, [0, 63, 64, 255], None),
+    (4, 5, 3, 64, 64, 4, [100, 200, 31, 32], 17),
+    (3, 2, 2, 16, 4, 6, [7, 21, 13], None),          # pages under one tile
+    (2, 1, 1, 64, 48, 3, [95, 50], None),            # KV 1, G 1: SC only
+    (2, 2, 4, 128, 256, 80, [20000, 300], None),     # row in a workspace
+], ids=range(5))
+def test_paged_sc_kernel_equals_plain(cuda, geom, dtype, bits):
+    c, kv, g, d, block, mb, positions, window = geom
+    args = _paged(c, kv, g, d, block, mb, positions, sum(positions) + bits,
+                  dtype, cuda)
+    before = paged_attention.launches
+    got = paged_attention(*args, window=window, sc_bits=bits)
+    assert paged_attention.launches == before + 1 and got.dtype == dtype
+    want = paged_attention_torch(*args, window=window, sc_bits=bits)
+    torch.cuda.synchronize()
+    _sc_close(got, want, args[2], bits, TOL[dtype])
+
+
+def test_dense_sc_decode_runs_the_paged_kernel(cuda):
+    rng = np.random.default_rng(4)
+    b, s, kv, g, d = 3, 40, 1, 1, 32
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape),
+                               dtype=torch.float32).to(cuda)
+               for shape in ((b, 1, kv * g, d), (b, s, kv, d), (b, s, kv, d)))
+    pos = torch.as_tensor([0, 17, 39], dtype=torch.int32, device=cuda)
+    before = paged_attention.launches
+    got = layers.decode_attention(q, k, v, q_position=pos, sc_bits=8)
+    assert paged_attention.launches == before + 1
+    want = layers._decode_attention_plain(q, k, v, q_position=pos, sc_bits=8)
+    _sc_close(got, want, v, 8, TOL[torch.float32])
+
+
+def test_wrappers_never_fall_back_on_the_card(cuda):
+    """A CUDA tensor the kernels do not take raises; it is never handed to
+    the plain version."""
+    q = torch.zeros((1, 2, 4, 16), dtype=torch.float16, device=cuda)
+    with pytest.raises(ConfigError, match="f32 or bf16"):
+        flash_attention(q, q[:, :1], q[:, :1])
+    with pytest.raises(ConfigError, match="device"):
+        flash_attention(q.float(), q[:, :1].float().cpu(),
+                        q[:, :1].float().cpu())
+
+
+@pytest.mark.parametrize("mode", ["chunked", "oneshot"])
+def test_engine_sc_attention_streams_equal_baseline_on_the_card(cuda, mode):
+    """SC-GEMM and SC attention at 8 bits on a reduced smollm (float32):
+    the engine's streams equal the sequential baseline's, prefill through
+    the flash kernel and decode through the paged kernel."""
+    cfg = dataclasses.replace(ARCHS["smollm-360m"].reduced(dtype="float32"),
+                              use_sc_gemm=True, attn_sc=True,
+                              sc_bits=8).validate()
+    params = bind(cfg, cuda).init_params(0)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in (9, 30, 17, 5, 40)]
+    gens = [5, 12, 7, 20, 9]
+    engine = Engine(cfg, params, device=cuda, capacity=3, max_seq=64,
+                    block=32, chunk=16, prefill_mode=mode)
+    flash0, paged0 = flash_attention.launches, paged_attention.launches
+    res = engine.run([Request(uid=f"r{i}", prompt=p, max_new_tokens=g)
+                      for i, (p, g) in enumerate(zip(prompts, gens))])
+    assert flash_attention.launches > flash0
+    assert paged_attention.launches > paged0
     for r, p, g in zip(res, prompts, gens):
         ref = generate(cfg, params, p[None], gen_tokens=g, device=cuda)
         np.testing.assert_array_equal(r.tokens, ref[0].cpu().numpy())

@@ -27,7 +27,8 @@ PORT_MODULES = [
     "repro_torch.core.sc_matmul", "repro_torch.core.sc_layers",
     "repro_torch.kernels.build", "repro_torch.kernels.sc_matmul",
     "repro_torch.kernels.ops", "repro_torch.kernels.ref",
-    "repro_torch.kernels.paged_attention", "repro_torch.models",
+    "repro_torch.kernels.paged_attention", "repro_torch.kernels.sc_attention",
+    "repro_torch.kernels.flash_attention", "repro_torch.models",
     "repro_torch.models.layers", "repro_torch.models.transformer",
     "repro_torch.models.cache_ops", "repro_torch.models.model_zoo",
     "repro_torch.serving", "repro_torch.serving.queue",
@@ -102,18 +103,46 @@ def test_serve_cli_runs_on_the_cpu(capsys):
     assert "[serve] cpu continuous/paged/chunked: 3 requests" in out
 
 
+@pytest.mark.parametrize("mode", ["chunked", "oneshot"])
+def test_serve_cli_module_serves_sc_attention_on_the_cpu(mode):
+    """``python -m repro_torch.launch.serve`` with SC-GEMM and SC attention,
+    as a user runs it."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "smollm-360m", "--reduced", "--sc-gemm", "--attn-sc", "--device",
+         "cpu", "--requests", "3", "--prompt-len", "8", "--gen", "4",
+         "--capacity", "2", "--block", "4", "--prefill-mode", mode],
+        capture_output=True, text=True, timeout=300,
+        env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin",
+             "OMP_NUM_THREADS": "2"})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert f"[serve] cpu continuous/paged/{mode}: 3 requests" in proc.stdout
+    assert "attention SC 8-bit" in proc.stdout
+
+
+def test_serve_cli_refuses_out_of_range_attention_bits():
+    from repro_torch.launch.serve import main
+    with pytest.raises(ConfigError, match="2..8"):
+        main(["--arch", "smollm-360m", "--reduced", "--device", "cpu",
+              "--attn-sc-bits", "9"])
+
+
 def test_later_slices_are_refused():
+    """SC attention is served now (on the CPU here); the prefix cache,
+    speculation and the other families are still refused."""
     from repro_torch.models import bind
     from repro_torch.models.transformer import init_params
-    from repro_torch.serving import Engine
+    from repro_torch.serving import Engine, Request
     cfg = ARCHS["smollm-360m"].reduced(dtype="float32")
     params = init_params(cfg, 0, device="cpu")
     with pytest.raises(ConfigError, match="prefix-cache"):
         Engine(cfg, params, device="cpu", prefix_cache=True)
     with pytest.raises(ConfigError, match="speculative"):
         Engine(cfg, params, device="cpu", speculate_k=2)
-    with pytest.raises(ConfigError, match="SC-attention"):
-        Engine(dataclasses.replace(cfg, attn_sc=True), params, device="cpu")
+    sc = Engine(dataclasses.replace(cfg, attn_sc=True), params, device="cpu",
+                capacity=1, max_seq=16)
+    out = sc.run([Request(uid="a", prompt=[1, 2, 3], max_new_tokens=2)])
+    assert out[0].n_generated == 2 and sc.stats["attn_sc_bits"] == 8
     with pytest.raises(ConfigError, match="slice"):
         bind(ARCHS["mamba2-130m"].reduced(), "cpu")
 
