@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port (``src/repro_torch``) starts on
 the GPU: builds its CUDA kernels from this checkout's sources, holds each
-kernel against its plain PyTorch version on the card, then serves requests
-through the port's engine at smollm-360m's full width — float attention,
-then SC attention — and checks the streams against the sequential
-baseline.
+kernel against its plain PyTorch version on the card, runs the paper's
+multiplier over exhaustive operand grids and its Table II / Fig. 1(b)
+rows, then serves requests through the port's engine at smollm-360m's
+full width — float attention, then SC attention — and checks the streams
+against the sequential baseline.
 
     python3 chip_smoke.py            # one CUDA card; ~10 minutes at most
     python3 chip_smoke.py --only build,flash   # a subset, for debugging
@@ -12,7 +13,7 @@ baseline.
 Phases (each raises on failure, so any failure exits non-zero):
 
 1. the card's name and power limit, as ``nvidia-smi`` prints them;
-2. build the three kernels (one ``nvcc`` per source, started together;
+2. build the four kernels (one ``nvcc`` per source, started together;
    each library keyed by its source and the shared header);
 3. SC-GEMM counts kernel vs its plain version at the main path's shapes
    (decode M=4 and chunked-prefill M=16) plus ragged and other-width
@@ -25,18 +26,26 @@ Phases (each raises on failure, so any failure exits non-zero):
    one-shot and chunked shapes; chunked rows must equal one-shot rows bit
    for bit through the kernel; kernel, plain, bound and (float)
    ``scaled_dot_product_attention`` ms;
-6. a reduced smollm-360m (float32) cross-check: prefill logits on the
+6. the bit-parallel stream kernel through ``ops.sc_stream_mul`` on every
+   operand pair at B = 5, 6, 7, 8, 10 and 12 (16,777,216 pairs), counter
+   set to 0 just before: counts exactly equal to the plain version and
+   the closed form (and the bit-level oracle at B <= 8); a ragged size, a
+   3-D shape, empty operands, block widths 1/4/8; kernel, plain and bound
+   ms at B = 8 and 12;
+7. ``launch.paper``'s Table II and Fig. 1(b) rows on the card, each equal
+   to the same row computed on the CPU;
+8. a reduced smollm-360m (float32) cross-check: prefill logits on the
    card agree with the CPU's, and the engine's streams on both are
    compared;
-7. serve 8 requests at full width (smollm-360m, bf16, SC-GEMM on, random
+9. serve 8 requests at full width (smollm-360m, bf16, SC-GEMM on, random
    weights from seed 0) through ``Engine(capacity=4, max_seq=256, block=64,
    chunk=16)``; the launch counters, set to 0 just before, must show the
    kernels on every decode step and prefill chunk; streams must equal the
    sequential ``generate`` baseline on the card;
-8. the same with SC attention at 8 bits, chunked and then one-shot
-   prefill, each against the sequential baseline;
-9. a ``torch.profiler`` pass over two full-width decode steps: device
-   time by kernel and host time by operator (where a step's time goes).
+10. the same with SC attention at 8 bits, chunked and then one-shot
+    prefill, each against the sequential baseline;
+11. a ``torch.profiler`` pass over two full-width decode steps: device
+    time by kernel and host time by operator (where a step's time goes).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Details go to
@@ -63,6 +72,10 @@ HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
 BF16_OPS_S = 989e12
 FP32_OPS_S = 67e12
+
+# population counts (__popc) per clock per SM at compute capability 9.0
+# (CUDA C++ Programming Guide, arithmetic-instruction throughput table)
+POPC_PER_CLK_SM = 16
 
 # smollm-360m projection shapes (K, N) and their calls per decode step:
 # q, o (960, 960); k, v (960, 320); w1, w3 (960, 2560); w2 (2560, 960) in
@@ -458,6 +471,143 @@ def phase_flash() -> dict:
     return {"cases": rows, "invariance": invariance, "timing": timing}
 
 
+def _stream_bound(pairs: int, bits: int) -> tuple[float, str, int, int]:
+    """Least time for the stream product of ``pairs`` operand pairs: one
+    popcount per pair and 32-bit word at the card's population-count rate
+    (SMs x max SM clock), against two int32 read and one written per pair
+    at the HBM rate."""
+    import torch
+    clk_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    popcounts = pairs * ((1 << bits) // 32)
+    nbytes = 12 * pairs
+    t_ops = popcounts / (POPC_PER_CLK_SM * sms * clk_mhz * 1e6)
+    t_bytes = nbytes / HBM_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, popcounts)
+
+
+def phase_stream() -> dict:
+    """The paper's bit-parallel multiplier through ``ops.sc_stream_mul`` on
+    every operand pair at B = 5, 6, 7, 8, 10 and 12: the launch counter,
+    set to 0 just before, must show one kernel launch per grid; each grid's
+    counts must equal the plain version's and the closed form's exactly
+    (and the bit-level oracle's at B <= 8). Then a ragged size, a 3-D
+    shape, empty operands and every block width; kernel, plain and bound
+    ms at B = 8 and 12."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.error_analysis import exhaustive_grid
+    from repro_torch.core.multipliers import (proposed_bitlevel,
+                                              proposed_closed_form)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sc_bitops import (sc_stream_mul_cuda,
+                                               sc_stream_mul_torch)
+    dev = torch.device("cuda")
+    widths = (5, 6, 7, 8, 10, 12)
+    grids = {bits: exhaustive_grid(bits, dev) for bits in widths}
+    torch.cuda.synchronize()
+    sc_stream_mul_cuda.launches = 0
+    got = {bits: ops.sc_stream_mul(x, y, bits=bits)
+           for bits, (x, y) in grids.items()}
+    torch.cuda.synchronize()
+    launches = sc_stream_mul_cuda.launches
+    if launches != len(widths):
+        raise AssertionError(f"stream kernel launched {launches} times for "
+                             f"{len(widths)} grids")
+
+    def same(a, b, what):
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+            bad = (a != b).sum().item() if a.shape == b.shape else "shape"
+            raise AssertionError(f"stream {what}: {bad} counts differ")
+        return (a.long() - b.long()).abs().max().item() if a.numel() else 0
+
+    err = 0
+    for bits, (x, y) in grids.items():
+        err = max(err, same(got[bits], sc_stream_mul_torch(x, y, bits=bits),
+                            f"B={bits} vs plain"),
+                  same(got[bits], proposed_closed_form(x, y, bits=bits),
+                       f"B={bits} vs closed form"))
+        checked = "plain, closed form"
+        if bits <= 8:
+            same(got[bits], proposed_bitlevel(x, y, bits=bits),
+                 f"B={bits} vs bit level")
+            checked += ", bit level"
+        log(f"[stream] B={bits:2d}: all {x.numel():,} pairs exactly equal "
+            f"({checked})")
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for bits, shape in ((8, (100_003,)), (10, (7, 33, 65)), (9, (3, 1, 257))):
+        x = torch.randint(0, 1 << bits, shape, generator=gen, device=dev,
+                          dtype=torch.int32)
+        y = torch.randint(0, 1 << bits, shape, generator=gen, device=dev,
+                          dtype=torch.int32)
+        out = ops.sc_stream_mul(x, y, bits=bits)
+        same(out, proposed_closed_form(x, y, bits=bits),
+             f"B={bits} shape {shape}")
+        for rows in (1, 4, 8):
+            same(ops.sc_stream_mul(x, y, bits=bits, block_rows=rows), out,
+                 f"B={bits} shape {shape} block_rows={rows}")
+    for shape in ((0,), (3, 0, 5)):
+        empty = torch.zeros(shape, dtype=torch.int32, device=dev)
+        out = ops.sc_stream_mul(empty, empty, bits=8)
+        if out.shape != empty.shape or out.dtype != torch.int32:
+            raise AssertionError(f"stream: empty {shape} gave {out.shape}")
+    log("[stream] ragged 100,003 pairs, 3-D shapes kept, empty operands, "
+        "block_rows 1/4/8: all equal")
+
+    timing = {}
+    for bits in (8, 12):
+        x, y = grids[bits]
+        ms = cuda_ms(lambda: ops.sc_stream_mul(x, y, bits=bits),
+                     iters=200 if bits == 8 else 20)
+        plain_ms = cuda_ms(lambda: sc_stream_mul_torch(x, y, bits=bits),
+                           iters=3 if bits == 8 else 1, warmup=1)
+        bound, by, nbytes, popcounts = _stream_bound(x.numel(), bits)
+        # the kernel's own device time, without the host's cost of a call
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                ops.sc_stream_mul(x, y, bits=bits)
+            torch.cuda.synchronize()
+        dev_us = sum(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+                     for e in prof.key_averages()
+                     if "sc_stream_mul_kernel" in e.key)
+        device_ms = dev_us / 1e3 / 10 if dev_us > 0 else None
+        timing[bits] = {"pairs": x.numel(), "ms": ms, "plain_ms": plain_ms,
+                        "device_ms": device_ms, "bound_ms": bound,
+                        "bound_by": by, "bytes": nbytes,
+                        "popcounts": popcounts}
+        dev_txt = ("not measured" if device_ms is None
+                   else f"{device_ms:.4f} ms")
+        log(f"[stream] B={bits:2d} exhaustive ({x.numel():,} pairs): kernel "
+            f"{ms:.4f} ms a call (device time {dev_txt}), plain "
+            f"{plain_ms:.1f} ms, bound {bound:.4f} ms ({by})")
+    return {"launches": launches, "max_abs_err": err, "timing": timing,
+            "widths": widths}
+
+
+def phase_paper() -> dict:
+    """``launch.paper``'s Table II and Fig. 1(b) rows on the card; each
+    row's ``derived`` must equal the same row computed on the CPU."""
+    from repro_torch.launch.paper import SUITES
+    rows = {dev: [r for fn in SUITES.values() for r in fn(dev)]
+            for dev in ("cuda", "cpu")}
+    for card, cpu in zip(rows["cuda"], rows["cpu"], strict=True):
+        if (card["name"], card["derived"]) != (cpu["name"], cpu["derived"]):
+            raise AssertionError(f"paper row {card['name']}: card "
+                                 f"{card['derived']!r} != CPU "
+                                 f"{cpu['derived']!r}")
+        log(f"[paper] {card['name']},{card['us_per_call']},"
+            f"{card['derived'].replace(',', ';')}  (CPU {cpu['us_per_call']} "
+            f"us)")
+    log(f"[paper] {len(rows['cuda'])} rows on the card equal the CPU's")
+    return rows
+
+
 def _workload(cfg, n, prompt_len, gen_lo, gen_hi, seed):
     import numpy as np
     from repro_torch.serving import Request
@@ -748,6 +898,7 @@ def main() -> int:
               "cuda": torch.version.cuda}
     phases = (("build", phase_build), ("sc_gemm", phase_sc_gemm),
               ("paged", phase_paged), ("flash", phase_flash),
+              ("stream", phase_stream), ("paper", phase_paper),
               ("small_model", phase_small_model), ("serve", phase_serve),
               ("serve_sc", phase_serve_sc), ("profile", phase_profile))
     for name, fn in phases:
@@ -768,6 +919,7 @@ def main() -> int:
     step = report["sc_gemm"]["decode_step"]
     paged = report["paged"]["cases"]
     serve, serve_sc = report["serve"], report["serve_sc"]
+    stream = report["stream"]["timing"][12]
 
     def paged_row(bits):
         return next(r for r in paged if r["dtype"] == "bfloat16"
@@ -833,6 +985,15 @@ def main() -> int:
                     serve["launches"]["flash_attention"]),
         flash_entry("flash_attention_sc", "sc8", 8,
                     sc_launch["flash_attention"]),
+        {"name": "sc_stream_mul", "route": "cuda",
+         "source": f"{src}/sc_bitops.cu",
+         "replaces": "src/repro/kernels/sc_bitops.py:84",
+         "launches": report["stream"]["launches"],
+         "max_abs_err": report["stream"]["max_abs_err"],
+         "ms": stream["ms"], "plain_ms": stream["plain_ms"],
+         "bound_ms": stream["bound_ms"], "bound_by": stream["bound_by"],
+         "library_ms": None,
+         "unit": "exhaustive B=12 grid, 16,777,216 pairs"},
     ]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t0

@@ -29,7 +29,7 @@ __all__ = ["SOURCES", "build", "load", "check", "library_path", "ptxas_log",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: Every kernel source of the port, by library name.
-SOURCES = ("sc_matmul", "paged_attention", "flash_attention")
+SOURCES = ("sc_matmul", "paged_attention", "flash_attention", "sc_bitops")
 BUILD_ENV = "REPRO_TORCH_BUILD_DIR"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,11 +1,12 @@
 """Public wrappers around the port's kernels: quantization, packing and
 dequantization around the SC-GEMM counts kernel (port of
-``repro/kernels/ops.py::sc_matmul_pallas``), and the flash kernel's entry
-at fixed tile sizes (port of ``flash_attention_tuned``).
+``repro/kernels/ops.py::sc_matmul_pallas``), the bit-parallel stream
+multiplier over any shape (port of ``sc_stream_mul``), and the flash
+kernel's entry at fixed tile sizes (port of ``flash_attention_tuned``).
 
-The TPU wrapper padded every operand to its block multiples (signs with +1,
-magnitudes with 0) because Pallas blocks must tile the array. The CUDA
-kernel masks its ragged M/N/K edges itself, so nothing is padded here and
+The TPU wrappers padded every operand to its block multiples (signs with
++1, magnitudes with 0) because Pallas blocks must tile the array. The CUDA
+kernels mask their ragged edges themselves, so nothing is padded here and
 nothing is sliced off afterwards.
 """
 from __future__ import annotations
@@ -14,11 +15,13 @@ import torch
 
 from repro_torch.core.sc_numerics import quantize_sign_magnitude
 from repro_torch.core.tcu import stream_length
+from repro_torch.errors import ConfigError
 
 from .flash_attention import flash_attention
+from .sc_bitops import sc_stream_mul_cuda
 from .sc_matmul import pack_signed, sc_matmul_counts_signed
 
-__all__ = ["sc_matmul", "flash_attention_tuned"]
+__all__ = ["sc_matmul", "sc_stream_mul", "flash_attention_tuned"]
 
 
 def sc_matmul(a: torch.Tensor, b: torch.Tensor, *, bits: int = 8,
@@ -38,6 +41,30 @@ def sc_matmul(a: torch.Tensor, b: torch.Tensor, *, bits: int = 8,
                                      pack_signed(qb.sign, qb.mag, bits),
                                      bits=bits)
     return counts * (stream_length(bits) * qa.scale * qb.scale)
+
+
+def sc_stream_mul(x: torch.Tensor, y: torch.Tensor, *, bits: int = 8,
+                  block_rows: int = 8, tune: bool = False) -> torch.Tensor:
+    """Elementwise bit-parallel stochastic multiply of same-shape integer
+    magnitudes in ``[0, 2**bits)``: int32 counts ``O(x, y)`` in the input's
+    shape, through the stream kernel on the card and its plain version on
+    the CPU.
+
+    ``block_rows`` is the rows of 128 elements one CUDA block processes
+    (1..8); the result does not depend on it. ``tune=True`` would pick it
+    through the autotuner, which is not ported yet.
+    """
+    if tune:
+        raise ConfigError("sc_stream_mul(tune=True) needs the autotuner, "
+                          "which is not ported yet (ROADMAP Queue 1 #13)")
+    if x.shape != y.shape:
+        raise ConfigError(f"stream operands must have one shape, got "
+                          f"{tuple(x.shape)} and {tuple(y.shape)}")
+    # the wrapper returns an empty operand's empty result directly
+    out = sc_stream_mul_cuda(x.reshape(-1).to(torch.int32),
+                             y.reshape(-1).to(torch.int32), bits=bits,
+                             block_rows=block_rows)
+    return out.reshape(x.shape)
 
 
 def flash_attention_tuned(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

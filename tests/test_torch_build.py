@@ -19,7 +19,8 @@ def csrc(tmp_path, monkeypatch):
 
 
 def test_sources_are_all_present():
-    assert build.SOURCES == ("sc_matmul", "paged_attention", "flash_attention")
+    assert build.SOURCES == ("sc_matmul", "paged_attention", "flash_attention",
+                             "sc_bitops")
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").is_file()
     assert (build.CSRC / "sc_attention.cuh").is_file()

@@ -22,8 +22,12 @@ from repro_torch.errors import ConfigError
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_torch,
                                                  sc_tolerance)
+from repro_torch.core.multipliers import proposed_closed_form
+from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_torch)
+from repro_torch.kernels.sc_bitops import (sc_stream_mul_cuda,
+                                           sc_stream_mul_torch)
 from repro_torch.kernels.sc_matmul import (pack_signed,
                                            sc_matmul_counts_signed,
                                            sc_matmul_counts_signed_torch)
@@ -326,3 +330,49 @@ def test_engine_sc_attention_streams_equal_baseline_on_the_card(cuda, mode):
     for r, p, g in zip(res, prompts, gens):
         ref = generate(cfg, params, p[None], gen_tokens=g, device=cuda)
         np.testing.assert_array_equal(r.tokens, ref[0].cpu().numpy())
+
+
+@pytest.mark.parametrize("bits", [5, 6, 7, 8])
+def test_stream_kernel_equals_plain_exhaustively(cuda, bits):
+    """Every operand pair at B = 5..8: the kernel's counts equal the plain
+    version's and the closed form's exactly."""
+    n = 1 << bits
+    x, y = torch.meshgrid(torch.arange(n, dtype=torch.int32, device=cuda),
+                          torch.arange(n, dtype=torch.int32, device=cuda),
+                          indexing="ij")
+    x, y = x.reshape(-1), y.reshape(-1)
+    got = sc_stream_mul_cuda(x, y, bits=bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sc_stream_mul_torch(x, y, bits=bits))
+    assert torch.equal(got, proposed_closed_form(x, y, bits=bits))
+
+
+@pytest.mark.parametrize("block_rows", [1, 3, 8])
+def test_stream_kernel_equals_plain_on_a_seeded_12_bit_sample(cuda,
+                                                              block_rows):
+    rng = np.random.default_rng(12 + block_rows)
+    x, y = (torch.as_tensor(rng.integers(0, 1 << 12, (5, 2049)),
+                            dtype=torch.int32).to(cuda) for _ in range(2))
+    x[0, :3] = torch.tensor([0, 4095, 2048], dtype=torch.int32)
+    y[0, :3] = torch.tensor([4095, 0, 2048], dtype=torch.int32)
+    got = ops.sc_stream_mul(x, y, bits=12, block_rows=block_rows)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape
+    assert torch.equal(got, sc_stream_mul_torch(x, y, bits=12))
+    assert torch.equal(got, proposed_closed_form(x, y, bits=12))
+
+
+def test_stream_wrapper_counts_launches_and_never_falls_back(cuda):
+    x = torch.arange(300, dtype=torch.int32, device=cuda) % 256
+    before = sc_stream_mul_cuda.launches
+    ops.sc_stream_mul(x, x.flip(0), bits=8)
+    assert sc_stream_mul_cuda.launches == before + 1
+    ops.sc_stream_mul(x[:0], x[:0], bits=8)        # empty: nothing launched
+    assert sc_stream_mul_cuda.launches == before + 1
+    with pytest.raises(ConfigError, match="int32"):
+        sc_stream_mul_cuda(x.long(), x.long(), bits=8)
+    with pytest.raises(ConfigError, match="device"):
+        sc_stream_mul_cuda(x, x.cpu(), bits=8)
+    with pytest.raises(ConfigError, match="block_rows"):
+        ops.sc_stream_mul(x, x, bits=8, block_rows=16)
+    assert sc_stream_mul_cuda.launches == before + 1

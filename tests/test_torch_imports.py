@@ -25,7 +25,10 @@ PORT_MODULES = [
     "repro_torch.configs.base", "repro_torch.configs.registry",
     "repro_torch.core.tcu", "repro_torch.core.sc_numerics",
     "repro_torch.core.sc_matmul", "repro_torch.core.sc_layers",
+    "repro_torch.core.multipliers", "repro_torch.core.error_analysis",
+    "repro_torch.core.hardware_model",
     "repro_torch.kernels.build", "repro_torch.kernels.sc_matmul",
+    "repro_torch.kernels.sc_bitops",
     "repro_torch.kernels.ops", "repro_torch.kernels.ref",
     "repro_torch.kernels.paged_attention", "repro_torch.kernels.sc_attention",
     "repro_torch.kernels.flash_attention", "repro_torch.models",
@@ -34,6 +37,7 @@ PORT_MODULES = [
     "repro_torch.serving", "repro_torch.serving.queue",
     "repro_torch.serving.slots", "repro_torch.serving.engine",
     "repro_torch.launch.steps", "repro_torch.launch.serve",
+    "repro_torch.launch.paper",
 ]
 
 
