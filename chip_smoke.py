@@ -7,7 +7,7 @@ rows, then serves requests through the port's engine at smollm-360m's
 full width — float attention, then SC attention — and checks the streams
 against the sequential baseline.
 
-    python3 chip_smoke.py            # one CUDA card; ~10 minutes at most
+    python3 chip_smoke.py            # one CUDA card; ~3 minutes
     python3 chip_smoke.py --only build,flash   # a subset, for debugging
 
 Phases (each raises on failure, so any failure exits non-zero):
@@ -15,9 +15,15 @@ Phases (each raises on failure, so any failure exits non-zero):
 1. the card's name and power limit, as ``nvidia-smi`` prints them;
 2. build the four kernels (one ``nvcc`` per source, started together;
    each library keyed by its source and the shared header);
-3. SC-GEMM counts kernel vs its plain version at the main path's shapes
-   (decode M=4 and chunked-prefill M=16) plus ragged and other-width
-   cases — counts must be exactly equal; kernel ms, plain ms and the bound;
+3. SC-GEMM: the counts entry exactly equal to its plain version at the
+   main path's shapes, ragged shapes and other plane widths; the fused
+   projection (rows quantized in the kernel, a weight packed once, output
+   dequantized) bit-equal to its plain version and to the unfused chain
+   at every smollm-360m decode and prefill shape (M = 1, 4, 16, 64),
+   ragged shapes, bits 1-8 and 16, f32 and bf16, rows holding a NaN or an
+   Inf; rows equal their 1-row calls; per shape at M = 4, 16 and 64 the
+   fused call's ms and device ms, the old chain's, plain and bound ms; a
+   decode step's device ms at 1, 2 and 4 blocks per SM (the K split);
 4. paged decode-attention kernel vs its plain version at smollm's layout,
    f32 and bf16, float and SC at 4 and 8 bits, fragmented tables, windows,
    a single-KV-head layout (SC);
@@ -40,12 +46,14 @@ Phases (each raises on failure, so any failure exits non-zero):
 9. serve 8 requests at full width (smollm-360m, bf16, SC-GEMM on, random
    weights from seed 0) through ``Engine(capacity=4, max_seq=256, block=64,
    chunk=16)``; the launch counters, set to 0 just before, must show the
-   kernels on every decode step and prefill chunk; streams must equal the
-   sequential ``generate`` baseline on the card;
+   kernels on every decode step and prefill chunk, and exactly one fused
+   SC-GEMM launch per projection; streams must equal the sequential
+   ``generate`` baseline on the card;
 10. the same with SC attention at 8 bits, chunked and then one-shot
     prefill, each against the sequential baseline;
 11. a ``torch.profiler`` pass over two full-width decode steps: device
-    time by kernel and host time by operator (where a step's time goes).
+    time by kernel, host time by operator, kernel launches and host
+    synchronizations per step (where a step's time goes).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Details go to
@@ -87,6 +95,10 @@ N_LAYERS = 32
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f} ms"
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -171,17 +183,77 @@ def _planes(m, k, n, bits, gen, dev):
             pack_signed(qb.sign, qb.mag, bits))
 
 
-def phase_sc_gemm() -> dict:
+def _sm_clock_hz() -> float:
+    """The card's maximum SM clock, as ``nvidia-smi`` reports it."""
+    return 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+
+
+def _sc_bound(m, k, n, esz):
+    """Least time of one fused projection: the rows (``esz`` bytes an
+    element) and the int16 weight plane read once and the output written
+    once, against ``2·M·N·K`` operations at the int8 tensor-core peak
+    (the rate of the cheapest type the counts could go through). Returns
+    (ms, bound_by, bytes, ops)."""
+    nbytes = m * k * esz + k * (-(-n // 8) * 8) * 2 + m * n * esz + 4
+    ops = 2 * m * n * k
+    t_b, t_o = nbytes / HBM_BYTES_S, ops / INT8_OPS_S
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
+            nbytes, ops)
+
+
+def device_ms(fn, kernel: str, iters: int = 20) -> float | None:
+    """Mean device milliseconds a call of the kernels whose name holds
+    ``kernel``, from a ``torch.profiler`` trace of ``iters`` calls (the
+    kernel's own time, without the host's cost of a call); None when the
+    trace holds no device time."""
     import torch
-    from repro_torch.kernels.sc_matmul import (sc_matmul_counts_signed,
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages() if kernel in e.key)
+    return us / 1e3 / iters if us > 0 else None
+
+
+def phase_sc_gemm() -> dict:
+    """SC-GEMM on the card. The counts entry (signed planes in, float32
+    counts out) must equal its plain version exactly at the main path's
+    shapes, ragged shapes and other plane widths. The fused projection
+    (``sc_linear``: rows quantized in the kernel, a weight packed once,
+    dequantized output) must equal its plain version bit for bit at every
+    smollm-360m decode and prefill shape (M = 1, 4, 16, 64), ragged
+    shapes, bits 1-8 and 16, f32 and bf16, and must equal the unfused
+    chain; rows holding a NaN or an Inf must come out NaN in both. Times
+    at M = 4, 16 and 64 with the weight cycled from HBM: fused, the old
+    chain (quantize both operands, pack, count, dequantize, cast), the
+    plain version, and the bound; then a decode step's device time with
+    the K split aimed at 1, 2 and 4 blocks per SM."""
+    import torch
+    from repro_torch.core.sc_numerics import quantize_sign_magnitude
+    from repro_torch.core.tcu import stream_length
+    from repro_torch.kernels import sc_matmul as skm
+    from repro_torch.kernels.sc_matmul import (pack_signed, pack_weight,
+                                               plan, sc_linear,
+                                               sc_linear_torch,
+                                               sc_matmul_counts_signed,
                                                sc_matmul_counts_signed_torch)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
-    # exactness: main-path shapes, a ragged shape, and other plane widths
+    # the counts entry: main-path shapes, ragged shapes, other plane widths
     cases = [(m, k, n, 8) for m in (4, 16) for (k, n) in SC_SHAPES]
     cases += [(7, 1000, 333, 8), (37, 129, 65, 8), (1, 960, 960, 8),
-              (64, 960, 320, 8), (4, 960, 960, 4), (4, 200, 96, 16)]
+              (64, 960, 320, 8), (4, 960, 960, 4), (4, 200, 96, 16),
+              (20, 200, 99, 16), (3, 4000, 50, 12)]
     for m, k, n, bits in cases:
         a, b = _planes(m, k, n, bits, gen, dev)
         got = sc_matmul_counts_signed(a, b, bits=bits)
@@ -191,43 +263,164 @@ def phase_sc_gemm() -> dict:
             bad = (got != want).sum().item()
             raise AssertionError(f"SC-GEMM counts differ at M={m} K={k} "
                                  f"N={n} bits={bits}: {bad} entries")
-        timed = bits == 8 and (k, n) in SC_SHAPES and m in (4, 16)
-        row = {"M": m, "K": k, "N": n, "bits": bits, "exact": True}
-        if timed:
-            # cycle through enough copies of B that it comes from HBM, as
-            # it does on the decode path (every layer's weights evict the
-            # last one's from the 50 MB L2)
-            copies = [b] + [b.clone() for _ in
-                            range(max(0, math.ceil(128e6 / b.nbytes) - 1))]
+        rows.append({"entry": "counts", "M": m, "K": k, "N": n,
+                     "bits": bits, "exact": True})
+    log(f"[sc_gemm] counts entry: {len(cases)} cases exactly equal to the "
+        f"plain version")
+
+    def chain(x, w, bits):
+        """The unfused chain a projection ran before weights were packed
+        once: quantize both operands, pack, count, dequantize, cast."""
+        qa = quantize_sign_magnitude(x.to(torch.float32), bits=bits, axis=-1)
+        qb = quantize_sign_magnitude(w.to(torch.float32), bits=bits)
+        counts = sc_matmul_counts_signed(pack_signed(qa.sign, qa.mag, bits),
+                                         pack_signed(qb.sign, qb.mag, bits),
+                                         bits=bits)
+        return (counts * (stream_length(bits) * qa.scale * qb.scale)
+                ).to(x.dtype)
+
+    # the fused projection: bit-equal to its plain version and the chain
+    bf16, f32 = torch.bfloat16, torch.float32
+    fused = [(m, k, n, 8, bf16) for m in (1, 4, 16, 64)
+             for (k, n) in SC_SHAPES]
+    fused += [(7, 1000, 333, 8, bf16), (37, 129, 65, 8, f32),
+              (5, 33, 17, 8, f32), (17, 96, 200, 8, bf16),
+              (20, 200, 99, 16, f32), (4, 200, 96, 16, bf16)]
+    fused += [(m, 200, 96, bits, f32) for bits in range(1, 9)
+              for m in (4, 20)]
+    for m, k, n, bits, dtype in fused:
+        x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             * k ** -0.5).to(dtype)
+        pw = pack_weight(w, bits)
+        got = sc_linear(x, pw)
+        want = sc_linear_torch(x, pw)
+        ref = chain(x, w, bits)
+        torch.cuda.synchronize()
+        for other, what in ((want, "plain version"), (ref, "chain")):
+            if got.dtype != dtype or not torch.equal(got, other):
+                bad = (got != other).sum().item()
+                raise AssertionError(
+                    f"fused SC-GEMM differs from its {what} at M={m} K={k} "
+                    f"N={n} bits={bits} {dtype}: {bad} entries")
+        rows.append({"entry": "fused", "M": m, "K": k, "N": n, "bits": bits,
+                     "dtype": str(dtype)[6:], "bitwise_equal": True})
+    log(f"[sc_gemm] fused entry: {len(fused)} cases bit-equal to the plain "
+        f"version and the unfused chain")
+
+    # rows holding a NaN or an Inf come out NaN, as in the plain version
+    for bits, dtype, k in ((8, bf16, 960), (8, f32, 960), (16, f32, 200)):
+        x = torch.randn((6, k), generator=gen, device=dev)
+        x[1, 5], x[3, k - 1], x[4, 0] = math.nan, math.inf, -math.inf
+        x = x.to(dtype)
+        pw = pack_weight(torch.randn((k, 320), generator=gen,
+                                     device=dev).to(dtype), bits)
+        got, want = sc_linear(x, pw), sc_linear_torch(x, pw)
+        nan = torch.tensor([False, True, False, True, True, False],
+                           device=dev)
+        if not (torch.equal(got.isnan().all(1), nan)
+                and torch.equal(got.isnan(), want.isnan())
+                and torch.equal(got[~nan], want[~nan])):
+            raise AssertionError(f"fused SC-GEMM rows holding NaN/Inf at "
+                                 f"bits={bits} {dtype} differ from the plain "
+                                 f"version")
+    log("[sc_gemm] rows holding a NaN or an Inf come out NaN, as in the "
+        "plain version; the other rows are bit-equal")
+
+    # batch invariance: each row of an M-row call equals its 1-row call
+    for m, (k, n) in ((4, (960, 960)), (64, (2560, 960))):
+        x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+        pw = pack_weight(torch.randn((k, n), generator=gen,
+                                     device=dev).to(bf16), 8)
+        whole = sc_linear(x, pw)
+        for i in range(m):
+            if not torch.equal(whole[i:i + 1], sc_linear(x[i:i + 1], pw)):
+                raise AssertionError(f"fused SC-GEMM row {i} of M={m} "
+                                     f"differs from its 1-row call")
+    log("[sc_gemm] every row of M=4 and M=64 calls equals its 1-row call")
+
+    # times: bf16 rows as the model passes them, weights cycled from HBM
+    # (every layer's weights evict the last one's from the 50 MB L2)
+    timing = []
+    for m in (4, 16, 64):
+        for (k, n), calls in SC_SHAPES.items():
+            x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+            w = (torch.randn((k, n), generator=gen, device=dev)
+                 * k ** -0.5).to(bf16)
+            copies = max(1, math.ceil(128e6 / (k * n * 2)))
+            ws = [w] + [w.clone() for _ in range(copies - 1)]
+            pws = [pack_weight(v, 8) for v in ws]
             it = iter(range(1 << 30))
-            ms = cuda_ms(lambda: sc_matmul_counts_signed(
-                a, copies[next(it) % len(copies)], bits=bits), iters=50)
-            plain_ms = cuda_ms(lambda: sc_matmul_counts_signed_torch(
-                a, b, bits=bits), iters=2, warmup=1)
-            nbytes = (m * k + k * n) * a.element_size() + m * n * 4
-            ops = 2 * m * n * k
-            bound = max(nbytes / HBM_BYTES_S, ops / INT8_OPS_S) * 1e3
-            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                       bound_by="bytes" if nbytes / HBM_BYTES_S
-                       >= ops / INT8_OPS_S else "operations",
-                       bytes=nbytes, ops=ops)
-            log(f"[sc_gemm] M={m:3d} K={k:5d} N={n:6d}: exact, kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
-                f"({row['bound_by']})")
-        else:
-            log(f"[sc_gemm] M={m:3d} K={k:5d} N={n:6d} bits={bits}: exact")
-        rows.append(row)
-    # one decode step at M = capacity = 4: every projection once
-    step = {key: 0.0 for key in ("ms", "plain_ms", "bound_ms")}
-    for r in rows:
-        if r.get("ms") is not None and r["M"] == 4:
-            calls = SC_SHAPES[(r["K"], r["N"])]
-            for key in step:
-                step[key] += calls * r[key]
-    log(f"[sc_gemm] one decode step (M=4, {sum(SC_SHAPES.values())} calls): "
-        f"kernel {step['ms']:.3f} ms, plain {step['plain_ms']:.1f} ms, "
-        f"bound {step['bound_ms']:.4f} ms")
-    return {"cases": rows, "decode_step": step}
+            row = {"M": m, "K": k, "N": n, "calls_per_decode_step": calls}
+            mr, kc, splits = plan(m, n, k, sms)
+            row.update(mr=mr, kc=kc, splits=splits,
+                       blocks=-(-n // 64) * -(-m // mr) * splits)
+
+            def call():
+                return sc_linear(x, pws[next(it) % len(pws)])
+            row["ms"] = cuda_ms(call, iters=50)
+            row["device_ms"] = device_ms(call, "sc_gemm_kernel")
+            row["chain_ms"] = cuda_ms(lambda: chain(
+                x, ws[next(it) % len(ws)], 8), iters=10)
+            row["plain_ms"] = cuda_ms(lambda: sc_linear_torch(x, pws[0]),
+                                      iters=2, warmup=1)
+            bound, by, nbytes, ops = _sc_bound(m, k, n, 2)
+            row.update(bound_ms=bound, bound_by=by, bytes=nbytes, ops=ops)
+            timing.append(row)
+            log(f"[sc_gemm] M={m:2d} K={k:4d} N={n:5d} ({row['blocks']} "
+                f"blocks, {splits} K splits): fused {row['ms']:.4f} ms a "
+                f"call, device {_ms(row['device_ms'])}, old chain "
+                f"{row['chain_ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
+                f"bound {bound:.4f} ms ({by})")
+
+    def per_step(m, key):
+        vals = [r[key] for r in timing if r["M"] == m]
+        if None in vals:
+            return None
+        return sum(r["calls_per_decode_step"] * v for r, v in
+                   zip((r for r in timing if r["M"] == m), vals))
+
+    step = {key: per_step(4, key) for key in
+            ("ms", "device_ms", "chain_ms", "plain_ms", "bound_ms")}
+    log(f"[sc_gemm] one decode step (M=4, {sum(SC_SHAPES.values())} fused "
+        f"calls): {step['ms']:.3f} ms of calls, device "
+        f"{_ms(step['device_ms'])}; old chain {step['chain_ms']:.3f} ms, "
+        f"plain {step['plain_ms']:.1f} ms, bound {step['bound_ms']:.4f} ms")
+    prefill = {}
+    for m in (16, 64):
+        prefill[m] = {key: per_step(m, key) for key in
+                      ("ms", "device_ms", "chain_ms", "bound_ms")}
+        p = prefill[m]
+        log(f"[sc_gemm] one prefill pass at M={m} (225 calls): "
+            f"{p['ms']:.3f} ms of calls, device {_ms(p['device_ms'])}; old "
+            f"chain {p['chain_ms']:.3f} ms, bound {p['bound_ms']:.4f} ms")
+
+    # the K split's aim (kernels/sc_matmul.py BLOCKS_PER_SM): a decode
+    # step's device time at 1, 2 and 4 blocks per SM, weights cycled
+    aim = skm.BLOCKS_PER_SM
+    split_sweep = {1: 0.0, 2: 0.0, 4: 0.0}
+    try:
+        for (k, n), calls in SC_SHAPES.items():
+            x = torch.randn((4, k), generator=gen, device=dev).to(bf16)
+            pws = [pack_weight(torch.randn((k, n), generator=gen,
+                                           device=dev).to(bf16), 8)
+                   for _ in range(max(1, math.ceil(128e6 / (k * n * 2))))]
+            it = iter(range(1 << 30))
+            for bps in split_sweep:
+                skm.BLOCKS_PER_SM = bps
+                dms = device_ms(lambda: sc_linear(
+                    x, pws[next(it) % len(pws)]), "sc_gemm_kernel")
+                if split_sweep[bps] is not None:
+                    split_sweep[bps] = None if dms is None \
+                        else split_sweep[bps] + calls * dms
+    finally:
+        skm.BLOCKS_PER_SM = aim
+    log(f"[sc_gemm] one decode step's device time by the K split's aim in "
+        f"blocks per SM (the wrapper's is {aim}): " + ", ".join(
+            f"{b}: {_ms(v)}" for b, v in split_sweep.items()))
+    return {"cases": rows, "timing": timing, "decode_step": step,
+            "prefill_pass": prefill, "blocks_per_sm_sweep": split_sweep,
+            "sms": sms}
 
 
 def _paged_case(dtype, window, positions, gen, dev, c=4, kv=5, g=3, d=64,
@@ -477,14 +670,10 @@ def _stream_bound(pairs: int, bits: int) -> tuple[float, str, int, int]:
     (SMs x max SM clock), against two int32 read and one written per pair
     at the HBM rate."""
     import torch
-    clk_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     popcounts = pairs * ((1 << bits) // 32)
     nbytes = 12 * pairs
-    t_ops = popcounts / (POPC_PER_CLK_SM * sms * clk_mhz * 1e6)
+    t_ops = popcounts / (POPC_PER_CLK_SM * sms * _sm_clock_hz())
     t_bytes = nbytes / HBM_BYTES_S
     return (max(t_ops, t_bytes) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, popcounts)
@@ -499,7 +688,6 @@ def phase_stream() -> dict:
     shape, empty operands and every block width; kernel, plain and bound
     ms at B = 8 and 12."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.error_analysis import exhaustive_grid
     from repro_torch.core.multipliers import (proposed_bitlevel,
                                               proposed_closed_form)
@@ -568,21 +756,13 @@ def phase_stream() -> dict:
                            iters=3 if bits == 8 else 1, warmup=1)
         bound, by, nbytes, popcounts = _stream_bound(x.numel(), bits)
         # the kernel's own device time, without the host's cost of a call
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                ops.sc_stream_mul(x, y, bits=bits)
-            torch.cuda.synchronize()
-        dev_us = sum(getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0))
-                     for e in prof.key_averages()
-                     if "sc_stream_mul_kernel" in e.key)
-        device_ms = dev_us / 1e3 / 10 if dev_us > 0 else None
+        dev_ms = device_ms(lambda: ops.sc_stream_mul(x, y, bits=bits),
+                           "sc_stream_mul_kernel", iters=10)
         timing[bits] = {"pairs": x.numel(), "ms": ms, "plain_ms": plain_ms,
-                        "device_ms": device_ms, "bound_ms": bound,
+                        "device_ms": dev_ms, "bound_ms": bound,
                         "bound_by": by, "bytes": nbytes,
                         "popcounts": popcounts}
-        dev_txt = ("not measured" if device_ms is None
-                   else f"{device_ms:.4f} ms")
+        dev_txt = _ms(dev_ms)
         log(f"[stream] B={bits:2d} exhaustive ({x.numel():,} pairs): kernel "
             f"{ms:.4f} ms a call (device time {dev_txt}), plain "
             f"{plain_ms:.1f} ms, bound {bound:.4f} ms ({by})")
@@ -660,8 +840,10 @@ def phase_small_model() -> dict:
 def _serve_launch_counters():
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_attention
-    from repro_torch.kernels.sc_matmul import sc_matmul_counts_signed
-    return {"sc_matmul_counts": sc_matmul_counts_signed,
+    from repro_torch.kernels.sc_matmul import (sc_linear,
+                                               sc_matmul_counts_signed)
+    return {"sc_linear": sc_linear,
+            "sc_matmul_counts": sc_matmul_counts_signed,
             "paged_attention": paged_attention,
             "flash_attention": flash_attention}
 
@@ -698,23 +880,29 @@ def _serve_run(cfg, params, reqs, mode, baseline):
         f" ms/step over {steps} steps, {st['prefill_chunks']} prefill chunks, "
         f"{st['prefills']} prefills, {st['preemptions']} preemptions, peak "
         f"pages {st['peak_pages']}/{st['n_blocks']}")
-    log(f"{tag} launches: SC-GEMM {launches['sc_matmul_counts']}, paged "
+    log(f"{tag} launches: SC-GEMM {launches['sc_linear']} fused (counts "
+        f"entry {launches['sc_matmul_counts']}), paged "
         f"attention {launches['paged_attention']} (>= {steps} x {N_LAYERS}), "
         f"flash attention {launches['flash_attention']} (>= "
         f"{st['prefill_chunks'] + (st['prefills'] if mode == 'oneshot' else 0)}"
         f" x {N_LAYERS}); max_memory_allocated {peak / 2**30:.3f} GiB")
     if steps < 1:
         raise AssertionError("the engine ran no decode step")
-    if launches["sc_matmul_counts"] < steps * (7 * N_LAYERS + 1):
-        raise AssertionError(f"SC-GEMM kernel launched "
-                             f"{launches['sc_matmul_counts']} times in "
-                             f"{steps} decode steps")
+    # one fused launch per projection: 7 a layer and the LM head, on
+    # every decode step and every prefill call; no weight is quantized on
+    # the way (the counts entry, which takes planes quantized per call, is
+    # never reached)
+    prefill_calls = (st["prefill_chunks"] if mode == "chunked"
+                     else st["prefills"])
+    projections = (7 * N_LAYERS + 1) * (steps + prefill_calls)
+    if launches["sc_linear"] != projections or launches["sc_matmul_counts"]:
+        raise AssertionError(f"SC-GEMM: {launches['sc_linear']} fused and "
+                             f"{launches['sc_matmul_counts']} counts-entry "
+                             f"launches for {projections} projections")
     if launches["paged_attention"] < steps * N_LAYERS:
         raise AssertionError(f"paged kernel launched "
                              f"{launches['paged_attention']} times in "
                              f"{steps} decode steps")
-    prefill_calls = (st["prefill_chunks"] if mode == "chunked"
-                     else st["prefills"])
     if prefill_calls < 1 or launches["flash_attention"] < \
             prefill_calls * N_LAYERS:
         raise AssertionError(f"flash kernel launched "
@@ -831,9 +1019,14 @@ def phase_profile() -> dict:
     launches = sum(e.count for e in prof.key_averages()
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaLaunchKernelExC"))
+    # the host waits for the device: a stream or device synchronize (a
+    # pageable host-to-device copy and every device-to-host copy make one)
+    syncs = {e.key: e.count for e in prof.key_averages()
+             if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                          "cudaMemcpyAsync", "cudaMemcpy")}
     by_kernel = sorted(((dev_us(e) / 1e3 / max(steps, 1), e.count // max(
         steps, 1), e.key[:90]) for e in kernels), reverse=True)
-    ours = {"sc_counts_kernel": 0.0, "paged_decode_kernel": 0.0}
+    ours = {"sc_gemm_kernel": 0.0, "paged_decode_kernel": 0.0}
     for ms, _, name in by_kernel:
         for key in ours:
             if key in name:
@@ -850,6 +1043,8 @@ def phase_profile() -> dict:
            "top_host_ops": [{"self_cpu_ms_per_step": ms, "calls_per_step": n,
                              "name": name} for ms, n, name in host[:10]],
            "kernel_launches_per_step": launches / max(steps, 1),
+           "host_syncs_per_step": {k: v / max(steps, 1)
+                                   for k, v in syncs.items()},
            "ours_ms_per_step": ours,
            "top_kernels": [{"ms_per_step": ms, "calls_per_step": n,
                             "name": name} for ms, n, name in by_kernel[:12]]}
@@ -858,8 +1053,11 @@ def phase_profile() -> dict:
                 "device time not measured (no CUDA events in the trace)")
     log(f"[profile] {steps} decode steps under torch.profiler; "
         f"{out['wall_ms_per_step']:.1f} ms/step wall unprofiled, {busy_txt}, "
-        f"{out['kernel_launches_per_step']:.0f} kernel launches/step; "
-        f"SC-GEMM {ours['sc_counts_kernel']:.2f} ms, paged "
+        f"{out['kernel_launches_per_step']:.0f} kernel launches/step, "
+        f"host syncs/step "
+        + ", ".join(f"{k} {v:.1f}" for k, v in
+                    sorted(out["host_syncs_per_step"].items()))
+        + f"; SC-GEMM {ours['sc_gemm_kernel']:.2f} ms, paged "
         f"{ours['paged_decode_kernel']:.2f} ms per step")
     for row in out["top_kernels"][:8]:
         log(f"[profile]   device {row['ms_per_step']:8.3f} ms/step "
@@ -968,16 +1166,20 @@ def main() -> int:
                            for m in ("chunked", "oneshot"))
                  for name in ("paged_attention", "flash_attention")}
     kernels = [
-        {"name": "sc_matmul_counts", "route": "cuda",
+        {"name": "sc_gemm", "route": "cuda",
          "source": f"{src}/sc_matmul.cu",
          "replaces": "src/repro/kernels/sc_matmul.py:89",
-         "launches": serve["launches"]["sc_matmul_counts"],
+         "launches": serve["launches"]["sc_linear"],
          "max_abs_err": 0.0,
          "ms": step["ms"], "plain_ms": step["plain_ms"],
-         "bound_ms": step["bound_ms"], "bound_by": "bytes",
-         "library_ms": None,
-         "unit": "one smollm-360m decode step at M=4: 225 calls "
-                 "(32 layers x 7 projections + the LM head)"},
+         "bound_ms": step["bound_ms"],
+         "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in
+                                     report["sc_gemm"]["timing"]
+                                     if r["M"] == 4) else "operations"),
+         "library_ms": None, "device_ms": step["device_ms"],
+         "chain_ms": step["chain_ms"],
+         "unit": "one smollm-360m decode step at M=4: 225 fused calls "
+                 "(32 layers x 7 projections + the LM head), bf16 rows"},
         paged_entry("paged_attention", None,
                     serve["launches"]["paged_attention"]),
         paged_entry("paged_attention_sc", 8, sc_launch["paged_attention"]),

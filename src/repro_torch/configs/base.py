@@ -80,7 +80,9 @@ class ModelConfig:
     attn_sc: bool = False
     # SC-GEMM kernel choice for every sc_dense call site (DESIGN.md §6):
     # auto | mxu_split | pallas | pallas_tuned | ref. "auto" defers to
-    # $REPRO_SC_IMPL and then the backend/autotune-cache dispatch.
+    # $REPRO_SC_IMPL and then the backend/autotune-cache dispatch. With
+    # packed weights (serving), auto | pallas | pallas_tuned take the fused
+    # kernel; ref and mxu_split run their plain formulations per call.
     sc_impl: str = "auto"
     # Flash-attention execution: "auto" uses the tuned Pallas kernel when the
     # shape/backend qualify (TPU, causal, no window/softcap, 128-aligned),

@@ -40,7 +40,7 @@ def _abs_error(fn: Callable, bits: int, device) -> torch.Tensor:
     est = fn(x, y, bits)
     # x*y <= (2^B - 1)^2 < 2^24 is exact in float32; N² is a power of two
     prod = x.to(torch.float32) * y
-    target = prod / prod.new_tensor(float(n * n))
+    target = prod / prod.new_full((), float(n * n))
     return torch.abs(est - target)
 
 

@@ -239,9 +239,10 @@ def umul(x: torch.Tensor, y: torch.Tensor, *, bits: int,
 def _ratio(counts: torch.Tensor, denominator: float) -> torch.Tensor:
     """``counts / denominator`` in float32, divided exactly: the divisor is a
     tensor, since PyTorch's CUDA division by a Python scalar multiplies by
-    its reciprocal (one ulp off the quotient for N − 1)."""
+    its reciprocal (one ulp off the quotient for N − 1). It is filled on
+    the counts' device, never copied from the host (a synchronizing copy)."""
     c = counts.to(torch.float32)
-    return c / c.new_tensor(float(denominator))
+    return c / c.new_full((), float(denominator))
 
 
 def _proposed_eval(x, y, bits):

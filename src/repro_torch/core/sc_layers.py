@@ -8,14 +8,29 @@ usual recipe for quantization-aware training.
 Dtype contract: the tensors saved for backward are the caller's ``x`` and
 ``w`` in their original dtype — the float32 upcast the SC kernels need
 happens only inside the forward call and is never saved.
+
+Serving does not quantize its weights per call: ``sc_proj`` takes a weight
+packed once (``kernels.sc_matmul.pack_weight``, made for a whole parameter
+tree by ``models.transformer.pack_sc_weights``) and runs the projection as
+one fused kernel launch on the card (``kernels.sc_matmul.sc_linear``)
+whenever the config's ``sc_impl`` (or ``$REPRO_SC_IMPL``) names the
+kernel path. Gradients and the plain formulations (``"ref"``,
+``"mxu_split"``) keep the per-call path through :func:`sc_dense`.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.errors import ConfigError
+from repro_torch.kernels.sc_matmul import sc_linear
+
 from .sc_matmul import resolve_impl, sc_matmul
 
 __all__ = ["sc_dense", "sc_proj", "ScDense"]
+
+#: ``sc_impl`` values, once resolved, that ``sc_proj`` serves through the
+#: packed weight: the kernel path's names and the device's own choice.
+PACKED_IMPLS = ("auto", "pallas", "pallas_tuned")
 
 
 def _sc_forward(x: torch.Tensor, w: torch.Tensor, bits: int,
@@ -63,10 +78,25 @@ def sc_dense(x: torch.Tensor, w: torch.Tensor, bits: int = 8,
     return _sc_forward(x, w, bits, impl)
 
 
-def sc_proj(x: torch.Tensor, w: torch.Tensor, cfg) -> torch.Tensor:
+def sc_proj(x: torch.Tensor, w: torch.Tensor, cfg,
+            packed=None) -> torch.Tensor:
     """Config-driven dense projection — the dispatch point every model
-    matmul goes through: exact ``x @ w``, or :func:`sc_dense` with the
-    config's ``sc_bits``/``sc_impl`` when ``cfg.use_sc_gemm``."""
-    if cfg.use_sc_gemm:
-        return sc_dense(x, w, cfg.sc_bits, cfg.sc_impl)
-    return x @ w
+    matmul goes through: exact ``x @ w``, or with ``cfg.use_sc_gemm`` the
+    SC-GEMM at ``cfg.sc_bits``: through ``packed`` (``w`` packed once) when
+    given, ``cfg.sc_impl`` resolves to one of :data:`PACKED_IMPLS` and no
+    gradient is asked for (one kernel launch on the card, output in
+    ``x``'s dtype), else :func:`sc_dense` with the config's ``sc_impl``.
+    Both give the same bits."""
+    if not cfg.use_sc_gemm:
+        return x @ w
+    if (packed is not None and resolve_impl(cfg.sc_impl) in PACKED_IMPLS
+            and not (torch.is_grad_enabled()
+                     and (x.requires_grad or w.requires_grad))):
+        if packed.bits != cfg.sc_bits or packed.shape != tuple(w.shape):
+            raise ConfigError(
+                f"packed weight {packed.shape} at {packed.bits} bits does "
+                f"not match the weight {tuple(w.shape)} at sc_bits="
+                f"{cfg.sc_bits}: pack the parameters again")
+        out = sc_linear(x.reshape(-1, x.shape[-1]), packed)
+        return out.reshape(*x.shape[:-1], packed.shape[1])
+    return sc_dense(x, w, cfg.sc_bits, cfg.sc_impl)

@@ -44,8 +44,10 @@ def quantize_sign_magnitude(v: torch.Tensor, *, bits: int,
         absmax = av.amax(dim=axis, keepdim=True)
     absmax = absmax.clamp_min(1e-12).to(torch.float32)
     # a tensor divisor: PyTorch's CUDA division by a Python scalar
-    # multiplies by its reciprocal, one ulp off the true quotient
-    scale = absmax / absmax.new_tensor(float(n_max))
+    # multiplies by its reciprocal, one ulp off the true quotient. It is
+    # filled on the divisor's device: a tensor copied from the host would
+    # make the host wait for the device
+    scale = absmax / absmax.new_full((), float(n_max))
     mag = torch.clamp(torch.round(av / scale), 0, n_max).to(torch.int32)
     sign = torch.where(v < 0, -1, 1).to(torch.int8)
     return SignMagnitude(sign=sign, mag=mag, scale=scale, bits=bits)

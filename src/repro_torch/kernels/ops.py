@@ -1,6 +1,5 @@
-"""Public wrappers around the port's kernels: quantization, packing and
-dequantization around the SC-GEMM counts kernel (port of
-``repro/kernels/ops.py::sc_matmul_pallas``), the bit-parallel stream
+"""Public wrappers around the port's kernels: SC-GEMM of two float operands
+(port of ``repro/kernels/ops.py::sc_matmul_pallas``), the bit-parallel stream
 multiplier over any shape (port of ``sc_stream_mul``), and the flash
 kernel's entry at fixed tile sizes (port of ``flash_attention_tuned``).
 
@@ -19,23 +18,28 @@ from repro_torch.errors import ConfigError
 
 from .flash_attention import flash_attention
 from .sc_bitops import sc_stream_mul_cuda
-from .sc_matmul import pack_signed, sc_matmul_counts_signed
+from .sc_matmul import (pack_signed, pack_weight, sc_linear,
+                        sc_matmul_counts_signed)
 
 __all__ = ["sc_matmul", "sc_stream_mul", "flash_attention_tuned"]
 
 
 def sc_matmul(a: torch.Tensor, b: torch.Tensor, *, bits: int = 8,
               row_quant: bool = False) -> torch.Tensor:
-    """SC-GEMM ``a @ b`` through the counts kernel. ``a: (M, K)``,
+    """SC-GEMM ``a @ b`` through the SC-GEMM kernel. ``a: (M, K)``,
     ``b: (K, N)`` float.
 
-    Quantize (per-row LHS scales when ``row_quant``), pack each operand's
-    sign and magnitude into one signed plane, count, and dequantize by
-    ``N·Δa·Δb``. Tensors on the card launch the CUDA kernel; tensors on the
-    CPU take its plain version.
+    With ``row_quant`` (per-row LHS scales, as every model projection
+    runs) ``b`` is packed for this call and the fused kernel quantizes,
+    counts and dequantizes in one launch; otherwise the per-tensor LHS is
+    quantized and packed here, counted, and dequantized by ``N·Δa·Δb``.
+    Tensors on the card launch the CUDA kernel; tensors on the CPU take its
+    plain version. A weight that does not change is packed once instead
+    (``sc_matmul.pack_weight`` and ``sc_linear``).
     """
-    qa = quantize_sign_magnitude(a.to(torch.float32), bits=bits,
-                                 axis=-1 if row_quant else None)
+    if row_quant:
+        return sc_linear(a.to(torch.float32), pack_weight(b, bits))
+    qa = quantize_sign_magnitude(a.to(torch.float32), bits=bits)
     qb = quantize_sign_magnitude(b.to(torch.float32), bits=bits)
     counts = sc_matmul_counts_signed(pack_signed(qa.sign, qa.mag, bits),
                                      pack_signed(qb.sign, qb.mag, bits),

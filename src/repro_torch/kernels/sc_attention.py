@@ -58,8 +58,10 @@ def sc_quant_rows(v: torch.Tensor, bits: int) -> QuantRows:
     n_max = stream_length(bits) - 1
     absmax = v.abs().amax(dim=-1, keepdim=True)
     # a tensor divisor: PyTorch's CUDA division by a Python scalar
-    # multiplies by its reciprocal, one ulp off the true quotient
-    scale = absmax.clamp_min(1e-12) / absmax.new_tensor(float(n_max))
+    # multiplies by its reciprocal, one ulp off the true quotient. It is
+    # filled on the divisor's device: a tensor copied from the host would
+    # make the host wait for the device
+    scale = absmax.clamp_min(1e-12) / absmax.new_full((), float(n_max))
     mag = torch.clamp(torch.round(v.abs() / scale), 0, n_max).to(torch.int32)
     sign = torch.where(v < 0, -1, 1).to(torch.int32)
     return QuantRows(sign=sign, mag=mag, scale=scale)

@@ -1,25 +1,34 @@
-"""SC-GEMM counts kernel wrapper (port of ``repro/kernels/sc_matmul.py``).
+"""SC-GEMM kernel wrappers (port of ``repro/kernels/sc_matmul.py`` and of the
+quantize / count / dequantize chain of ``repro/kernels/ops.py``).
 
-Replaces the Pallas TPU kernel ``sc_matmul_counts_pallas``
-(``repro/kernels/sc_matmul.py:89``) with the CUDA kernel in
-``csrc/sc_matmul.cu``: signed counts ``Σ_k s_x s_y O(x, y)`` as exact
-integers in float32. On Hopper the closed form runs on the CUDA cores in
-int32, bound by integer issue rather than memory at the decode shapes; the
-kernel decodes each B element once per row block and masks ragged edges
-itself, so no operand is padded. See the source note for the layout.
+One CUDA kernel, ``csrc/sc_matmul.cu``, replaces the Pallas TPU kernel
+``sc_matmul_counts_pallas`` (``repro/kernels/sc_matmul.py:89``) and the
+operators around it. It has two entries:
 
-:func:`sc_matmul_counts_signed` is the kernel's wrapper: it launches the
-kernel for tensors on the card and takes the plain PyTorch version
-:func:`sc_matmul_counts_signed_torch` for tensors on the CPU — never on a
-failure. ``sc_matmul_counts_signed.launches`` counts kernel launches.
+* :func:`sc_linear` — a model projection as one launch: float activation
+  rows (f32 or bf16) are quantized per row inside the kernel, counted
+  against a weight plane packed once by :func:`pack_weight`, and written
+  dequantized, ``counts · ((N · s_row) · s_w)``, in the activations' dtype.
+  ``sc_linear.launches`` counts its launches.
+* :func:`sc_matmul_counts_signed` — the JAX kernel's signature: signed
+  planes in, float32 exact counts out. ``sc_matmul_counts_signed.launches``
+  counts its launches.
+
+Each takes its plain PyTorch version (:func:`sc_linear_torch`,
+:func:`sc_matmul_counts_signed_torch`) for tensors on the CPU and launches
+the kernel for tensors on the card — never on a failure. :func:`plan` picks
+the kernel's row tile and K split from the shape; the source note says why.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.sc_matmul import signed_counts
+from repro_torch.core.sc_numerics import quantize_sign_magnitude
 from repro_torch.core.tcu import stream_length
 from repro_torch.errors import ConfigError
 
@@ -27,10 +36,22 @@ from . import build
 
 __all__ = ["sc_matmul_counts", "sc_matmul_counts_torch",
            "sc_matmul_counts_signed", "sc_matmul_counts_signed_torch",
-           "pack_signed", "plane_dtype", "check_exact"]
+           "pack_signed", "plane_dtype", "check_exact", "PackedWeight",
+           "pack_weight", "sc_linear", "sc_linear_torch", "plan"]
 
 #: Largest |count| a float32 holds exactly.
 EXACT_LIMIT = 1 << 24
+#: Output columns of one block (``kTileN`` in the source).
+TILE_N = 64
+#: K rows of one pipeline stage; a block's K range is a multiple of it.
+K_STAGE = 32
+#: Quantized A entries (8 bytes each) a block may keep in shared memory.
+A_SMEM_ENTRIES = 8192
+#: Largest K range of a block: the packed 16-bit form's lanes hold at most
+#: 128 k rows a thread (``csrc/sc_matmul.cu``).
+K_BLOCK_MAX = 4096
+#: Blocks per SM the K split aims for.
+BLOCKS_PER_SM = 2
 
 
 def plane_dtype(bits: int) -> torch.dtype:
@@ -59,6 +80,116 @@ def pack_signed(sign: torch.Tensor, mag: torch.Tensor,
     return sign.to(dt) * mag.to(dt)
 
 
+@dataclass(frozen=True)
+class PackedWeight:
+    """A weight ``(K, N)`` quantized and packed once, in the kernel's
+    layout: ``plane`` is the signed plane ``(K, ldb)`` (int16 or int32,
+    ``ldb`` = N rounded up to 8 so each row starts on 16 bytes, zero past
+    N), ``scale`` the float32 per-tensor scale (0-dim), ``bits`` the width
+    and ``shape`` the weight's ``(K, N)``. A snapshot: a weight changed
+    later needs a new one."""
+    plane: torch.Tensor
+    scale: torch.Tensor
+    bits: int
+    shape: tuple[int, int]
+
+    def to(self, device) -> "PackedWeight":
+        return PackedWeight(self.plane.to(device), self.scale.to(device),
+                            self.bits, self.shape)
+
+
+@torch.no_grad()
+def pack_weight(w: torch.Tensor, bits: int) -> PackedWeight:
+    """Quantize ``w (K, N)`` per tensor and pack it: the plane and scale are
+    the ones ``quantize_sign_magnitude`` + :func:`pack_signed` give."""
+    if w.dim() != 2:
+        raise ConfigError(f"a packed weight is (K, N), got {tuple(w.shape)}")
+    k, n = w.shape
+    check_exact(k, bits)
+    q = quantize_sign_magnitude(w.to(torch.float32), bits=bits)
+    plane = pack_signed(q.sign, q.mag, bits)
+    ldb = -(-n // 8) * 8
+    if ldb != n:
+        plane = F.pad(plane, (0, ldb - n))
+    return PackedWeight(plane.contiguous(), q.scale, bits, (k, n))
+
+
+def plan(m: int, n: int, k: int, sms: int) -> tuple[int, int, int]:
+    """``(mr, kc, splits)`` of a launch: rows a block (1, 2, 4, 8 or 16,
+    the smallest covering M up to 16), the K range a block (a multiple of
+    :data:`K_STAGE`, capped so its quantized rows fit shared memory), and
+    the number of K ranges, chosen so the grid gives ``BLOCKS_PER_SM``
+    blocks per SM where K allows."""
+    mr = 1
+    while mr < min(max(m, 1), 16):
+        mr *= 2
+    tiles = -(-n // TILE_N) * -(-max(m, 1) // mr)
+    kc_max = max(K_STAGE, min(K_BLOCK_MAX,
+                              A_SMEM_ENTRIES // mr // K_STAGE * K_STAGE))
+    splits = max(1, min(-(-BLOCKS_PER_SM * sms // tiles), -(-k // K_STAGE)))
+    kc = -(-max(-(-k // splits), 1) // K_STAGE) * K_STAGE
+    kc = min(kc, kc_max)
+    return mr, kc, max(1, -(-k // kc))
+
+
+_SMS: dict[int, int] = {}
+#: Per stream: the tile counters (zeroed once; the kernel's last block of
+#: each tile puts its counter back to 0) and the K split's int32 partials.
+#: Launches on one stream run in order, so each launch finds both free.
+_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+_FN = None
+
+
+def _scratch(dev: torch.device, stream: int, tiles: int,
+             partials: int) -> tuple[torch.Tensor, torch.Tensor]:
+    key = (dev.index, stream)
+    counters, ws = _SCRATCH.get(key, (None, None))
+    if counters is None or counters.numel() < tiles:
+        counters = torch.zeros((max(tiles, 1 << 12),), dtype=torch.int32,
+                               device=dev)
+    if ws is None or ws.numel() < partials:
+        ws = torch.empty((max(partials, 1 << 20),), dtype=torch.int32,
+                         device=dev)
+    _SCRATCH[key] = (counters, ws)
+    return counters, ws
+
+
+def _kernel():
+    global _FN
+    if _FN is None:
+        fn = build.load("sc_matmul").sc_gemm
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def _launch(a, plane, w_scale, out, *, m, n, k, bits):
+    """One launch of the kernel: ``a`` f32/bf16 (fused) or a signed plane
+    (counts), ``plane (K, ldb)``."""
+    dev = a.device
+    sms = _SMS.get(dev.index)
+    if sms is None:
+        sms = _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    mr, kc, splits = plan(m, n, k, sms)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = counters = 0
+    if splits > 1:
+        tiles = -(-n // TILE_N) * -(-m // mr)
+        c, w = _scratch(dev, stream, tiles, tiles * splits * mr * TILE_N)
+        counters, ws = c.data_ptr(), w.data_ptr()
+    a_kind = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2,
+              torch.int32: 3}[a.dtype]
+    rc = _kernel()(a_kind, 0 if plane.dtype == torch.int16 else 1,
+                   a.data_ptr(), plane.data_ptr(),
+                   0 if w_scale is None else w_scale.data_ptr(),
+                   out.data_ptr(), ws, counters, m, n, k, plane.shape[1],
+                   bits, mr, kc, splits, stream)
+    build.check(rc, "sc_gemm")
+
+
 def sc_matmul_counts_torch(sx, mx, sy, my, bits: int) -> torch.Tensor:
     """Plain version: signed SC-GEMM counts as float32 ``(M, N)``."""
     return signed_counts(sx, mx, sy, my, bits).to(torch.float32)
@@ -72,6 +203,12 @@ def sc_matmul_counts_signed_torch(a: torch.Tensor, b: torch.Tensor, *,
                                   a.abs(),
                                   torch.sign(b) + (b == 0).to(b.dtype),
                                   b.abs(), bits)
+
+
+def _check_cuda(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
+    if not (a.is_cuda and b.is_cuda and a.device == b.device):
+        raise ConfigError(f"{what} on {a.device} and {b.device}: both must be "
+                          f"on one CUDA device or on the CPU")
 
 
 def sc_matmul_counts_signed(a: torch.Tensor, b: torch.Tensor, *,
@@ -88,27 +225,16 @@ def sc_matmul_counts_signed(a: torch.Tensor, b: torch.Tensor, *,
     if a.device.type == "cpu" and b.device.type == "cpu":
         return sc_matmul_counts_signed_torch(a, b, bits=bits)
     dt = plane_dtype(bits)
-    if not (a.is_cuda and b.is_cuda and a.device == b.device):
-        raise ConfigError(f"SC-GEMM planes on {a.device} and {b.device}: "
-                          f"both must be on one CUDA device or on the CPU")
+    _check_cuda(a, b, "SC-GEMM planes")
     if a.dtype != dt or b.dtype != dt:
         raise ConfigError(f"SC-GEMM planes at bits={bits} must be {dt}, got "
                           f"{a.dtype} and {b.dtype}")
     if m >= (1 << 20) or n >= (1 << 30):
         raise ConfigError(f"SC-GEMM shape ({m}, {n}) exceeds the kernel grid")
-    a = a.contiguous()
-    b = b.contiguous()
+    ldb = -(-n // 8) * 8
+    b = F.pad(b, (0, ldb - n)) if ldb != n else b.contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    lib = build.load("sc_matmul")
-    fn = lib.sc_matmul_counts_i16 if dt == torch.int16 \
-        else lib.sc_matmul_counts_i32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, bits,
-            stream)
-    build.check(rc, "sc_matmul_counts")
+    _launch(a.contiguous(), b, None, out, m=m, n=n, k=k, bits=bits)
     sc_matmul_counts_signed.launches += 1
     return out
 
@@ -124,3 +250,45 @@ def sc_matmul_counts(sx, mx, sy, my, *, bits: int = 8) -> torch.Tensor:
         return sc_matmul_counts_torch(sx, mx, sy, my, bits)
     return sc_matmul_counts_signed(pack_signed(sx, mx, bits),
                                    pack_signed(sy, my, bits), bits=bits)
+
+
+def sc_linear_torch(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
+    """Plain version of the fused kernel: quantize the rows of ``x (M, K)``
+    (per-row scales), count against the packed plane, dequantize by
+    ``(N · s_row) · s_w`` and cast to ``x``'s dtype — the unfused chain."""
+    n = pw.shape[1]
+    qa = quantize_sign_magnitude(x.to(torch.float32), bits=pw.bits, axis=-1)
+    counts = sc_matmul_counts_signed_torch(
+        pack_signed(qa.sign, qa.mag, pw.bits), pw.plane[:, :n], bits=pw.bits)
+    out = counts * (stream_length(pw.bits) * qa.scale * pw.scale)
+    return out.to(x.dtype)
+
+
+def sc_linear(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
+    """SC-GEMM ``x @ w`` of float rows ``x (M, K)`` (f32 or bf16) and a
+    packed weight, per-row activation scales, in ``x``'s dtype: one kernel
+    launch for CUDA tensors, the plain version for CPU tensors. A row
+    holding a NaN comes out NaN, and so does a row holding an Inf (on the
+    CPU only at bits <= 15: there a NaN magnitude converts to int32's
+    minimum, which an int16 plane truncates to 0)."""
+    k, n = pw.shape
+    if x.dim() != 2 or x.shape[1] != k:
+        raise ConfigError(f"SC-GEMM rows must be (M, {k}), got "
+                          f"{tuple(x.shape)}")
+    if x.device.type == "cpu" and pw.plane.device.type == "cpu":
+        return sc_linear_torch(x, pw)
+    _check_cuda(x, pw.plane, "SC-GEMM rows and packed weight")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ConfigError(f"SC-GEMM rows must be float32 or bfloat16 on the "
+                          f"card, got {x.dtype}")
+    m = x.shape[0]
+    if m >= (1 << 20) or n >= (1 << 30):
+        raise ConfigError(f"SC-GEMM shape ({m}, {n}) exceeds the kernel grid")
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    _launch(x.contiguous(), pw.plane, pw.scale, out, m=m, n=n, k=k,
+            bits=pw.bits)
+    sc_linear.launches += 1
+    return out
+
+
+sc_linear.launches = 0

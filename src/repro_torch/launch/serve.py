@@ -25,6 +25,7 @@ from repro_torch.configs.registry import ARCHS
 from repro_torch.errors import ConfigError
 from repro_torch.launch.steps import decode_step, prefill_step
 from repro_torch.models import bind
+from repro_torch.models.transformer import pack_sc_weights
 
 __all__ = ["generate", "main"]
 
@@ -35,8 +36,10 @@ def generate(cfg, params, prompts, *, gen_tokens: int,
     """``prompts: (B, S)`` int token ids → ``(B, gen_tokens)`` sampled
     continuations, every sequence decoding ``gen_tokens`` steps in
     lockstep over a dense cache. With B=1 and greedy sampling this is the
-    reference stream the serving engine reproduces token for token."""
+    reference stream the serving engine reproduces token for token. With
+    ``cfg.use_sc_gemm`` the weights are packed once, here, for the call."""
     m = bind(cfg, device)
+    params = pack_sc_weights(params, cfg)
     prompts = torch.as_tensor(np.asarray(prompts), device=m.device)
     b = prompts.shape[0]
     logits, cache = prefill_step(m, params, {"tokens": prompts},

@@ -10,10 +10,16 @@ of ``(ngroups, B, S, KV, hd)`` tensors (the slot axis at 1), and layer
 ``l`` lives at ``k[l % group][l // group]``.
 
 With ``cfg.use_sc_gemm`` every dense projection — QKV/O, MLP, and the LM
-head — runs through ``core.sc_layers.sc_proj``, i.e. the SC-GEMM counts
-kernel on the card. With ``cfg.attn_sc`` every attention site takes
-``sc_bits = cfg.sc_bits`` (:func:`_attn_sc_bits`): prefill through the
-flash kernel, decode through the paged kernel, both on their SC path.
+head — runs through ``core.sc_layers.sc_proj``, i.e. the SC-GEMM kernel on
+the card. :func:`pack_sc_weights` quantizes and packs those weights once
+(a ``"packed"`` dict beside the float weights of each layer's ``attn`` and
+``mlp`` and at the top for the head); given packed weights, each
+projection is one fused kernel launch and no weight is quantized per call.
+The serving entry points pack once per set of parameters.
+
+With ``cfg.attn_sc`` every attention site takes ``sc_bits = cfg.sc_bits``
+(:func:`_attn_sc_bits`): prefill through the flash kernel, decode through
+the paged kernel, both on their SC path.
 
 The decode steps update the cache in place (the page pool and the slot
 cache are the largest tensors of a serving process) and return it.
@@ -29,13 +35,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sc_layers import sc_proj
 from repro_torch.device import resolve_device
 from repro_torch.errors import CacheLayoutError
+from repro_torch.kernels.sc_matmul import pack_weight
 
 from .layers import (PagedKV, apply_rope, decode_attention, flash_attention,
                      paged_decode_attention, rms_norm, rope, softcap)
 
 __all__ = ["init_params", "forward_hidden", "logits_from_hidden",
            "prefill_step", "prefill_chunk_step", "KVCache", "init_kv_cache",
-           "decode_step", "paged_decode_step", "model_dtype", "params_to"]
+           "decode_step", "paged_decode_step", "model_dtype", "params_to",
+           "pack_sc_weights"]
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -102,12 +110,47 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
 
 
 def params_to(params, device: str | torch.device):
-    """The parameter tree with every tensor moved to ``device``."""
+    """The parameter tree with every tensor (and packed weight) moved to
+    ``device``."""
     if isinstance(params, dict):
         return {k: params_to(v, device) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
         return type(params)(params_to(v, device) for v in params)
     return params.to(device)
+
+
+def _lm_head(params):
+    """The LM head ``(d, vocab)``: ``lm_head``, or the tied ``embed.T``."""
+    return params["lm_head"] if "lm_head" in params else params["embed"].T
+
+
+def pack_sc_weights(params: dict, cfg: ModelConfig) -> dict:
+    """The parameter tree with every SC-GEMM weight quantized and packed
+    once (``kernels.sc_matmul.pack_weight`` at ``cfg.sc_bits``) beside its
+    float weight, as each projection takes it: ``wq``/``wk``/``wv`` as
+    ``(d, heads·hd)``, ``wo`` as ``(H·hd, d)``, the MLP weights as they
+    are, the head as ``(d, vocab)``. Packs are always made anew from the
+    float weights, so a tree packed before a weight changed is never used
+    in place of the new one. Without ``cfg.use_sc_gemm`` the tree comes
+    back as it is. The float weights stay for the exact path, for
+    gradients and for a ``cfg.sc_impl`` of ``"ref"`` or ``"mxu_split"``,
+    which ``sc_proj`` runs per call."""
+    if not cfg.use_sc_gemm:
+        return params
+    bits, d = cfg.sc_bits, cfg.d_model
+    out = dict(params)
+    out["packed"] = {"head": pack_weight(_lm_head(params), bits)}
+    layers = []
+    for layer in params["layers"]:
+        attn, mlp = dict(layer["attn"]), dict(layer["mlp"])
+        attn["packed"] = {name: pack_weight(attn[name].reshape(d, -1), bits)
+                          for name in ("wq", "wk", "wv")}
+        attn["packed"]["wo"] = pack_weight(attn["wo"].reshape(-1, d), bits)
+        mlp["packed"] = {name: pack_weight(mlp[name], bits)
+                         for name in ("w1", "w3", "w2")}
+        layers.append({**layer, "attn": attn, "mlp": mlp})
+    out["layers"] = layers
+    return out
 
 
 # ------------------------------------------------------------------ cache
@@ -143,24 +186,22 @@ def _layer_kv(cache: KVCache, cfg: ModelConfig, layer: int):
 
 # ---------------------------------------------------------------- forward
 
-def _project(x, w, cfg, b=None):
-    out = sc_proj(x, w, cfg)
-    return out + b if b is not None else out
-
-
 def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
     b, s, d = x.shape
     hd = cfg.head_dim
+    packed = p.get("packed", {})
 
-    def proj(w, bias):
+    def proj(name, bias):
         # (d, heads, hd) is a matmul with the head axes flattened
+        w = p[name]
         nh = w.shape[1]
-        out = sc_proj(x, w.reshape(d, nh * hd), cfg).reshape(b, s, nh, hd)
+        out = sc_proj(x, w.reshape(d, nh * hd), cfg,
+                      packed.get(name)).reshape(b, s, nh, hd)
         return out + bias if bias is not None else out
 
-    q = proj(p["wq"], p.get("bq"))
-    k = proj(p["wk"], p.get("bk"))
-    v = proj(p["wv"], p.get("bv"))
+    q = proj("wq", p.get("bq"))
+    k = proj("wk", p.get("bk"))
+    v = proj("wv", p.get("bv"))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], eps=cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], eps=cfg.norm_eps)
@@ -171,13 +212,16 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
 def _out_proj(p: dict, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     b, s = out.shape[:2]
     hd, h, d = cfg.head_dim, cfg.n_heads, cfg.d_model
-    return sc_proj(out.reshape(b, s, h * hd), p["wo"].reshape(h * hd, d), cfg)
+    return sc_proj(out.reshape(b, s, h * hd), p["wo"].reshape(h * hd, d), cfg,
+                   p.get("packed", {}).get("wo"))
 
 
 def _mlp_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     act = F.silu if cfg.act == "silu" else F.gelu
-    h = act(_project(x, p["w1"], cfg)) * _project(x, p["w3"], cfg)
-    return _project(h, p["w2"], cfg)
+    packed = p.get("packed", {})
+    h = act(sc_proj(x, p["w1"], cfg, packed.get("w1"))) \
+        * sc_proj(x, p["w3"], cfg, packed.get("w3"))
+    return sc_proj(h, p["w2"], cfg, packed.get("w2"))
 
 
 def _layer(layer: dict, x: torch.Tensor, cfg: ModelConfig, attend):
@@ -201,8 +245,7 @@ def _layer(layer: dict, x: torch.Tensor, cfg: ModelConfig, attend):
 def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor):
     x = params["embed"][tokens.to(torch.long)]
     if cfg.emb_scale:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
-                             device=x.device)
+        x = x * x.new_full((), cfg.d_model ** 0.5)
     return x
 
 
@@ -257,8 +300,8 @@ def logits_from_hidden(params: dict, cfg: ModelConfig,
                        hidden: torch.Tensor) -> torch.Tensor:
     """LM head: ``lm_head``, or the tied ``embed.T`` (``K = d``,
     ``N = vocab``; the largest SC-GEMM of every step) through ``sc_proj``."""
-    head = params["lm_head"] if "lm_head" in params else params["embed"].T
-    logits = sc_proj(hidden, head, cfg)
+    logits = sc_proj(hidden, _lm_head(params), cfg,
+                     params.get("packed", {}).get("head"))
     return softcap(logits.to(torch.float32), cfg.final_softcap)
 
 

@@ -44,7 +44,7 @@ from repro_torch.launch.steps import (bucket_for, chunked_prefill_step,
                                       decode_step, paged_decode_step,
                                       prefill_step, prompt_buckets)
 from repro_torch.models import bind, cache_ops
-from repro_torch.models.transformer import params_to
+from repro_torch.models.transformer import pack_sc_weights, params_to
 
 from .queue import Request, RequestQueue, RequestResult
 from .slots import PagedSlotPool, PoolExhausted, SlotEntry, SlotPool
@@ -125,7 +125,8 @@ class Engine:
         self.prefill_budget = chunk if prefill_budget is None \
             else prefill_budget
         self.buckets = prompt_buckets(max_seq, chunk)
-        self._params = params_to(params, self.device)
+        # SC-GEMM weights are quantized and packed here, once per engine
+        self._params = pack_sc_weights(params_to(params, self.device), cfg)
 
         if paged:
             block, max_blocks, n_blocks = PagedSlotPool.plan(

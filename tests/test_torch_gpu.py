@@ -12,6 +12,7 @@ for shared memory. Float and SC attention alike; the engine's streams are
 held to the sequential baseline with each.
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -28,7 +29,8 @@ from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_torch)
 from repro_torch.kernels.sc_bitops import (sc_stream_mul_cuda,
                                            sc_stream_mul_torch)
-from repro_torch.kernels.sc_matmul import (pack_signed,
+from repro_torch.kernels.sc_matmul import (pack_signed, pack_weight, plan,
+                                           sc_linear, sc_linear_torch,
                                            sc_matmul_counts_signed,
                                            sc_matmul_counts_signed_torch)
 from repro_torch.launch.serve import generate
@@ -64,7 +66,8 @@ def _planes(m, k, n, bits, seed):
 @pytest.mark.parametrize("m,k,n,bits", [
     (1, 960, 320, 8), (2, 33, 17, 8), (3, 129, 65, 8), (4, 960, 960, 8),
     (5, 1000, 333, 8), (8, 64, 31, 4), (16, 2560, 960, 8), (40, 96, 200, 8),
-    (4, 600, 50, 12), (3, 200, 96, 16), (7, 0, 9, 8)])
+    (4, 600, 50, 12), (3, 200, 96, 16), (7, 0, 9, 8), (20, 200, 99, 16),
+    (64, 2560, 960, 8), (9, 4000, 50, 12)])
 def test_sc_counts_kernel_equals_plain(cuda, m, k, n, bits):
     a, b = _planes(m, k, n, bits, seed=m * 7 + k + n)
     a, b = a.to(cuda), b.to(cuda)
@@ -74,6 +77,82 @@ def test_sc_counts_kernel_equals_plain(cuda, m, k, n, bits):
     want = sc_matmul_counts_signed_torch(a, b, bits=bits)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# smollm-360m's projections (K, N): q/o, k/v, w1/w3, w2 and the LM head
+SMOLLM_SHAPES = [(960, 960), (960, 320), (960, 2560), (2560, 960),
+                 (960, 49152)]
+
+
+def _fused_case(m, k, n, bits, dtype, seed, cuda):
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal((m, k)), dtype=torch.float32)
+    w = torch.as_tensor(rng.standard_normal((k, n)) * k ** -0.5,
+                        dtype=torch.float32)
+    return x.to(dtype).to(cuda), pack_weight(w.to(dtype).to(cuda), bits)
+
+
+@pytest.mark.parametrize("m,k,n,bits,dtype", [
+    *[(m, k, n, 8, torch.bfloat16) for m in (1, 4, 16, 64)
+      for k, n in SMOLLM_SHAPES],
+    *[(m, 200, 96, bits, torch.float32) for m in (4, 20)
+      for bits in range(1, 9)],
+    (8, 130, 72, 8, torch.float32), (9, 130, 72, 8, torch.float32),
+    (16, 130, 72, 8, torch.bfloat16), (17, 130, 72, 8, torch.bfloat16),
+    (7, 1000, 333, 8, torch.bfloat16), (37, 129, 65, 8, torch.float32),
+    (3, 200, 96, 16, torch.float32), (20, 200, 99, 16, torch.bfloat16)])
+def test_fused_kernel_equals_plain(cuda, m, k, n, bits, dtype):
+    """The fused projection is bit-equal to its plain version (the unfused
+    chain on the same packed weight) in the packed 16-bit (bits <= 8) and
+    int32 forms, one launch a call."""
+    x, pw = _fused_case(m, k, n, bits, dtype, m * 31 + k + n + bits, cuda)
+    before = sc_linear.launches
+    got = sc_linear(x, pw)
+    assert sc_linear.launches == before + 1
+    want = sc_linear_torch(x, pw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bits,dtype", [(8, torch.bfloat16), (8, torch.float32),
+                                        (4, torch.float32),
+                                        (16, torch.float32)])
+@pytest.mark.parametrize("m,k", [(6, 250), (20, 130)])
+def test_fused_kernel_rows_holding_nan_or_inf(cuda, m, k, bits, dtype):
+    """A row holding a NaN, an Inf or a -Inf comes out NaN, as in the
+    plain version on the card (the row absmax carries the NaN through);
+    the other rows stay bit-equal."""
+    x, pw = _fused_case(m, k, 72, bits, dtype, m + k + bits, cuda)
+    x = x.clone()
+    x[1, 5], x[3, k - 1], x[4, 0] = math.nan, math.inf, -math.inf
+    got, want = sc_linear(x, pw), sc_linear_torch(x, pw)
+    bad = torch.zeros(m, dtype=torch.bool, device=cuda)
+    bad[[1, 3, 4]] = True
+    assert torch.equal(got.isnan().all(1), bad)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got[~bad], want[~bad])
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 960, 960), (16, 960, 320),
+                                   (64, 2560, 960), (9, 960, 49152)])
+def test_fused_rows_equal_their_one_row_calls(cuda, m, k, n):
+    """Batch invariance: the K split and the row tile depend on M, the
+    bits of a row do not."""
+    x, pw = _fused_case(m, k, n, 8, torch.bfloat16, m + k, cuda)
+    assert plan(m, n, k, 132) != plan(1, n, k, 132)
+    whole = sc_linear(x, pw)
+    for i in range(m):
+        assert torch.equal(whole[i:i + 1], sc_linear(x[i:i + 1], pw))
+
+
+def test_fused_wrapper_never_falls_back_on_the_card(cuda):
+    x, pw = _fused_case(4, 64, 16, 8, torch.float32, 0, cuda)
+    with pytest.raises(ConfigError, match="float32 or bfloat16"):
+        sc_linear(x.half(), pw)
+    with pytest.raises(ConfigError, match="device"):
+        sc_linear(x, pw.to("cpu"))
+    with pytest.raises(ConfigError, match="rows must be"):
+        sc_linear(x[:, :32], pw)
 
 
 def _paged(c, kv, g, d, block, mb, positions, seed, dtype, cuda):
@@ -152,8 +231,14 @@ def test_engine_streams_equal_sequential_baseline_on_the_card(cuda, block):
     gens = [5, 12, 7, 20, 9]
     engine = Engine(cfg, params, device=cuda, capacity=3, max_seq=64,
                     block=block, chunk=16)
+    fused0, counts0 = sc_linear.launches, sc_matmul_counts_signed.launches
     res = engine.run([Request(uid=f"r{i}", prompt=p, max_new_tokens=g)
                       for i, (p, g) in enumerate(zip(prompts, gens))])
+    st = engine.stats
+    # one fused launch a projection; no weight quantized per call
+    assert sc_linear.launches - fused0 == (7 * cfg.n_layers + 1) * (
+        st["decode_steps"] + st["prefill_chunks"])
+    assert sc_matmul_counts_signed.launches == counts0
     for r, p, g in zip(res, prompts, gens):
         ref = generate(cfg, params, p[None], gen_tokens=g, device=cuda)
         np.testing.assert_array_equal(r.tokens, ref[0].cpu().numpy())
