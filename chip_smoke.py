@@ -26,7 +26,11 @@ Phases (each raises on failure, so any failure exits non-zero):
    decode step's device ms at 1, 2 and 4 blocks per SM (the K split);
 4. paged decode-attention kernel vs its plain version at smollm's layout,
    f32 and bf16, float and SC at 4 and 8 bits, fragmented tables, windows,
-   a single-KV-head layout (SC);
+   a single-KV-head layout (SC); kernel ms, device ms, plain and bound ms
+   of both paths at the serve shape (MB 4) and a long context (MB 64, up
+   to 4,096 keys); then bitwise paging invariance (block 16, 32, 48, 64,
+   256 and the dense view) and batch invariance (a slot alone against
+   four together), any difference failing the phase;
 5. flash-attention kernel vs its plain version: f32 and bf16, float and SC
    at 4 and 8 bits, D 64 and 128, G 3, 2 and 1, ragged Sq/Skv, smollm's
    one-shot and chunked shapes; chunked rows must equal one-shot rows bit
@@ -445,7 +449,74 @@ def _paged_case(dtype, window, positions, gen, dev, c=4, kv=5, g=3, d=64,
     return q, k, v, tables, qpos
 
 
+def _paginate(k_rows, v_rows, block, gen):
+    """Dense rows (C, S, KV, D) laid out in pages of ``block`` keys
+    scattered over a pool, the trash page last; ``block=None`` is the dense
+    view (one page per slot, as ``layers.decode_attention`` passes it)."""
+    import torch
+    c, s, kv, d = k_rows.shape
+    if block is None:
+        return k_rows, v_rows, torch.arange(c, dtype=torch.int32,
+                                            device=k_rows.device)[:, None]
+    mb = -(-s // block)
+    perm = torch.randperm(c * mb, generator=gen, device=k_rows.device)
+    pools = []
+    for rows in (k_rows, v_rows):
+        pool = torch.zeros((c * mb + 1, block, kv, d), dtype=rows.dtype,
+                           device=rows.device)
+        pool[perm] = torch.nn.functional.pad(
+            rows, (0, 0, 0, 0, 0, mb * block - s)).reshape(c * mb, block,
+                                                           kv, d)
+        pools.append(pool)
+    return pools[0], pools[1], perm.reshape(c, mb).to(torch.int32)
+
+
+def _paged_invariance(gen, dev) -> list[str]:
+    """Bitwise paging and batch invariance of the paged kernel at smollm's
+    layout: the same slots' rows at block 16, 32, 48, 64 and 256 and as
+    the dense view, and each slot alone against all four together, must
+    give identical outputs. Returns what differed."""
+    import torch
+    from repro_torch.kernels.paged_attention import paged_attention
+    bad = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn((4, 5, 3, 64), generator=gen, device=dev).to(dtype)
+        k_rows, v_rows = (torch.randn((4, 700, 5, 64), generator=gen,
+                                      device=dev).to(dtype) for _ in range(2))
+        pos = torch.tensor([650, 255, 37, 699], dtype=torch.int32,
+                           device=dev)
+        for bits in (None, 4, 8):
+            for window in (None, 300):
+                outs = {block: paged_attention(
+                    q, *_paginate(k_rows, v_rows, block, gen), pos,
+                    window=window, sc_bits=bits)
+                    for block in (None, 16, 32, 48, 64, 256)}
+                what = f"{str(dtype)[6:]} sc_bits={bits} window={window}"
+                differ = [b for b, o in outs.items()
+                          if not torch.equal(o, outs[None])]
+                if differ:
+                    bad.append(f"paging: {what}, blocks {differ} differ "
+                               f"from the dense view")
+                kp, vp, tables = _paginate(k_rows, v_rows, 64, gen)
+                alone = [i for i in range(4) if not torch.equal(
+                    paged_attention(q[i:i + 1], kp, vp, tables[i:i + 1],
+                                    pos[i:i + 1], window=window,
+                                    sc_bits=bits), outs[64][i:i + 1])]
+                if alone:
+                    bad.append(f"batch: {what}, slots {alone} alone differ "
+                               f"from the batch")
+                log(f"[paged] invariance {what}: paging "
+                    f"{'ok' if not differ else 'DIFFERS'}, batch "
+                    f"{'ok' if not alone else 'DIFFERS'}")
+    return bad
+
+
 def phase_paged() -> dict:
+    """The paged kernel against its plain version; back-to-back and device
+    time of both paths at the serve shape (positions [100, 255, 37, 64],
+    MB 4) and at a long context (MB 64, positions up to 4095); then bitwise
+    paging and batch invariance, which fail the phase on any difference
+    (checked last, so the times are printed either way)."""
     import torch
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_torch)
@@ -458,20 +529,26 @@ def phase_paged() -> dict:
     # plus one quantization step at most (check_close).
     tol = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1.6e-2, 1e-2)}
     f32, bf16 = torch.float32, torch.bfloat16
-    main = [100, 255, 37, 64]
-    # (dtype, window, positions, sc_bits, layout overrides)
-    cases = [(f32, None, main, None, {}), (bf16, None, main, None, {}),
-             (f32, 40, main, None, {}), (bf16, 40, [200, 3, 130, 191], None, {}),
-             (f32, None, [0, 63, 127, 191], None, {})]
+    main, long = [100, 255, 37, 64], [4095, 2900, 1500, 4000]
+    # (dtype, window, positions, sc_bits, layout overrides, timed as)
+    cases = [(f32, None, main, None, {}, "serve"),
+             (bf16, None, main, None, {}, "serve"),
+             (f32, 40, main, None, {}, None),
+             (bf16, 40, [200, 3, 130, 191], None, {}, None),
+             (f32, None, [0, 63, 127, 191], None, {}, None),
+             (bf16, None, long, None, dict(mb=64), "long")]
     for bits in (4, 8):
-        cases += [(f32, None, main, bits, {}), (bf16, None, main, bits, {}),
-                  (f32, 40, [200, 3, 130, 191], bits, {}),
-                  (bf16, None, [0, 63, 127, 191], bits, {}),
-                  (f32, None, [90, 17, 255, 0], bits, dict(kv=1, g=1)),
+        cases += [(f32, None, main, bits, {}, "serve"),
+                  (bf16, None, main, bits, {}, "serve"),
+                  (f32, 40, [200, 3, 130, 191], bits, {}, None),
+                  (bf16, None, [0, 63, 127, 191], bits, {}, None),
+                  (f32, None, [90, 17, 255, 0], bits, dict(kv=1, g=1), None),
                   (bf16, 33, [90, 17, 255, 130], bits, dict(kv=1, g=1, d=128,
-                                                           block=32, mb=8))]
+                                                           block=32, mb=8),
+                   None)]
+    cases.append((bf16, None, long, 8, dict(mb=64), "long"))
     rows = []
-    for dtype, window, positions, bits, geom in cases:
+    for dtype, window, positions, bits, geom, shape in cases:
         q, k, v, tables, qpos = _paged_case(dtype, window, positions, gen,
                                             dev, **geom)
         got = paged_attention(q, k, v, tables, qpos, window=window,
@@ -487,12 +564,14 @@ def phase_paged() -> dict:
         row = {"dtype": str(dtype).replace("torch.", ""), "window": window,
                "positions": positions, "sc_bits": bits, "layout": {
                    "C": c, "KV": kv, "G": g, "D": d, "block": k.shape[1],
-                   "MB": tables.shape[1]}, "max_abs_err": err}
-        timed = not geom and window is None and positions == main
-        if timed:
-            ms = cuda_ms(lambda: paged_attention(q, k, v, tables, qpos,
-                                                 window=window, sc_bits=bits),
-                         iters=200)
+                   "MB": tables.shape[1]}, "max_abs_err": err,
+               "shape": shape}
+        if shape:
+            def call():
+                return paged_attention(q, k, v, tables, qpos, window=window,
+                                       sc_bits=bits)
+            ms = cuda_ms(call, iters=200)
+            dev_ms = device_ms(call, "paged_decode")
             plain_ms = cuda_ms(lambda: paged_attention_torch(
                 q, k, v, tables, qpos, window=window, sc_bits=bits),
                 iters=20)
@@ -504,14 +583,20 @@ def phase_paged() -> dict:
             rate = (INT8_OPS_S if bits else BF16_OPS_S
                     if dtype == torch.bfloat16 else FP32_OPS_S)
             bound = max(nbytes / HBM_BYTES_S, ops / rate) * 1e3
-            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            row.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                       bound_ms=bound,
                        bound_by="bytes" if nbytes / HBM_BYTES_S >= ops / rate
                        else "operations", bytes=nbytes, ops=ops)
         rows.append(row)
-        timing = (f", kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} "
-                  f"ms, bound {row['bound_ms']:.5f} ms" if timed else "")
+        timing = (f", {shape} shape: kernel {row['ms']:.4f} ms, device "
+                  f"{_ms(row['device_ms'])}, plain {row['plain_ms']:.3f} "
+                  f"ms, bound {row['bound_ms']:.5f} ms" if shape else "")
         log(f"[paged] {row['dtype']:8s} sc={bits} window={window} "
             f"pos={positions} {geom or ''}: max abs err {err:.2e}{timing}")
+    bad = _paged_invariance(gen, dev)
+    if bad:
+        raise AssertionError("paged kernel is not invariant: "
+                             + "; ".join(bad))
     return {"cases": rows}
 
 
@@ -1119,13 +1204,13 @@ def main() -> int:
     serve, serve_sc = report["serve"], report["serve_sc"]
     stream = report["stream"]["timing"][12]
 
-    def paged_row(bits):
+    def paged_row(bits, shape):
         return next(r for r in paged if r["dtype"] == "bfloat16"
-                    and r["window"] is None and r["sc_bits"] == bits
-                    and "ms" in r)
+                    and r["sc_bits"] == bits and r["shape"] == shape)
 
     def paged_entry(name, bits, launches):
-        row = paged_row(bits)
+        row, long_row = paged_row(bits, "serve"), paged_row(bits, "long")
+        dev_ms = row["device_ms"]
         return {"name": name, "route": "cuda",
                 "source": f"{src}/paged_attention.cu",
                 "replaces": "src/repro/kernels/paged_attention.py:194",
@@ -1136,10 +1221,15 @@ def main() -> int:
                 "plain_ms": N_LAYERS * row["plain_ms"],
                 "bound_ms": N_LAYERS * row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": None,
+                "device_ms": None if dev_ms is None else N_LAYERS * dev_ms,
                 "unit": f"one smollm-360m decode step: 32 calls at C=4 KV=5 "
                         f"G=3 D=64 block=64 MB=4 bf16"
                         f"{' SC %d-bit' % bits if bits else ''}, positions "
-                        f"{row['positions']}"}
+                        f"{row['positions']}",
+                "long_context_call": {
+                    key: long_row[key] for key in
+                    ("positions", "ms", "device_ms", "plain_ms", "bound_ms",
+                     "bound_by")} | {"MB": long_row["layout"]["MB"]}}
 
     def flash_entry(name, key, bits, launches):
         t = report["flash"]["timing"][key]["chunked_prefill"]

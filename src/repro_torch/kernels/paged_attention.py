@@ -5,29 +5,42 @@ Replaces the Pallas TPU kernel ``paged_attention_pallas``
 (``repro/kernels/paged_attention.py:194``) with the CUDA kernels in
 ``csrc/paged_attention.cu``: one query token per slot, attended through the
 slot's block table against the page pool, with no gathered dense view.
-Bound by the bytes of K and V it reads; it walks only the pages up to each
-slot's position.
 
-Float path: an online softmax over 32-token tiles, because the TPU
-kernel's whole-row buffer does not fit a block's shared memory at long
-contexts. The TPU kernel matched the gathered-dense path bit for bit, an
-artefact of XLA-CPU lowering; the online softmax here agrees with the
-plain version to a stated tolerance instead (f32: rtol 1e-4 / atol 1e-5,
-sums reassociated over 32-token tiles; bf16: rtol 1.6e-2 / atol 1e-2, one
-bf16 rounding of the output).
+Design (the source's header has the details): one thread-block cluster of
+:data:`RANKS` CTAs per (slot, KV head), one launch per call. Key tile ``i``
+(keys ``32i … 32i + 31`` by absolute position, whatever the page size)
+belongs to rank ``i mod RANKS``; each rank stages its tiles' K and V rows
+through two shared-memory stages, the next tile's 16-byte chunks loaded
+into registers while the current one is computed, and the ranks meet
+through distributed shared memory. What bounds it: the bytes of K and V at
+long contexts, the latency of a tile's load and of the cluster's exchanges
+at short ones. The tiles, their owners and every order of summation depend
+only on the key index, the slot's position and the window, so a slot's
+output is bit-identical whatever the page size, the table layout or the
+other slots of the batch (a dense cache viewed as one page per slot
+included).
+
+Float path: each rank runs an online softmax over its tiles and the ranks'
+``(m, l, o)`` partials are merged in rank order. It agrees with the plain
+version's one exact softmax to a stated tolerance (f32: rtol 1e-4 / atol
+1e-5, sums reassociated over tiles and ranks; bf16: rtol 1.6e-2 / atol
+1e-2, one bf16 rounding of the output).
 
 SC path (``sc_bits``): the reference quantizes the *normalized*
-probability row over all keys (``paged_attention.py:172-185``), so it is
-two passes inside the block — SC scores, masks, row max and denominator,
-then the probabilities, their quantization and the SC PV. The score row
-sits in shared memory between the passes, or in a device workspace this
-wrapper allocates when the row is too long for it. Scores and quantized
-planes repeat the plain version's float32 operations one for one; the
-tolerance is the float path's, plus one output quantization step
-(``flash_attention.sc_tolerance``) should a probability land within an
-ulp of a rounding boundary. Every head layout is served under SC.
+probability row over all keys (``paged_attention.py:172-185``), so the
+ranks exchange the row max, the partial denominators (added in rank
+order) and the probability max before each quantizes its own
+probabilities and sums its own SC PV terms; the partial sums are added in
+rank order. A rank's scores sit in shared memory between the passes, or in
+a device workspace this wrapper allocates when the rank's share
+(:func:`plan`) is longer than :data:`SC_ROW_SMEM_BYTES`. Scores and
+quantized planes repeat the plain version's float32 operations one for
+one; the tolerance is the float path's, plus one output quantization step
+(``flash_attention.sc_tolerance``) should a probability land within an ulp
+of a rounding boundary. Every head layout is served under SC.
 
-``paged_attention.launches`` counts kernel launches, both paths.
+``paged_attention.launches`` counts kernel launches, both paths: one a
+call. :func:`plan` is the launch plan as a pure function of the shapes.
 
 Layout: ``q (C, KV, G, D)``; ``k_pages, v_pages (P, block, KV, D)`` with
 page ``P - 1`` the trash page; ``tables (C, MB) int32`` (−1 = unallocated);
@@ -36,6 +49,7 @@ page ``P - 1`` the trash page; ``tables (C, MB) int32`` (−1 = unallocated);
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -44,11 +58,88 @@ from repro_torch.errors import ConfigError
 from . import build
 from .sc_attention import check_sc_bits
 
-__all__ = ["paged_attention", "paged_attention_torch", "SC_ROW_SMEM_BYTES"]
+__all__ = ["paged_attention", "paged_attention_torch", "plan", "Plan",
+           "rank_tiles", "RANKS", "TILE", "SC_ROW_SMEM_BYTES"]
 
-#: Largest SC score row (G rows of MB·block float32 scores) kept in shared
-#: memory between the two passes; a longer one goes to a device workspace.
+#: CTAs in the cluster that splits one (slot, KV head)'s keys, keys in a
+#: tile, threads in a CTA (compile-time constants of the kernel).
+RANKS, TILE, THREADS = 8, 32, 128
+#: Largest share of SC scores (G rows of one rank's keys, float32) a CTA
+#: keeps in shared memory between its two passes; a longer share goes to a
+#: device workspace.
 SC_ROW_SMEM_BYTES = 64 * 1024
+
+
+class Plan(NamedTuple):
+    """One call's launch: ``grid`` is (RANKS, C, KV) in clusters of
+    ``ranks`` CTAs along x; ``share`` is the SC score slots a rank keeps per
+    query row (0 on the float path); ``workspace`` the float32 shape of the
+    SC score workspace, or None when the share fits shared memory."""
+    ranks: int
+    grid: tuple[int, int, int]
+    share: int
+    smem_bytes: int
+    workspace: tuple[int, ...] | None
+
+
+def rank_tiles(rank: int, pos: int, row_keys: int,
+               window: int | None = None) -> range:
+    """The tiles ``rank`` walks for a slot at ``pos`` whose table row holds
+    ``row_keys`` keys: tiles ``first // TILE … last // TILE`` of the keys it
+    attends, those congruent to ``rank`` mod RANKS, ascending — the
+    kernel's ``key_span`` and ``own_tiles``."""
+    last = min(pos, row_keys - 1)
+    first = max(0, pos - window + 1) if window else 0
+    if pos < 0 or first > last:
+        return range(0)
+    lo = first // TILE
+    return range(lo + (rank - lo) % RANKS, last // TILE + 1, RANKS)
+
+
+def plan(c: int, kv: int, g: int, d: int, block: int, max_blocks: int,
+         sc_bits: int | None = None, *, esz: int = 2) -> Plan:
+    """The launch for ``C`` slots of ``KV`` heads of ``G`` query rows of
+    width ``D``, tables of ``max_blocks`` pages of ``block`` keys and
+    ``esz``-byte elements. Shared memory: two stages of a tile's rows (K
+    and V on the float path, K or V on the SC path; rows padded to 16 bytes
+    plus 16), the query rows and outputs, and on the SC path a quantized
+    tile, the exchange slots and, when it fits :data:`SC_ROW_SMEM_BYTES`,
+    the rank's share of scores."""
+    stride = -(-d * esz // 16) * 16 + 16
+    stages = 2 * (2 if sc_bits is None else 1) * TILE * stride
+    grid = (RANKS, c, kv)
+    if sc_bits is None:
+        smem = stages + 4 * (2 * g * d + THREADS // 32 * TILE + 2 * g)
+        return Plan(RANKS, grid, 0, smem, None)
+    row_keys = max_blocks * block
+    share = TILE * len(rank_tiles(0, row_keys - 1, row_keys))
+    in_smem = g * share * 4 <= SC_ROW_SMEM_BYTES
+    smem = stages + 4 * (2 * g * d + TILE * (d + 1) + TILE + 5 * g
+                         + (g * share if in_smem else 0))
+    return Plan(RANKS, grid, share, smem,
+                None if in_smem else (c, kv, RANKS, g, share))
+
+
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: Argument types of the C entries ``paged_attention_{f32,bf16}`` (float
+#: path) and ``paged_attention_sc_{f32,bf16}``: pointers (the stream last),
+#: the shapes and the plan as ints, the attention scale as a float.
+ARGTYPES = {"float": [_PTR] * 6 + [_I32] * 8 + [_F32, _I32, _PTR],
+            "sc": [_PTR] * 7 + [_I32] * 9 + [_F32, _I32, _I32, _PTR]}
+_ENTRIES: dict = {}
+
+
+def _entries() -> dict:
+    """The four C entry points, their argument types set once."""
+    if not _ENTRIES:
+        lib = build.load("paged_attention")
+        for suffix in ("f32", "bf16"):
+            for path, prefix in (("float", ""), ("sc", "sc_")):
+                fn = getattr(lib, f"paged_attention_{prefix}{suffix}")
+                fn.argtypes = ARGTYPES[path]
+                fn.restype = _I32
+                _ENTRIES[prefix + suffix] = fn
+    return _ENTRIES
 
 
 def paged_attention_torch(q: torch.Tensor, k_pages: torch.Tensor,
@@ -106,37 +197,29 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ConfigError("paged kernel: page pools must be contiguous")
     q = q.contiguous()
-    tables = tables.to(torch.int32).contiguous()
-    q_positions = q_positions.to(torch.int32).contiguous()
+    if tables.dtype != torch.int32 or not tables.is_contiguous():
+        tables = tables.to(torch.int32).contiguous()
+    if q_positions.dtype != torch.int32 or not q_positions.is_contiguous():
+        q_positions = q_positions.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    lib = build.load("paged_attention")
+    esz = q.element_size()
+    p = plan(c, kv, g, d, block, tables.shape[1], sc_bits, esz=esz)
+    vec = int(d * esz % 16 == 0 and k_pages.data_ptr() % 16 == 0
+              and v_pages.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    dims = (c, kv, g, d, block, tables.shape[1], n_pages)
-    args = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            tables.data_ptr(), q_positions.data_ptr(), out.data_ptr()]
     suffix = "f32" if q.dtype == torch.float32 else "bf16"
+    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            tables.data_ptr(), q_positions.data_ptr(), out.data_ptr())
+    dims = (c, kv, g, d, block, tables.shape[1], n_pages, vec)
+    win = 0 if window is None else int(window)
     if sc_bits is None:
-        fn = getattr(lib, f"paged_attention_{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        rc = fn(*args, *dims, d ** -0.5,
-                0 if window is None else int(window), stream)
+        rc = _entries()[suffix](*args, *dims, d ** -0.5, win, stream)
     else:
-        # the score row of each (slot, KV head) between the two passes:
-        # in shared memory when it fits, else in this workspace
-        row = tables.shape[1] * block
-        work = None
-        if g * row * 4 > SC_ROW_SMEM_BYTES:
-            work = torch.empty((c, kv, g, row), dtype=torch.float32,
-                               device=q.device)
-        fn = getattr(lib, f"paged_attention_sc_{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        rc = fn(*args, 0 if work is None else work.data_ptr(), *dims,
-                d ** -0.5, 0 if window is None else int(window), sc_bits,
-                stream)
+        work = None if p.workspace is None else torch.empty(
+            p.workspace, dtype=torch.float32, device=q.device)
+        rc = _entries()[f"sc_{suffix}"](
+            *args, 0 if work is None else work.data_ptr(), *dims, p.share,
+            d ** -0.5, win, sc_bits, stream)
     build.check(rc, "paged_attention")
     paged_attention.launches += 1
     return out

@@ -11,6 +11,7 @@ not tile multiples, windows, single-KV-head layouts, score rows too long
 for shared memory. Float and SC attention alike; the engine's streams are
 held to the sequential baseline with each.
 """
+import ctypes
 import dataclasses
 import math
 
@@ -25,8 +26,10 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  sc_tolerance)
 from repro_torch.core.multipliers import proposed_closed_form
 from repro_torch.kernels import ops
-from repro_torch.kernels.paged_attention import (paged_attention,
+from repro_torch.kernels import build
+from repro_torch.kernels.paged_attention import (RANKS, paged_attention,
                                                  paged_attention_torch)
+from repro_torch.kernels.paged_attention import plan as paged_plan
 from repro_torch.kernels.sc_bitops import (sc_stream_mul_cuda,
                                            sc_stream_mul_torch)
 from repro_torch.kernels.sc_matmul import (pack_signed, pack_weight, plan,
@@ -353,7 +356,7 @@ def test_flash_kernel_backward_is_the_plain_vjp(cuda):
     (4, 5, 3, 64, 64, 4, [100, 200, 31, 32], 17),
     (3, 2, 2, 16, 4, 6, [7, 21, 13], None),          # pages under one tile
     (2, 1, 1, 64, 48, 3, [95, 50], None),            # KV 1, G 1: SC only
-    (2, 2, 4, 128, 256, 80, [20000, 300], None),     # row in a workspace
+    (2, 2, 4, 128, 256, 80, [20000, 300], None),     # a long row
 ], ids=range(5))
 def test_paged_sc_kernel_equals_plain(cuda, geom, dtype, bits):
     c, kv, g, d, block, mb, positions, window = geom
@@ -379,6 +382,150 @@ def test_dense_sc_decode_runs_the_paged_kernel(cuda):
     assert paged_attention.launches == before + 1
     want = layers._decode_attention_plain(q, k, v, q_position=pos, sc_bits=8)
     _sc_close(got, want, v, 8, TOL[torch.float32])
+
+
+# ------------------------------------------------- paged kernel invariances
+
+def _rows(c, s, kv, g, d, dtype, seed, cuda):
+    """q (C, KV, G, D) and dense K/V rows (C, S, KV, D) from a seed."""
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(shape), dtype=dtype).to(cuda)
+            for shape in ((c, kv, g, d), (c, s, kv, d), (c, s, kv, d))]
+
+
+def _paginate(k_rows, v_rows, block, seed):
+    """Lay dense rows (C, S, KV, D) out in pages of ``block`` keys scattered
+    over a pool in a random order, the trash page last; ``block=None`` is
+    the dense view (one page per slot, as ``layers.decode_attention``
+    passes a dense cache)."""
+    c, s, kv, d = k_rows.shape
+    if block is None:
+        return k_rows, v_rows, torch.arange(c, dtype=torch.int32,
+                                            device=k_rows.device)[:, None]
+    mb = -(-s // block)
+    perm = torch.as_tensor(np.random.default_rng(seed).permutation(c * mb),
+                           device=k_rows.device)
+    pools = []
+    for rows in (k_rows, v_rows):
+        pool = torch.zeros((c * mb + 1, block, kv, d), dtype=rows.dtype,
+                           device=rows.device)
+        pool[perm] = torch.nn.functional.pad(
+            rows, (0, 0, 0, 0, 0, mb * block - s)).reshape(c * mb, block,
+                                                           kv, d)
+        pools.append(pool)
+    return pools[0], pools[1], perm.reshape(c, mb).to(torch.int32)
+
+
+@pytest.mark.parametrize("window", [None, 300], ids=["full", "window"])
+@pytest.mark.parametrize("bits", [None, 4, 8], ids=["float", "sc4", "sc8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_kernel_is_bitwise_paging_invariant(cuda, dtype, bits, window):
+    """The same slots' rows laid out at block 16, 32, 48, 64 and 256 and as
+    the dense view give identical outputs: tiles start at absolute key
+    multiples of 32, whatever the page size."""
+    q, k_rows, v_rows = _rows(2, 700, 5, 3, 64, dtype, 21, cuda)
+    pos = torch.tensor([650, 333], dtype=torch.int32, device=cuda)
+    outs = {}
+    for block in (16, 32, 48, 64, 256, None):
+        kp, vp, tables = _paginate(k_rows, v_rows, block, seed=block or 0)
+        outs[block] = paged_attention(q, kp, vp, tables, pos, window=window,
+                                      sc_bits=bits)
+    for block, out in outs.items():
+        assert torch.equal(out, outs[None]), block
+    want = paged_attention_torch(q, *_paginate(k_rows, v_rows, None, 0),
+                                 pos, window=window, sc_bits=bits)
+    if bits is None:
+        torch.testing.assert_close(outs[None].float(), want.float(),
+                                   **TOL[dtype])
+    else:
+        _sc_close(outs[None], want, v_rows, bits, TOL[dtype])
+
+
+@pytest.mark.parametrize("bits", [None, 4, 8], ids=["float", "sc4", "sc8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_kernel_is_bitwise_batch_invariant(cuda, dtype, bits):
+    """A slot launched alone (C = 1) gives the bits it gives among three
+    other slots at other positions."""
+    q, k_rows, v_rows = _rows(4, 300, 5, 3, 64, dtype, 22, cuda)
+    kp, vp, tables = _paginate(k_rows, v_rows, 64, seed=3)
+    pos = torch.tensor([100, 255, 37, 64], dtype=torch.int32, device=cuda)
+    together = paged_attention(q, kp, vp, tables, pos, sc_bits=bits)
+    for i in range(4):
+        alone = paged_attention(q[i:i + 1], kp, vp, tables[i:i + 1],
+                                pos[i:i + 1], sc_bits=bits)
+        assert torch.equal(alone, together[i:i + 1]), i
+
+
+@pytest.mark.parametrize("bits", [None, 8], ids=["float", "sc8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("geom", [
+    # (C, KV, G, D, block, MB, positions, window, SC scores in a workspace)
+    (2, 2, 3, 64, 64, 150, [8500, 9599], None, False),   # 8k+ keys a slot
+    (1, 2, 4, 64, 256, 160, [40000], None, True),        # 80 KB a rank
+    (2, 5, 3, 64, 64, 20, [1000, 1270], 300, False),     # window opens mid-tile
+    (3, 2, 2, 112, 32, 8, [255, 17, 200], 7, False),     # D 112: 224-byte rows
+], ids=range(4))
+def test_paged_kernel_long_rows_and_windows(cuda, geom, dtype, bits):
+    c, kv, g, d, block, mb, positions, window, workspace = geom
+    esz = 4 if dtype == torch.float32 else 2
+    assert (paged_plan(c, kv, g, d, block, mb, 8, esz=esz).workspace
+            is not None) == workspace
+    if window:          # the first key mid-tile, in a tile that is not rank 0's
+        first = positions[0] - window + 1
+        assert first % 32 and first // 32 % RANKS
+    args = _paged(c, kv, g, d, block, mb, positions, sum(positions), dtype,
+                  cuda)
+    before = paged_attention.launches
+    got = paged_attention(*args, window=window, sc_bits=bits)
+    assert paged_attention.launches == before + 1
+    want = paged_attention_torch(*args, window=window, sc_bits=bits)
+    torch.cuda.synchronize()
+    if bits is None:
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    else:
+        _sc_close(got, want, args[2], bits, TOL[dtype])
+
+
+@pytest.mark.parametrize("bits", [None, 4, 8], ids=["float", "sc4", "sc8"])
+def test_paged_kernel_many_clusters_and_idle_slots(cuda, bits):
+    """C = 64 (320 clusters), slots at position -1 among them: an idle
+    slot's cluster writes zeros and returns together, the live slots equal
+    the plain version, and nothing waits on a cluster that left."""
+    rng = np.random.default_rng(64)
+    positions = [int(p) for p in rng.integers(0, 256, 64)]
+    positions[0] = positions[5] = positions[63] = -1
+    args = _paged(64, 5, 3, 64, 64, 4, [max(p, 0) for p in positions], 64,
+                  torch.bfloat16, cuda)
+    args[4] = torch.tensor(positions, dtype=torch.int32, device=cuda)
+    got = paged_attention(*args, sc_bits=bits)
+    torch.cuda.synchronize()
+    want = paged_attention_torch(*args, sc_bits=bits)
+    live = args[4] >= 0
+    assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+    if bits is None:
+        torch.testing.assert_close(got[live].float(), want[live].float(),
+                                   **TOL[torch.bfloat16])
+    else:
+        _sc_close(got[live], want[live], args[2], bits, TOL[torch.bfloat16])
+
+
+def test_paged_plan_matches_the_compiled_kernel(cuda):
+    """The wrapper's plan and the kernel agree on the cluster size and on
+    every launch's shared memory."""
+    lib = build.load("paged_attention")
+    lib.paged_attention_smem_bytes.restype = ctypes.c_longlong
+    assert lib.paged_attention_ranks() == RANKS
+    for g, d in ((3, 64), (16, 128), (2, 256), (1, 112), (7, 128)):
+        for esz in (2, 4):
+            for bits, mb in ((None, 4), (8, 4), (8, 64), (8, 2048)):
+                p = paged_plan(4, 5, g, d, 16, mb, bits, esz=esz)
+                got = lib.paged_attention_smem_bytes(
+                    int(bits is not None), esz, g, d, p.share,
+                    int(p.workspace is None))
+                assert got == p.smem_bytes, (g, d, esz, bits, mb)
 
 
 def test_wrappers_never_fall_back_on_the_card(cuda):
