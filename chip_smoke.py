@@ -33,9 +33,12 @@ Phases (each raises on failure, so any failure exits non-zero):
    four together), any difference failing the phase;
 5. flash-attention kernel vs its plain version: f32 and bf16, float and SC
    at 4 and 8 bits, D 64 and 128, G 3, 2 and 1, ragged Sq/Skv, smollm's
-   one-shot and chunked shapes; chunked rows must equal one-shot rows bit
-   for bit through the kernel; kernel, plain, bound and (float)
-   ``scaled_dot_product_attention`` ms;
+   one-shot and chunked shapes, and the long prompts L1-L3 (2,048 tokens:
+   smollm one-shot, its last chunk, qwen2-7b's width; bf16, float and SC);
+   kernel (back to back and device), plain, bound and (float)
+   ``scaled_dot_product_attention`` ms at the serve shapes and L1-L3; then
+   chunked rows must equal one-shot rows bit for bit through the kernel,
+   with garbage or NaN in the staging cache past the chunk;
 6. the bit-parallel stream kernel through ``ops.sc_stream_mul`` on every
    operand pair at B = 5, 6, 7, 8, 10 and 12 (16,777,216 pairs), counter
    set to 0 just before: counts exactly equal to the plain version and
@@ -634,16 +637,76 @@ def _flash_bound(q, k, q_offset, bits):
                    else "operations"), nbytes, ops
 
 
+#: Long-prompt flash calls, bf16, group 1024 (the registered kv_block):
+#: (name, b, h, kv, sq, skv, d, q_offset) — smollm-360m's one-shot prefill
+#: of 2,048 tokens, the last 16-row chunk of its chunked prefill, and
+#: qwen2-7b's attention width one-shot.
+LONG_PROMPTS = (("L1", 1, 15, 5, 2048, 2048, 64, 0),
+                ("L2", 1, 15, 5, 16, 2048, 64, 2032),
+                ("L3", 1, 28, 4, 2048, 2048, 128, 0))
+
+
+def _flash_chunk_invariance(gen, dev) -> list[str]:
+    """Chunked rows == one-shot rows, bit for bit, through the kernel: a
+    64-token prompt one-shot (group 64) against 16-row chunks at their
+    staging offsets over larger extents (group = extent), as the engine's
+    two prefill modes and the baseline run; the staging cache past the
+    chunk holds large garbage, or NaN. Returns what differed."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    h, kv, d, s = 15, 5, 64, 64
+    bad = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for bits in (None, 4, 8):
+            q, k, v = _flash_inputs(dtype, 1, h, kv, s, s, d, gen, dev, True)
+            one = flash_attention(q, k, v, q_offset=0, group=s, sc_bits=bits)
+            differ = []
+            for fill in ("garbage", "nan"):
+                for off in (0, 16, 32, 48):
+                    for extent in (64, 128, 256):
+                        kx = 50 * torch.randn((1, kv, extent, d),
+                                              generator=gen, device=dev)
+                        vx = 50 * torch.randn((1, kv, extent, d),
+                                              generator=gen, device=dev)
+                        kx, vx = kx.to(dtype), vx.to(dtype)
+                        kx[:, :, :s], vx[:, :, :s] = k, v
+                        if fill == "nan":
+                            kx[:, :, off + 16:] = math.nan
+                            vx[:, :, off + 16:] = math.nan
+                        got = flash_attention(q[:, :, off:off + 16], kx, vx,
+                                              q_offset=off, group=extent,
+                                              sc_bits=bits)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, one[:, :, off:off + 16]):
+                            differ.append(f"{fill} {off}/{extent}")
+            what = f"{str(dtype)[6:]} sc={bits}"
+            if differ:
+                bad.append(f"{what}: chunks {differ} differ from the "
+                           f"one-shot rows")
+            log(f"[flash] chunked rows == one-shot rows {what} (chunks at "
+                f"0/16/32/48 over 64/128/256, garbage or NaN past the "
+                f"chunk): {'ok' if not differ else 'DIFFERS'}")
+    return bad
+
+
 def phase_flash() -> dict:
+    """The flash kernel against its plain version at every geometry and at
+    the long prompts L1-L3 (float and SC 8-bit); back-to-back and device
+    ms of every timed call (the serve shapes and L1-L3) beside the plain
+    version's, the bound and (float) ``scaled_dot_product_attention``;
+    then bitwise chunk invariance, NaN staging included, which fails the
+    phase on any difference (checked last, so the times print either
+    way)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_torch)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
-    # f32: sums reassociated (kernel: per key in order and a warp butterfly;
-    # plain: pairwise tree sums); bf16: one bf16 rounding of the output on
-    # each side. SC: the same plus one quantization step (check_close).
+    # f32: sums reassociated (kernel: per key tile with online rescaling;
+    # plain: pairwise tree sums per group); bf16: one bf16 rounding of the
+    # output on each side. SC: the same plus one quantization step
+    # (check_close).
     tol = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1.6e-2, 1e-2)}
     # (b, h, kv, sq, skv, d, q_offset, group, model layout, causal)
     geoms = [(1, 15, 5, 64, 64, 64, 0, 64, True, True),     # smollm one-shot
@@ -677,40 +740,77 @@ def phase_flash() -> dict:
                 f"agree, max abs err "
                 f"{max(r['max_abs_err'] for r in rows[-len(geoms):]):.2e}")
 
-    # chunked rows == one-shot rows, bit for bit, through the kernel: a
-    # 64-token prompt one-shot (group 64) against 16-row chunks at their
-    # staging offsets over larger extents (group = extent, garbage past
-    # the prompt), as the engine's two prefill modes and the baseline run
-    h, kv, d, s = 15, 5, 64, 64
-    invariance = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for bits in (None, 4, 8):
-            q, k, v = _flash_inputs(dtype, 1, h, kv, s, s, d, gen, dev, True)
-            one = flash_attention(q, k, v, q_offset=0, group=s, sc_bits=bits)
-            for off in (0, 16, 32, 48):
-                for extent in (64, 128, 256):
-                    kx = 50 * torch.randn((1, kv, extent, d), generator=gen,
-                                          device=dev).to(dtype)
-                    vx = 50 * torch.randn((1, kv, extent, d), generator=gen,
-                                          device=dev).to(dtype)
-                    kx[:, :, :s], vx[:, :, :s] = k, v
-                    got = flash_attention(q[:, :, off:off + 16], kx, vx,
-                                          q_offset=off, group=extent,
-                                          sc_bits=bits)
-                    torch.cuda.synchronize()
-                    if not torch.equal(got, one[:, :, off:off + 16]):
-                        raise AssertionError(
-                            f"flash {dtype} sc={bits}: chunk at {off} over "
-                            f"{extent} differs from the one-shot rows")
-            invariance.append({"dtype": str(dtype)[6:], "sc_bits": bits,
-                               "bitwise_equal": True})
-    log("[flash] chunked rows == one-shot rows bit for bit (f32, bf16; float, "
-        "SC 4 and 8; chunks at 0/16/32/48 over extents 64/128/256)")
+    def lib_call(q, k, v, off):
+        """SDPA on the same inputs: K/V heads repeated for GQA outside the
+        timed call; ``is_causal`` where the mask is the plain lower
+        triangle (its fastest backend), else an explicit boolean mask."""
+        h, kv = q.shape[1], k.shape[1]
+        sq, skv = q.shape[2], k.shape[2]
+        kr = k.repeat_interleave(h // kv, dim=1)
+        vr = v.repeat_interleave(h // kv, dim=1)
+        if off == 0 and sq == skv:
+            return lambda: F.scaled_dot_product_attention(q, kr, vr,
+                                                          is_causal=True)
+        mask = (off + torch.arange(sq, device=dev)[:, None]
+                >= torch.arange(skv, device=dev)[None, :])
+        return lambda: F.scaled_dot_product_attention(q, kr, vr,
+                                                      attn_mask=mask)
+
+    def timed(q, k, v, off, group, bits, iters, plain_iters):
+        kw = dict(q_offset=off, group=group, sc_bits=bits)
+        row = {"ms": cuda_ms(lambda: flash_attention(q, k, v, **kw),
+                             iters=iters),
+               "device_ms": device_ms(lambda: flash_attention(q, k, v, **kw),
+                                      "flash_fwd", iters=min(iters, 20)),
+               "plain_ms": cuda_ms(lambda: flash_attention_torch(q, k, v,
+                                                                 **kw),
+                                   iters=plain_iters, warmup=1),
+               "library_ms": None, "library_device_ms": None}
+        if bits is None:
+            lib = lib_call(q, k, v, off)
+            row["library_ms"] = cuda_ms(lib, iters=iters)
+            row["library_device_ms"] = device_ms(lib, "",
+                                                 iters=min(iters, 20))
+        bound, by, nbytes, ops = _flash_bound(q, k, off, bits)
+        row.update(bound_ms=bound, bound_by=by, bytes=nbytes, ops=ops)
+        return row
+
+    def show(tag, row):
+        lib = (f", SDPA {row['library_ms']:.4f} ms (device "
+               f"{_ms(row['library_device_ms'])})"
+               if row["library_ms"] is not None else "")
+        log(f"[flash] {tag}: kernel {row['ms']:.4f} ms, device "
+            f"{_ms(row['device_ms'])}, plain {row['plain_ms']:.3f} ms{lib}, "
+            f"bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+
+    # the long prompts: the kernel against its plain version, then timed
+    h, kv, d = 15, 5, 64
+    long_rows = {}
+    for bits in (None, 8):
+        key = "float" if bits is None else f"sc{bits}"
+        for name, b, hh, kvh, sq, skv, dd, off in LONG_PROMPTS:
+            q, k, v = _flash_inputs(torch.bfloat16, b, hh, kvh, sq, skv, dd,
+                                    gen, dev, True)
+            kw = dict(q_offset=off, group=1024, sc_bits=bits)
+            got = flash_attention(q, k, v, **kw)
+            want = flash_attention_torch(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = check_close(got, want, rtol=tol[torch.bfloat16][0],
+                              atol=tol[torch.bfloat16][1], v=v, bits=bits,
+                              what=f"flash {name} sc={bits}")
+            del got, want
+            row = timed(q, k, v, off, 1024, bits, iters=20, plain_iters=1)
+            row.update(name=name, shape=(b, hh, kvh, sq, skv, dd, off, 1024),
+                       max_abs_err=err)
+            long_rows.setdefault(key, {})[name] = row
+            show(f"bf16 sc={bits} {name} B={b} H={hh} KV={kvh} Sq={sq} "
+                 f"Skv={skv} D={dd} offset={off} (max abs err {err:.2e})",
+                 row)
 
     # timing at the main path's shapes (bf16): the four chunk calls of a
     # 64-token prompt's chunked prefill over its 64-token bucket, and one
-    # one-shot call; SDPA (float only) is the library yardstick, with the
-    # same causal mask, and is never called by the port
+    # one-shot call; SDPA (float only) is the library yardstick, never
+    # called by the port
     timing = {}
     for bits in (None, 8):
         calls = [(16, 64, off) for off in (0, 16, 32, 48)] + [(64, 64, 0)]
@@ -718,35 +818,26 @@ def phase_flash() -> dict:
         for sq, skv, off in calls:
             q, k, v = _flash_inputs(torch.bfloat16, 1, h, kv, sq, skv, d,
                                     gen, dev, True)
-            kw = dict(q_offset=off, group=skv, sc_bits=bits)
-            ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), iters=100)
-            plain_ms = cuda_ms(lambda: flash_attention_torch(q, k, v, **kw),
-                               iters=10)
-            bound, by, nbytes, ops = _flash_bound(q, k, off, bits)
-            lib_ms = None
-            if bits is None:
-                kr = k.repeat_interleave(h // kv, dim=1)
-                vr = v.repeat_interleave(h // kv, dim=1)
-                mask = (off + torch.arange(sq, device=dev)[:, None]
-                        >= torch.arange(skv, device=dev)[None, :])
-                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, kr, vr, attn_mask=mask), iters=100)
-            per.append({"sq": sq, "skv": skv, "q_offset": off, "ms": ms,
-                        "plain_ms": plain_ms, "library_ms": lib_ms,
-                        "bound_ms": bound, "bound_by": by, "bytes": nbytes,
-                        "ops": ops})
-            lib = f", SDPA {lib_ms:.4f} ms" if lib_ms is not None else ""
-            log(f"[flash] bf16 sc={bits} Sq={sq} Skv={skv} offset={off}: "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms{lib}, bound "
-                f"{bound:.6f} ms ({by})")
+            row = timed(q, k, v, off, skv, bits, iters=100, plain_iters=10)
+            row.update(sq=sq, skv=skv, q_offset=off)
+            per.append(row)
+            show(f"bf16 sc={bits} Sq={sq} Skv={skv} offset={off}", row)
         chunked = per[:4]
-        timing["float" if bits is None else f"sc{bits}"] = {
-            "calls": per,
-            "chunked_prefill": {key: (None if chunked[0][key] is None else
-                                      sum(c[key] for c in chunked))
-                                for key in ("ms", "plain_ms", "library_ms",
-                                            "bound_ms")}}
-    return {"cases": rows, "invariance": invariance, "timing": timing}
+        key = "float" if bits is None else f"sc{bits}"
+        timing[key] = {
+            "calls": per, "long_prompts": long_rows[key],
+            "chunked_prefill": {name: (None if any(c[name] is None
+                                                   for c in chunked) else
+                                       sum(c[name] for c in chunked))
+                                for name in ("ms", "device_ms", "plain_ms",
+                                             "library_ms", "library_device_ms",
+                                             "bound_ms")}}
+
+    bad = _flash_chunk_invariance(gen, dev)
+    if bad:
+        raise AssertionError("flash kernel: chunked rows differ from the "
+                             "one-shot rows: " + "; ".join(bad))
+    return {"cases": rows, "invariance": "bitwise", "timing": timing}
 
 
 def _stream_bound(pairs: int, bits: int) -> tuple[float, str, int, int]:
@@ -968,8 +1059,8 @@ def _serve_run(cfg, params, reqs, mode, baseline):
     log(f"{tag} launches: SC-GEMM {launches['sc_linear']} fused (counts "
         f"entry {launches['sc_matmul_counts']}), paged "
         f"attention {launches['paged_attention']} (>= {steps} x {N_LAYERS}), "
-        f"flash attention {launches['flash_attention']} (>= "
-        f"{st['prefill_chunks'] + (st['prefills'] if mode == 'oneshot' else 0)}"
+        f"flash attention {launches['flash_attention']} (= "
+        f"{st['prefill_chunks'] if mode == 'chunked' else st['prefills']}"
         f" x {N_LAYERS}); max_memory_allocated {peak / 2**30:.3f} GiB")
     if steps < 1:
         raise AssertionError("the engine ran no decode step")
@@ -988,7 +1079,8 @@ def _serve_run(cfg, params, reqs, mode, baseline):
         raise AssertionError(f"paged kernel launched "
                              f"{launches['paged_attention']} times in "
                              f"{steps} decode steps")
-    if prefill_calls < 1 or launches["flash_attention"] < \
+    # one flash launch per layer per prefill call (chunk or one-shot)
+    if prefill_calls < 1 or launches["flash_attention"] != \
             prefill_calls * N_LAYERS:
         raise AssertionError(f"flash kernel launched "
                              f"{launches['flash_attention']} times for "
@@ -1232,25 +1324,35 @@ def main() -> int:
                      "bound_by")} | {"MB": long_row["layout"]["MB"]}}
 
     def flash_entry(name, key, bits, launches):
-        t = report["flash"]["timing"][key]["chunked_prefill"]
-        lib = t["library_ms"]
-        by = {c["bound_by"] for c in report["flash"]["timing"][key]["calls"]}
+        timing = report["flash"]["timing"][key]
+        t = timing["chunked_prefill"]
+        lib, dev_ms = t["library_ms"], t["device_ms"]
+        by = {c["bound_by"] for c in timing["calls"][:4]}
+        longs = timing["long_prompts"]
         return {"name": name, "route": "cuda",
                 "source": f"{src}/flash_attention.cu",
                 "replaces": "src/repro/kernels/flash_attention.py:91",
                 "launches": launches,
-                "max_abs_err": max(r["max_abs_err"] for r in
-                                   report["flash"]["cases"]
-                                   if r["sc_bits"] in ((None,) if bits is None
-                                                       else (4, 8))),
+                "max_abs_err": max([r["max_abs_err"] for r in
+                                    report["flash"]["cases"]
+                                    if r["sc_bits"] in ((None,) if bits is None
+                                                        else (4, 8))]
+                                   + [r["max_abs_err"]
+                                      for r in longs.values()]),
                 "ms": N_LAYERS * t["ms"], "plain_ms": N_LAYERS * t["plain_ms"],
                 "bound_ms": N_LAYERS * t["bound_ms"],
                 "bound_by": by.pop() if len(by) == 1 else "bytes",
                 "library_ms": None if lib is None else N_LAYERS * lib,
+                "device_ms": None if dev_ms is None else N_LAYERS * dev_ms,
                 "unit": "one 64-token prompt's chunked prefill: 32 layers x 4 "
                         "chunk calls (16 rows at offsets 0/16/32/48 over the "
                         "64-token bucket), H=15 KV=5 D=64 bf16"
-                        + (f" SC {bits}-bit" if bits else "")}
+                        + (f" SC {bits}-bit" if bits else ""),
+                "long_prompt_call": {
+                    n: {k2: r[k2] for k2 in
+                        ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms", "library_device_ms")}
+                    for n, r in longs.items()}}
 
     sc_launch = {name: sum(serve_sc[m]["launches"][name]
                            for m in ("chunked", "oneshot"))

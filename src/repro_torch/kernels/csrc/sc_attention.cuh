@@ -13,9 +13,12 @@
 // without --use_fast_math: a division or rounding that moves one ulp can
 // move a magnitude one step, which is a whole quantization step of output.
 //
-// A quantized row is stored in place as signed magnitudes (sign * mag) in
-// the float slots (__int_as_float): a zero magnitude contributes nothing,
-// so its sign is not needed. Int32 counts are exact: |count| <= D * (N - 1).
+// The paged kernel stores a quantized row in place as signed magnitudes
+// (sign * mag) in the float slots (__int_as_float): a zero magnitude
+// contributes nothing, so its sign is not needed. Int32 counts are exact:
+// |count| <= D * (N - 1). The flash kernel keeps packed 8-bit magnitudes
+// instead and takes only the scalar steps here (quant_scale, quant_signed,
+// sc_score, the warp reductions).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -2,37 +2,51 @@
 ``repro/kernels/flash_attention.py``).
 
 Replaces the Pallas TPU kernel ``flash_attention_pallas``
-(``repro/kernels/flash_attention.py:91``) with the CUDA kernel in
-``csrc/flash_attention.cu``, in float32 and bf16, float and SC variants
-(``sc_bits``: the QKᵀ and PV contractions through the popcount multiplier,
-``csrc/sc_attention.cuh``). ``flash_attention.launches`` counts launches.
+(``repro/kernels/flash_attention.py:91``) with the CUDA kernels in
+``csrc/flash_attention.cu``, one launch a call: bf16 float attention on
+tensor cores (``mma.sync`` m16n8k16, ldmatrix fragments, K/V tiles of 64
+keys by double-buffered 16-byte ``cp.async``), float32 float attention on
+CUDA cores (no TF32), and SC attention (``sc_bits``: the QKᵀ and PV
+contractions through the popcount multiplier, ``csrc/sc_attention.cuh``)
+on packed 8-bit magnitudes in byte SIMD. ``flash_attention.launches``
+counts launches. :func:`plan` is the launch plan as a pure function of the
+shapes; the source's header has the design.
 
 Layout: ``q (B, H, Sq, D)``, ``k, v (B, KV, Skv, D)`` with head ``h``
 reading KV head ``h // (H // KV)``; any strides with a contiguous last
 axis (the model passes transposed views of its ``(B, S, H, D)`` tensors,
 and the output takes ``q``'s layout). Returns ``(B, H, Sq, D)`` in
-``q.dtype``.
+``q.dtype``. A block serves the query heads of one KV head (all of them
+where shared memory allows), so each K/V tile is read once for them.
 
 Positions are absolute: query row ``i`` sits at ``q_offset + i`` and key
-``j`` at ``j``. The kernel masks the ragged Sq/Skv edges itself, so nothing
-is padded. What it computes differs from the TPU kernel on purpose in two
-points:
+``j`` at ``j``. Query positions are cut into m-tiles of :data:`BLOCK_Q`
+aligned to position 0 (:func:`row_tile`), so a row's tile and slot depend
+on its position alone. The kernel masks the ragged Sq/Skv edges itself,
+so nothing is padded, and zero-fills key rows past the last one a block's
+rows can see (a staging cache past the chunk may hold NaN). What it
+computes differs from the TPU kernel on purpose in two points:
 
 * ``q_offset``: chunked prefill runs the kernel at its staging offset,
   where the reference took its jnp formulation (``repro/models/
   transformer.py:228-234``), so that chunked and one-shot prefill reduce
   every row identically (``models/layers.py``).
-* Probabilities stay float32 into PV. The TPU kernel casts ``p`` to
-  ``v.dtype`` (a bf16 rounding at bf16 inputs, ``flash_attention.py:74``);
-  its gate's docstring and the jnp formulation, which this kernel
-  replaces on the serving path, keep float32.
+* Probabilities are not rounded to ``v.dtype`` before PV. The TPU kernel
+  casts ``p`` to ``v.dtype`` (a bf16 rounding at bf16 inputs,
+  ``flash_attention.py:74``); its gate's docstring and the jnp
+  formulation, which this kernel replaces on the serving path, keep
+  float32. Here float32 and SC inputs keep float32 probabilities; bf16
+  float inputs feed the tensor cores ``p`` as a bf16 high part plus a
+  bf16 low part, 16 significant bits (relative error at most 2**-17).
 
 ``group`` is the SC quantization group: probabilities are quantized per
 row over each ``group`` keys from key 0 — the TPU kernel's ``bk``, the jnp
 formulation's ``kv_block`` — after the row's maximum over the whole group
-is known. Trailing masked keys are exact zeros, so a row's result depends
-only on its position, the keys at or before it and ``group``: not on the
-other rows of its tile, on Skv, or on the chunk it arrived in.
+is known. The float paths update the running maximum per key tile instead
+(their result depends on ``group`` only through rounding). Trailing masked
+keys are exact zeros, so a row's result depends only on its position, the
+keys at or before it and ``group``: not on the other rows of its block, on
+Skv, or on the chunk it arrived in.
 
 Tolerance against :func:`flash_attention_torch`: float32 rtol 1e-4 / atol
 1e-5 (sums reassociated), bf16 rtol 1.6e-2 / atol 1e-2 (one bf16 rounding
@@ -45,6 +59,7 @@ output by at most ``max|v| / (2**bits - 1)`` (``sc_tolerance``).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -55,14 +70,144 @@ from . import build
 from .sc_attention import check_sc_bits
 
 __all__ = ["flash_attention", "flash_attention_torch", "sc_tolerance",
-           "BLOCK_Q", "BLOCK_K", "MAX_D", "MAX_GROUP"]
+           "plan", "Plan", "row_tile", "BLOCK_Q", "TILE_K", "MAX_D",
+           "MAX_GROUP", "SMEM_MAX"]
 
-#: Query rows per block and keys per shared-memory K/V tile (compile-time
-#: constants of ``csrc/flash_attention.cu``).
-BLOCK_Q, BLOCK_K = 16, 32
-#: Largest head dim and SC quantization group the kernel's shared memory
-#: holds (scores of a whole group stay on chip).
-MAX_D, MAX_GROUP = 256, 2048
+#: Query positions per m-tile (a tile's rows are positions 16t .. 16t+15).
+BLOCK_Q = 16
+#: Keys per shared-memory K/V tile of each path (compile-time constants of
+#: ``csrc/flash_attention.cu``).
+TILE_K = {"mma": 64, "f32": 32, "sc": 32}
+#: Warps of a bf16 block at most; threads of an f32 block and of an SC
+#: block; PV outputs (of 4 elements) an SC thread holds.
+MMA_MAX_WARPS, THREADS, SC_THREADS, SC_ITEMS = 8, 256, 512, 4
+#: K/V tiles in the bf16 path's copy ring (two in flight while one is
+#: computed).
+MMA_STAGES = 3
+#: Largest head dim (every registered config whose attention the kernel
+#: serves has D <= 128; SC counts stay int16-exact: 128 * 254 < 2**15) and
+#: SC quantization group.
+MAX_D, MAX_GROUP = 128, 2048
+#: Dynamic shared memory a Hopper block may use.
+SMEM_MAX = 227 * 1024
+
+
+def _a16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+class Plan(NamedTuple):
+    """One call's launch. ``path`` is "mma" (bf16 float), "f32" (float32
+    float) or "sc"; a block serves ``heads`` query heads of one KV head over
+    ``m_tiles`` m-tiles with ``threads`` threads; ``grid`` is (m-tile
+    blocks, KV x head groups, B)."""
+    path: str
+    heads: int
+    m_tiles: int
+    threads: int
+    grid: tuple[int, int, int]
+    smem_bytes: int
+
+
+def smem_bytes(path: str, heads: int, m_tiles: int, d: int, group: int,
+               esz: int) -> int:
+    """Shared memory of one block (``flash_attention_smem_bytes`` in the
+    source). mma: the query rows and three stages of K and V rows, each row
+    padded to 64 or 128 elements plus 16 bytes. f32: query rows, output
+    accumulators, a tile's probabilities, two stages of K and V rows (plus
+    4 floats each) and three floats a row. SC: packed query words, six
+    floats a row, the group's int16 counts and key scales, two stages of
+    raw rows, the quantized tile and a tile's two probability words."""
+    rows = BLOCK_Q * heads
+    if path == "mma":
+        row = ((64 if d <= 64 else 128) + 8) * 2
+        return row * (rows * m_tiles + 2 * MMA_STAGES * TILE_K["mma"])
+    if path == "f32":
+        tk = TILE_K["f32"]
+        return 4 * (2 * rows * d + rows * tk + 4 * tk * (d + 4) + 3 * rows)
+    tk, dw = TILE_K["sc"], -(-d // 4)
+    return (_a16(rows * dw * 12) + _a16(rows * 24) + _a16(rows * group * 2)
+            + _a16(group * 4) + _a16(2 * tk * d * esz) + _a16(tk * dw * 24)
+            + rows * tk * 8)
+
+
+def row_tile(pos: int) -> tuple[int, int]:
+    """The m-tile and slot of the query row at absolute position ``pos``:
+    the same whatever ``q_offset``, Sq or the block's other rows."""
+    return divmod(pos, BLOCK_Q)
+
+
+def plan(b: int, h: int, kv: int, sq: int, d: int, group: int,
+         q_offset: int = 0, sc_bits: int | None = None, *,
+         esz: int = 2, sms: int | None = None) -> Plan:
+    """The launch for ``B`` batch rows of ``H`` query heads over ``KV`` KV
+    heads, ``Sq`` rows at ``q_offset``, head dim ``d``, elements of
+    ``esz`` bytes. bf16 float: up to :data:`MMA_MAX_WARPS` heads a block
+    (a warp each), with m-tiles added until a block has 4 warps. f32
+    float: 4 heads a block. SC: as many heads as fit shared memory with
+    the group's counts and :data:`SC_ITEMS` outputs a thread — fewer when
+    the grid would hold fewer blocks than the card's ``sms`` (a 16-row
+    chunk: one m-tile a KV head), trading repeated K/V quantization for
+    blocks that run in parallel. No result depends on the plan."""
+    g = h // kv
+    first, end = row_tile(q_offset)[0], row_tile(q_offset + sq - 1)[0] + 1
+    if sc_bits is not None:
+        path, threads, m_tiles = "sc", SC_THREADS, 1
+        row_sets = SC_THREADS // -(-d // 4)
+        heads = max([n for n in range(1, g + 1)
+                     if smem_bytes("sc", n, 1, d, group, esz) <= SMEM_MAX
+                     and BLOCK_Q * n <= SC_ITEMS * row_sets] or [1])
+        while sms and heads > 1 and \
+                b * (end - first) * kv * -(-g // heads) < sms:
+            heads -= 1
+    elif esz == 2:
+        path, heads = "mma", min(g, MMA_MAX_WARPS)
+        m_tiles = max(1, min(-(-4 // heads), end - first))
+        threads = 32 * heads * m_tiles
+    else:
+        path, heads, m_tiles, threads = "f32", min(g, 4), 1, THREADS
+    grid = (-(-(end - first) // m_tiles), kv * -(-g // heads), b)
+    return Plan(path, heads, m_tiles, threads, grid,
+                smem_bytes(path, heads, m_tiles, d, group, esz))
+
+
+_PTR, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float)
+#: Argument types of the C entries ``flash_attention_{f32,bf16}``: the four
+#: tensors, the shapes and the plan (B, H, KV, Sq, Skv, D, G, heads,
+#: m-tiles), twelve strides, q_offset, causal, group, sc_bits, vec, the
+#: attention scale and the stream.
+ARGTYPES = ([_PTR] * 4 + [_I32] * 9 + [_I64] * 12 + [_I32] * 5
+            + [_F32, _PTR])
+_ENTRIES: dict = {}
+
+
+_SMS: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """The card's multiprocessor count, read once per device."""
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device.index]
+
+
+def _entries() -> dict:
+    """The C entry points by dtype, their argument types set once."""
+    if not _ENTRIES:
+        lib = build.load("flash_attention")
+        for dtype, suffix in ((torch.float32, "f32"),
+                              (torch.bfloat16, "bf16")):
+            fn = getattr(lib, f"flash_attention_{suffix}")
+            fn.argtypes = ARGTYPES
+            fn.restype = _I32
+            _ENTRIES[dtype] = fn
+        fn = lib.flash_attention_smem_bytes
+        fn.argtypes = [_I32] * 6
+        fn.restype = _I64
+        _ENTRIES["smem_bytes"] = fn
+    return _ENTRIES
 
 
 def sc_tolerance(v: torch.Tensor, bits: int) -> float:
@@ -131,18 +276,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.numel() == 0 or skv == 0:
         return out.zero_()
-    lib = build.load("flash_attention")
-    fn = lib.flash_attention_f32 if q.dtype == torch.float32 \
-        else lib.flash_attention_bf16
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                   + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    esz = q.element_size()
+    p = plan(b, h, kv, sq, d, group, q_offset, sc_bits, esz=esz,
+             sms=_sm_count(q.device))
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    # 16-byte copies: every row and base address 16-byte aligned
+    vec = int(d * esz % 16 == 0
+              and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+              and all(s * esz % 16 == 0 for s in strides[:9]))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, kv, sq, skv, d, h // kv, *strides, int(q_offset),
-            int(causal), int(group), sc_bits or 0, d ** -0.5, stream)
+    rc = _entries()[q.dtype](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kv,
+        sq, skv, d, h // kv, p.heads, p.m_tiles, *strides, int(q_offset),
+        int(causal), int(group), sc_bits or 0, vec, d ** -0.5, stream)
     build.check(rc, "flash_attention")
     flash_attention.launches += 1
     return out

@@ -77,9 +77,10 @@ def flash_attention_tuned(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           sc_bits: int | None = None) -> torch.Tensor:
     """The flash kernel in its layout ``q (B, H, Sq, D)``, ``k, v (B, KV,
     Skv, D)``. The JAX package picks ``(bq, bk)`` through its autotuner;
-    here the tiles are fixed — ``flash_attention.BLOCK_Q`` = 16 query rows
-    per block, ``BLOCK_K`` = 32 keys per shared-memory tile, 128 threads —
-    and ``group`` (the SC quantization group, which the result depends on)
-    comes from the caller, never from a tuner."""
+    here the tiles are fixed — m-tiles of ``flash_attention.BLOCK_Q`` = 16
+    query positions, ``TILE_K`` keys per shared-memory tile, the heads a
+    block serves from ``flash_attention.plan`` — and ``group`` (the SC
+    quantization group, which the result depends on) comes from the
+    caller, never from a tuner."""
     return flash_attention(q, k, v, causal=causal, q_offset=q_offset,
                            group=group, sc_bits=sc_bits)

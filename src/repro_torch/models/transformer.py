@@ -26,6 +26,7 @@ cache are the largest tensors of a serving process) and return it.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, NamedTuple
 
 import torch
@@ -217,7 +218,8 @@ def _out_proj(p: dict, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _mlp_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    act = F.silu if cfg.act == "silu" else F.gelu
+    # jax.nn.gelu, the reference's activation, defaults to the tanh form
+    act = F.silu if cfg.act == "silu" else partial(F.gelu, approximate="tanh")
     packed = p.get("packed", {})
     h = act(sc_proj(x, p["w1"], cfg, packed.get("w1"))) \
         * sc_proj(x, p["w3"], cfg, packed.get("w3"))

@@ -319,6 +319,77 @@ def test_flash_chunked_rows_equal_oneshot_rows_bitwise(cuda, dtype, bits):
             assert torch.equal(got, one[:, :, off:off + 16]), (off, extent)
 
 
+@pytest.mark.parametrize("bits", [None, 4, 8], ids=["float", "sc4", "sc8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_chunked_rows_bitwise_with_nan_past_the_chunk(cuda, dtype,
+                                                            bits):
+    """The staging cache past the chunk holds NaN (rows not written yet):
+    the kernel must never let those key rows reach its arithmetic, so the
+    chunk's rows still equal the one-shot rows bit for bit."""
+    rng = np.random.default_rng(6)
+    h, kv, s, d = 15, 5, 64, 64
+    q = torch.as_tensor(rng.standard_normal((1, s, h, d)), dtype=dtype
+                        ).to(cuda).transpose(1, 2)
+    k, v = (torch.as_tensor(rng.standard_normal((1, kv, s, d)), dtype=dtype
+                            ).to(cuda) for _ in range(2))
+    one = flash_attention(q, k, v, q_offset=0, group=s, sc_bits=bits)
+    for off in (0, 16, 32, 48):
+        for extent in (64, 128, 256):
+            kx, vx = (torch.full((1, kv, extent, d), math.nan, dtype=dtype,
+                                 device=cuda) for _ in range(2))
+            kx[:, :, :off + 16], vx[:, :, :off + 16] = (k[:, :, :off + 16],
+                                                         v[:, :, :off + 16])
+            got = flash_attention(q[:, :, off:off + 16], kx, vx, q_offset=off,
+                                  group=extent, sc_bits=bits)
+            assert torch.equal(got, one[:, :, off:off + 16]), (off, extent)
+
+
+@pytest.mark.parametrize("bits", [None, 8], ids=["float", "sc8"])
+@pytest.mark.parametrize("geom", [
+    # (H, KV, Sq, Skv, D, q_offset): 2,048-token prompts at group 1024
+    (15, 5, 2048, 2048, 64, 0),      # L1: smollm one-shot
+    (15, 5, 16, 2048, 64, 2032),     # L2: its last chunk
+    (28, 4, 2048, 2048, 128, 0),     # L3: qwen2-7b's width
+    (16, 1, 300, 1100, 128, 800),    # G 16 over two groups, ragged
+], ids=["L1", "L2", "L3", "g16"])
+def test_flash_kernel_long_prompts_equal_plain(cuda, geom, bits):
+    h, kv, sq, skv, d, off = geom
+    rng = np.random.default_rng(sq + skv + d)
+    q = torch.as_tensor(rng.standard_normal((1, sq, h, d)),
+                        dtype=torch.bfloat16).to(cuda).transpose(1, 2)
+    k, v = (torch.as_tensor(rng.standard_normal((1, skv, kv, d)),
+                            dtype=torch.bfloat16).to(cuda).transpose(1, 2)
+            for _ in range(2))
+    kw = dict(q_offset=off, group=1024, sc_bits=bits)
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_torch(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if bits is None:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **TOL[torch.bfloat16])
+    else:
+        _sc_close(got, want, v, bits, TOL[torch.bfloat16])
+
+
+def test_flash_plan_matches_the_compiled_kernel(cuda):
+    """``flash_attention.smem_bytes`` (the wrapper's plan) equals the
+    kernel's own formula, read through the C entry, for every path."""
+    from repro_torch.kernels import flash_attention as fa
+    entry = fa._entries()["smem_bytes"]
+    for path, code in (("f32", 0), ("mma", 1), ("sc", 2)):
+        for heads in (1, 3, 4, 7, 8):
+            for m_tiles in (1, 2, 4):
+                for d in (32, 64, 112, 128):
+                    for group in (16, 100, 1024, 2048):
+                        for esz in (2, 4):
+                            want = fa.smem_bytes(path, heads, m_tiles, d,
+                                                 group, esz)
+                            got = entry(code, esz, heads, m_tiles, d, group)
+                            assert got == want, (path, heads, m_tiles, d,
+                                                 group, esz)
+
+
 def test_flash_kernel_backward_is_the_plain_vjp(cuda):
     """The kernel's autograd wrapper differentiates through the plain
     formulation: its gradients equal autograd's through that formulation."""
