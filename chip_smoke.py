@@ -42,9 +42,11 @@ Phases (each raises on failure, so any failure exits non-zero):
 6. the bit-parallel stream kernel through ``ops.sc_stream_mul`` on every
    operand pair at B = 5, 6, 7, 8, 10 and 12 (16,777,216 pairs), counter
    set to 0 just before: counts exactly equal to the plain version and
-   the closed form (and the bit-level oracle at B <= 8); a ragged size, a
-   3-D shape, empty operands, block widths 1/4/8; kernel, plain and bound
-   ms at B = 8 and 12;
+   the closed form (and the bit-level oracle at B <= 8); seeded samples
+   of 2^20 pairs at B = 9, 11 and 16, ragged sizes 1, 31 and 100,003, 3-D
+   shapes, a view at storage offset 1, empty operands, block widths
+   1/4/8; kernel (back to back and device), plain and bound ms at B = 8,
+   10 and 12;
 7. ``launch.paper``'s Table II and Fig. 1(b) rows on the card, each equal
    to the same row computed on the CPU;
 8. a reduced smollm-360m (float32) cross-check: prefill logits on the
@@ -211,11 +213,14 @@ def _sc_bound(m, k, n, esz):
             nbytes, ops)
 
 
-def device_ms(fn, kernel: str, iters: int = 20) -> float | None:
+def device_ms(fn, kernel: str, iters: int = 20,
+              one_launch: bool = False) -> float | None:
     """Mean device milliseconds a call of the kernels whose name holds
     ``kernel``, from a ``torch.profiler`` trace of ``iters`` calls (the
     kernel's own time, without the host's cost of a call); None when the
-    trace holds no device time."""
+    trace holds no device time. ``one_launch``: each call launches one
+    such kernel, so the mean is over the kernel records the trace holds
+    (a trace that lost a record does not read low)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -224,10 +229,11 @@ def device_ms(fn, kernel: str, iters: int = 20) -> float | None:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    found = [e for e in prof.key_averages() if kernel in e.key]
     us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-             for e in prof.key_averages() if kernel in e.key)
-    return us / 1e3 / iters if us > 0 else None
+                     getattr(e, "self_cuda_time_total", 0.0)) for e in found)
+    calls = sum(e.count for e in found) if one_launch else iters
+    return us / 1e3 / calls if us > 0 else None
 
 
 def phase_sc_gemm() -> dict:
@@ -860,9 +866,12 @@ def phase_stream() -> dict:
     every operand pair at B = 5, 6, 7, 8, 10 and 12: the launch counter,
     set to 0 just before, must show one kernel launch per grid; each grid's
     counts must equal the plain version's and the closed form's exactly
-    (and the bit-level oracle's at B <= 8). Then a ragged size, a 3-D
-    shape, empty operands and every block width; kernel, plain and bound
-    ms at B = 8 and 12."""
+    (and the bit-level oracle's at B <= 8). Then seeded samples of 2^20
+    pairs at B = 9, 11 and 16 (random operands: msb differs inside a
+    warp), ragged sizes 1, 31 and 100,003, 3-D shapes, a view at storage
+    offset 1 (not 16-byte aligned), empty operands and every block width;
+    kernel (back to back and device), plain and bound ms at B = 8, 10 and
+    12."""
     import torch
     from repro_torch.core.error_analysis import exhaustive_grid
     from repro_torch.core.multipliers import (proposed_bitlevel,
@@ -904,43 +913,64 @@ def phase_stream() -> dict:
             f"({checked})")
 
     gen = torch.Generator(device=dev).manual_seed(4)
-    for bits, shape in ((8, (100_003,)), (10, (7, 33, 65)), (9, (3, 1, 257))):
-        x = torch.randint(0, 1 << bits, shape, generator=gen, device=dev,
-                          dtype=torch.int32)
-        y = torch.randint(0, 1 << bits, shape, generator=gen, device=dev,
-                          dtype=torch.int32)
+
+    def operands(bits, shape):
+        return [torch.randint(0, 1 << bits, shape, generator=gen, device=dev,
+                              dtype=torch.int32) for _ in range(2)]
+
+    for bits in (9, 11, 16):
+        x, y = operands(bits, (1 << 20,))
+        out = ops.sc_stream_mul(x, y, bits=bits)
+        err = max(err, same(out, sc_stream_mul_torch(x, y, bits=bits),
+                            f"B={bits} sample vs plain"),
+                  same(out, proposed_closed_form(x, y, bits=bits),
+                       f"B={bits} sample vs closed form"))
+    log("[stream] seeded samples of 1,048,576 pairs at B = 9, 11, 16: "
+        "exactly equal (plain, closed form)")
+    for bits, shape in ((8, (1,)), (12, (31,)), (8, (100_003,)),
+                        (10, (7, 33, 65)), (9, (3, 1, 257))):
+        x, y = operands(bits, shape)
         out = ops.sc_stream_mul(x, y, bits=bits)
         same(out, proposed_closed_form(x, y, bits=bits),
              f"B={bits} shape {shape}")
+        same(out, sc_stream_mul_torch(x, y, bits=bits),
+             f"B={bits} shape {shape} vs plain")
         for rows in (1, 4, 8):
             same(ops.sc_stream_mul(x, y, bits=bits, block_rows=rows), out,
                  f"B={bits} shape {shape} block_rows={rows}")
+    x, y = operands(12, (100_004,))
+    xv, yv = x[1:], y[1:]           # storage offset 1: 4 bytes past 16
+    if xv.data_ptr() % 16 == 0:
+        raise AssertionError("stream: the offset view is 16-byte aligned")
+    out = ops.sc_stream_mul(xv, yv, bits=12)
+    same(out, proposed_closed_form(xv, yv, bits=12), "offset view")
+    same(out, ops.sc_stream_mul(xv.clone(), yv.clone(), bits=12),
+         "offset view vs its copy")
     for shape in ((0,), (3, 0, 5)):
         empty = torch.zeros(shape, dtype=torch.int32, device=dev)
         out = ops.sc_stream_mul(empty, empty, bits=8)
         if out.shape != empty.shape or out.dtype != torch.int32:
             raise AssertionError(f"stream: empty {shape} gave {out.shape}")
-    log("[stream] ragged 100,003 pairs, 3-D shapes kept, empty operands, "
-        "block_rows 1/4/8: all equal")
+    log("[stream] ragged 1, 31 and 100,003 pairs, 3-D shapes kept, a view "
+        "at storage offset 1, empty operands, block_rows 1/4/8: all equal")
 
     timing = {}
-    for bits in (8, 12):
+    for bits in (8, 10, 12):
         x, y = grids[bits]
         ms = cuda_ms(lambda: ops.sc_stream_mul(x, y, bits=bits),
-                     iters=200 if bits == 8 else 20)
+                     iters={8: 200, 10: 100, 12: 20}[bits])
         plain_ms = cuda_ms(lambda: sc_stream_mul_torch(x, y, bits=bits),
-                           iters=3 if bits == 8 else 1, warmup=1)
+                           iters=1 if bits == 12 else 3, warmup=1)
         bound, by, nbytes, popcounts = _stream_bound(x.numel(), bits)
         # the kernel's own device time, without the host's cost of a call
         dev_ms = device_ms(lambda: ops.sc_stream_mul(x, y, bits=bits),
-                           "sc_stream_mul_kernel", iters=10)
+                           "sc_stream_mul_kernel", iters=10, one_launch=True)
         timing[bits] = {"pairs": x.numel(), "ms": ms, "plain_ms": plain_ms,
                         "device_ms": dev_ms, "bound_ms": bound,
                         "bound_by": by, "bytes": nbytes,
                         "popcounts": popcounts}
-        dev_txt = _ms(dev_ms)
         log(f"[stream] B={bits:2d} exhaustive ({x.numel():,} pairs): kernel "
-            f"{ms:.4f} ms a call (device time {dev_txt}), plain "
+            f"{ms:.4f} ms a call (device time {_ms(dev_ms)}), plain "
             f"{plain_ms:.1f} ms, bound {bound:.4f} ms ({by})")
     return {"launches": launches, "max_abs_err": err, "timing": timing,
             "widths": widths}
@@ -1386,8 +1416,13 @@ def main() -> int:
          "max_abs_err": report["stream"]["max_abs_err"],
          "ms": stream["ms"], "plain_ms": stream["plain_ms"],
          "bound_ms": stream["bound_ms"], "bound_by": stream["bound_by"],
-         "library_ms": None,
-         "unit": "exhaustive B=12 grid, 16,777,216 pairs"},
+         "library_ms": None, "device_ms": stream["device_ms"],
+         "unit": "exhaustive B=12 grid, 16,777,216 pairs",
+         "exhaustive_grids": {
+             f"B={bits}": {k2: t[k2] for k2 in
+                           ("pairs", "ms", "device_ms", "plain_ms",
+                            "bound_ms", "bound_by")}
+             for bits, t in report["stream"]["timing"].items()}},
     ]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t0

@@ -18,11 +18,13 @@ which takes any shape, is ``kernels/ops.py::sc_stream_mul``.
 The plain version mirrors the TPU kernel's helpers (``sc_bitops.py:25-67``):
 :func:`thermo_word` and :func:`correlation_word` build word ``w`` of each
 stream, the latter with the JAX package's 32-step bit loop (the CUDA
-kernel builds the same word with a few masks). Words are int64 tensors
-holding the unsigned 32-bit value (``core/tcu.py``). It loops over the
-``2**bits / 32`` words and keeps one word per element at a time, never
-the N-wide unpacked stream, so it scales to every pair at B = 12 on the
-card.
+kernel reads the thermometer word from a ROM of the 33 distinct words and
+builds the correlation word with a funnel shift of a per-element pattern;
+``tests/test_torch_stream.py`` mirrors that construction on the CPU).
+Words are int64 tensors holding the unsigned 32-bit value
+(``core/tcu.py``). It loops over the ``2**bits / 32`` words and keeps one
+word per element at a time, never the N-wide unpacked stream, so it
+scales to every pair at B = 12 on the card.
 """
 from __future__ import annotations
 
@@ -38,11 +40,36 @@ from . import build
 __all__ = ["sc_stream_mul_cuda", "sc_stream_mul_torch", "thermo_word",
            "correlation_word", "MAX_BLOCK_ROWS"]
 
-#: Rows of 128 elements one CUDA block takes: 8 rows is 1024 threads, the
-#: most a block may have.
+#: Rows of 128 elements one CUDA block takes (32 threads a row, 4 elements
+#: a thread), as the TPU kernel's (block_rows, 128) tiles.
 MAX_BLOCK_ROWS = 8
 #: Widest operand: 2**30 still indexes in int32, and a count fits int32.
 MAX_BITS = 30
+#: The kernel loads and stores 16 bytes a thread: the operands' alignment.
+ALIGN = 16
+
+_PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+#: Argument types of the C entry ``sc_stream_mul``: x, y, out, n, bits,
+#: block_rows and the stream.
+ARGTYPES = [_PTR] * 3 + [_I64, _I32, _I32, _PTR]
+_ENTRIES: dict = {}
+
+
+def _entry():
+    """The C entry point, its argument types set once."""
+    if not _ENTRIES:
+        fn = build.load("sc_bitops").sc_stream_mul
+        fn.argtypes = ARGTYPES
+        fn.restype = _I32
+        _ENTRIES["sc_stream_mul"] = fn
+    return _ENTRIES["sc_stream_mul"]
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address: a view that starts
+    elsewhere in its storage (``x[1:]``) is copied to a fresh buffer."""
+    t = t.contiguous()
+    return t if t.data_ptr() % ALIGN == 0 else t.clone()
 
 
 def thermo_word(x: torch.Tensor, w: int) -> torch.Tensor:
@@ -97,8 +124,8 @@ def sc_stream_mul_cuda(x: torch.Tensor, y: torch.Tensor, *, bits: int,
                           f"{MAX_BITS} (streams of whole 32-bit words), got "
                           f"{bits}")
     if not 1 <= block_rows <= MAX_BLOCK_ROWS:
-        raise ConfigError(f"block_rows must be 1..{MAX_BLOCK_ROWS} (128 "
-                          f"threads a row, 1024 a block), got {block_rows}")
+        raise ConfigError(f"block_rows must be 1..{MAX_BLOCK_ROWS} (rows of "
+                          f"128 elements a block), got {block_rows}")
     if x.shape != y.shape:
         raise ConfigError(f"stream operands must have one shape, got "
                           f"{tuple(x.shape)} and {tuple(y.shape)}")
@@ -112,17 +139,11 @@ def sc_stream_mul_cuda(x: torch.Tensor, y: torch.Tensor, *, bits: int,
     if x.dtype != torch.int32 or y.dtype != torch.int32:
         raise ConfigError(f"stream operands must be int32, got {x.dtype} and "
                           f"{y.dtype}")
-    x = x.contiguous()
-    y = y.contiguous()
+    x, y = _aligned(x), _aligned(y)
     out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
-    lib = build.load("sc_bitops")
-    fn = lib.sc_stream_mul
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), bits,
-            block_rows, stream)
+    rc = _entry()(x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(),
+                  bits, block_rows, stream)
     build.check(rc, "sc_stream_mul")
     sc_stream_mul_cuda.launches += 1
     return out

@@ -665,6 +665,58 @@ def test_stream_kernel_equals_plain_on_a_seeded_12_bit_sample(cuda,
     assert torch.equal(got, proposed_closed_form(x, y, bits=12))
 
 
+@pytest.mark.parametrize("bits", [9, 11, 16])
+def test_stream_kernel_equals_plain_on_seeded_random_samples(cuda, bits):
+    """2^20 random pairs: msb set and clear inside every warp's elements,
+    the chunk loop's fixed-B instances at 9, 11 and 16."""
+    rng = np.random.default_rng(200 + bits)
+    x, y = (torch.as_tensor(rng.integers(0, 1 << bits, 1 << 20),
+                            dtype=torch.int32).to(cuda) for _ in range(2))
+    got = ops.sc_stream_mul(x, y, bits=bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sc_stream_mul_torch(x, y, bits=bits))
+    assert torch.equal(got, proposed_closed_form(x, y, bits=bits))
+
+
+@pytest.mark.parametrize("bits", [17, 20])
+def test_stream_kernel_run_time_width_equals_closed_form(cuda, bits):
+    """B > 16 runs the instance whose chunk count is read at run time."""
+    rng = np.random.default_rng(bits)
+    x, y = (torch.as_tensor(rng.integers(0, 1 << bits, 4099),
+                            dtype=torch.int32).to(cuda) for _ in range(2))
+    got = ops.sc_stream_mul(x, y, bits=bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, proposed_closed_form(x, y, bits=bits))
+
+
+@pytest.mark.parametrize("n", [1, 31, 100_003])
+@pytest.mark.parametrize("block_rows", [1, 8])
+def test_stream_kernel_ragged_sizes(cuda, n, block_rows):
+    """The thread straddling the end loads and stores element by element."""
+    rng = np.random.default_rng(n)
+    x, y = (torch.as_tensor(rng.integers(0, 1 << 10, n),
+                            dtype=torch.int32).to(cuda) for _ in range(2))
+    got = ops.sc_stream_mul(x, y, bits=10, block_rows=block_rows)
+    torch.cuda.synchronize()
+    assert got.shape == (n,)
+    assert torch.equal(got, proposed_closed_form(x, y, bits=10))
+
+
+def test_stream_kernel_takes_a_view_at_storage_offset_one(cuda):
+    """``x[1:]`` starts 4 bytes past a 16-byte boundary: the wrapper
+    copies it to an aligned buffer instead of refusing it."""
+    rng = np.random.default_rng(1)
+    x, y = (torch.as_tensor(rng.integers(0, 1 << 12, 10_001),
+                            dtype=torch.int32).to(cuda) for _ in range(2))
+    xv, yv = x[1:], y[1:]
+    assert xv.data_ptr() % 16 != 0
+    before = sc_stream_mul_cuda.launches
+    got = ops.sc_stream_mul(xv, yv, bits=12)
+    torch.cuda.synchronize()
+    assert sc_stream_mul_cuda.launches == before + 1
+    assert torch.equal(got, proposed_closed_form(xv, yv, bits=12))
+
+
 def test_stream_wrapper_counts_launches_and_never_falls_back(cuda):
     x = torch.arange(300, dtype=torch.int32, device=cuda) % 256
     before = sc_stream_mul_cuda.launches

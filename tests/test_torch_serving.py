@@ -1,8 +1,8 @@
 """The PyTorch port's serving engine: token streams equal the JAX engine's
-and the port's own sequential ``generate`` baseline on the reduced
-smollm-360m (float32), SC-GEMM on and off, including under a page budget
-tight enough to force preemption; plus the queue, pool and streaming
-surfaces."""
+and the port's own sequential ``generate`` baseline on the reduced dense
+archs (smollm-360m, qwen2-7b, qwen2.5-14b, gemma2-9b; float32), SC-GEMM
+on and off, and on smollm-360m under a page budget tight enough to force
+preemption; plus the queue, pool and streaming surfaces."""
 import jax
 import numpy as np
 import pytest
@@ -27,9 +27,13 @@ GENS = [3, 7, 2, 5, 4]
 PROMPT_LENS = [8, 13, 5, 8, 10]
 
 
-def _setup(sc: bool):
-    jcfg = JAX_ARCHS["smollm-360m"].reduced(dtype="float32", use_sc_gemm=sc)
-    tcfg = ARCHS["smollm-360m"].reduced(dtype="float32", use_sc_gemm=sc)
+#: dense archs whose engine streams are held against the JAX engine's
+DENSE_ARCHS = ["smollm-360m", "qwen2-7b", "qwen2.5-14b", "gemma2-9b"]
+
+
+def _setup(sc: bool, arch: str = "smollm-360m"):
+    jcfg = JAX_ARCHS[arch].reduced(dtype="float32", use_sc_gemm=sc)
+    tcfg = ARCHS[arch].reduced(dtype="float32", use_sc_gemm=sc)
     jp = jbind(jcfg).init_params(jax.random.PRNGKey(0))
     tp = from_jax_params(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
     return jcfg, jp, tcfg, tp
@@ -52,8 +56,11 @@ def _baseline(cfg, params, prompts, gens):
 
 
 @pytest.mark.parametrize("sc", [False, True], ids=["exact", "sc"])
-def test_engine_streams_equal_jax_engine_and_sequential_baseline(sc):
-    jcfg, jp, tcfg, tp = _setup(sc)
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_engine_streams_equal_jax_engine_and_sequential_baseline(arch, sc):
+    """Every dense arch, so an arch-specific layer (GELU, softcap, QKV
+    bias, sliding window) cannot differ from the reference unseen."""
+    jcfg, jp, tcfg, tp = _setup(sc, arch)
     prompts = _prompts()
     max_seq = max(PROMPT_LENS) + max(GENS)
     kw = dict(capacity=2, max_seq=max_seq, block=4, chunk=8)
