@@ -54,15 +54,21 @@ Phases (each raises on failure, so any failure exits non-zero):
    compared;
 9. serve 8 requests at full width (smollm-360m, bf16, SC-GEMM on, random
    weights from seed 0) through ``Engine(capacity=4, max_seq=256, block=64,
-   chunk=16)``; the launch counters, set to 0 just before, must show the
-   kernels on every decode step and prefill chunk, and exactly one fused
-   SC-GEMM launch per projection; streams must equal the sequential
-   ``generate`` baseline on the card;
+   chunk=16)``, first with ``graphs=False`` (every decode step dispatched
+   operator by operator), then graphed (the default on the card: each
+   decode step one replay of the shape's captured CUDA graph, captured
+   once when the engine is built); for each, the launch counters, set to
+   0 just before, must show the kernels on every decode step and prefill
+   chunk, and exactly one fused SC-GEMM launch per projection; streams
+   must equal the sequential ``generate`` baseline on the card; decode
+   ms/step, tokens/s, TTFT p50 and peak memory side by side;
 10. the same with SC attention at 8 bits, chunked and then one-shot
     prefill, each against the sequential baseline;
-11. a ``torch.profiler`` pass over two full-width decode steps: device
-    time by kernel, host time by operator, kernel launches and host
-    synchronizations per step (where a step's time goes).
+11. a ``torch.profiler`` pass over two full-width decode steps, eager and
+    then graphed: device time by kernel, host time by operator, kernel
+    launches, host API calls and synchronizations per step, the device's
+    busy share, and the kernel records of the graphed steps against the
+    launches their capture recorded.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Details go to
@@ -74,6 +80,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1054,16 +1061,23 @@ def _serve_launch_counters():
             "flash_attention": flash_attention}
 
 
-def _serve_run(cfg, params, reqs, mode, baseline):
+def _serve_run(cfg, params, reqs, mode, baseline, graphs):
     """One engine run at full width: counters set to 0 just before and read
-    just after; streams checked against the sequential baseline."""
+    just after; streams checked against the sequential baseline. Graphed,
+    the engine's decode step must have been captured once, when it was
+    built, with one fused SC-GEMM launch a projection and one paged launch
+    a layer, and never again during the run."""
     import dataclasses
     import numpy as np
     import torch
+    from repro_torch.launch import steps as step_cache
     from repro_torch.serving import Engine
+    graphs0 = len(step_cache.decode_steps())
     eng = Engine(cfg, params, device="cuda", capacity=4, max_seq=256,
                  block=64, chunk=16, prefill_mode=mode, prefix_cache=False,
-                 speculate_k=0)
+                 speculate_k=0, graphs=graphs)
+    step = eng._decode
+    captured = len(step_cache.decode_steps()) - graphs0
     # a request's TTFT runs from its enqueue stamp: stamp all of them now,
     # as they are submitted together, not when the list was built
     now = time.perf_counter()
@@ -1078,8 +1092,22 @@ def _serve_run(cfg, params, reqs, mode, baseline):
     launches = {name: fn.launches for name, fn in counters.items()}
     st = eng.stats
     peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.memory_reserved()
     steps = st["decode_steps"]
-    tag = f"[{'serve_sc' if cfg.attn_sc else 'serve'}:{mode}]"
+    tag = (f"[{'serve_sc' if cfg.attn_sc else 'serve'}:{mode}"
+           f"{':graphed' if graphs else ':eager'}]")
+    if graphs:
+        want = {"sc_linear": 7 * N_LAYERS + 1, "paged_attention": N_LAYERS}
+        log(f"{tag} decode graph: captured {step.captures} time(s), "
+            f"{captured} new while building this engine, replayed "
+            f"{step.replays} times; a replay counts {step.launch_counts}")
+        if (captured != 1 or step.captures != 1 or step.replays != steps
+                or len(step_cache.decode_steps()) != graphs0 + captured
+                or step.launch_counts != want):
+            raise AssertionError(f"{tag} decode graph: {step.captures} "
+                                 f"captures, {step.replays} replays for "
+                                 f"{steps} steps, counts "
+                                 f"{step.launch_counts} (want {want})")
     log(f"{tag} {st['requests']} requests, {st['generated_tokens']} tokens "
         f"in {st['wall_s']:.2f}s: {st['tok_per_s']:.2f} tok/s, TTFT p50 "
         f"{st['ttft_p50_s'] * 1e3:.1f} ms, decode {st['decode_ms_per_step']:.2f}"
@@ -1091,7 +1119,8 @@ def _serve_run(cfg, params, reqs, mode, baseline):
         f"attention {launches['paged_attention']} (>= {steps} x {N_LAYERS}), "
         f"flash attention {launches['flash_attention']} (= "
         f"{st['prefill_chunks'] if mode == 'chunked' else st['prefills']}"
-        f" x {N_LAYERS}); max_memory_allocated {peak / 2**30:.3f} GiB")
+        f" x {N_LAYERS}); max_memory_allocated {peak / 2**30:.3f} GiB, "
+        f"memory_reserved {reserved / 2**30:.3f} GiB")
     if steps < 1:
         raise AssertionError("the engine ran no decode step")
     # one fused launch per projection: 7 a layer and the LM head, on
@@ -1132,7 +1161,29 @@ def _serve_run(cfg, params, reqs, mode, baseline):
                              f"sequential baseline: " + "; ".join(mismatched))
     return {"stats": {k: v for k, v in st.items() if k != "backpressure"},
             "launches": launches, "max_memory_allocated": peak,
+            "memory_reserved": reserved,
+            "decode_graph": {"captures": step.captures,
+                             "replays": step.replays,
+                             "launch_counts": step.launch_counts}
+            if graphs else None,
             "first_stream": results[0].tokens[:16].tolist()}
+
+
+def _side_by_side(tag, eager, graphed) -> dict:
+    """The eager and graphed runs of one cell on one line each side."""
+    keys = (("decode_ms_per_step", "decode ms/step", 1.0),
+            ("tok_per_s", "tokens/s", 1.0), ("ttft_p50_s", "TTFT p50 ms", 1e3))
+    out = {}
+    for key, what, scale in keys:
+        out[key] = [eager["stats"][key], graphed["stats"][key]]
+    out["max_memory_allocated_gib"] = [eager["max_memory_allocated"] / 2**30,
+                                       graphed["max_memory_allocated"] / 2**30]
+    log(f"{tag} eager -> graphed: " + ", ".join(
+        f"{what} {eager['stats'][key] * scale:.2f} -> "
+        f"{graphed['stats'][key] * scale:.2f}" for key, what, scale in keys)
+        + f", peak allocated {out['max_memory_allocated_gib'][0]:.3f} -> "
+        f"{out['max_memory_allocated_gib'][1]:.3f} GiB")
+    return out
 
 
 def _serve_phase(attn_sc: bool, modes) -> dict:
@@ -1142,6 +1193,7 @@ def _serve_phase(attn_sc: bool, modes) -> dict:
     import dataclasses
     import torch
     from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import steps
     from repro_torch.launch.serve import generate
     from repro_torch.models import bind
     from repro_torch.serving import Engine
@@ -1159,7 +1211,7 @@ def _serve_phase(attn_sc: bool, modes) -> dict:
         f"{time.perf_counter() - t0:.1f}s")
     # warm-up: first calls load the kernels and PyTorch's own modules
     Engine(cfg, params, device="cuda", capacity=4, max_seq=256, block=64,
-           chunk=16).run(_workload(cfg, 1, 20, 2, 2, seed=99))
+           chunk=16, graphs=False).run(_workload(cfg, 1, 20, 2, 2, seed=99))
     reqs = _workload(cfg, 8, 64, 16, 64, seed=5)
     t1 = time.perf_counter()
     baseline = [generate(cfg, params, r.prompt[None],
@@ -1167,8 +1219,19 @@ def _serve_phase(attn_sc: bool, modes) -> dict:
                          device="cuda")[0].cpu().numpy() for r in reqs]
     log(f"{tag} sequential baseline: {len(reqs)} requests in "
         f"{time.perf_counter() - t1:.1f}s")
-    return {mode: _serve_run(cfg, params, reqs, mode, baseline)
-            for mode in modes}
+    out = {}
+    for mode in modes:
+        # no cached step is alive during the eager run, so its peak memory
+        # is the eager engine's own; the graphed engine then captures anew
+        steps.clear_decode_steps()
+        eager = _serve_run(cfg, params, reqs, mode, baseline, graphs=False)
+        graphed = _serve_run(cfg, params, reqs, mode, baseline, graphs=True)
+        graphed["eager"] = eager
+        graphed["eager_vs_graphed"] = _side_by_side(
+            f"{tag[:-1]}:{mode}]", eager, graphed)
+        out[mode] = graphed
+    steps.clear_decode_steps()
+    return out
 
 
 def phase_serve() -> dict:
@@ -1179,22 +1242,14 @@ def phase_serve_sc() -> dict:
     return _serve_phase(True, ("chunked", "oneshot"))
 
 
-def phase_profile() -> dict:
-    """Where a decode step's time goes: ``torch.profiler`` over two decode
-    steps of a full-width serve (4 requests in 4 slots): device time by
-    kernel, host time by operator, and the device's busy share against
-    the wall time of two unprofiled steps of the same engine."""
-    import dataclasses
+def _profile_engine(cfg, params, graphs: bool) -> dict:
+    """``torch.profiler`` over two decode steps of one engine (4 requests
+    in 4 slots), against the wall time of two unprofiled steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs.registry import ARCHS
-    from repro_torch.models import bind
     from repro_torch.serving import Engine
-    cfg = dataclasses.replace(ARCHS["smollm-360m"],
-                              use_sc_gemm=True).validate()
-    params = bind(cfg, "cuda").init_params(0)
     eng = Engine(cfg, params, device="cuda", capacity=4, max_seq=256,
-                 block=64, chunk=16)
+                 block=64, chunk=16, graphs=graphs)
     for r in _workload(cfg, 4, 16, 12, 12, seed=7):
         eng.submit(r)
     while eng.pool.n_free:             # admit all four (prefill unprofiled)
@@ -1213,6 +1268,7 @@ def phase_profile() -> dict:
             eng.step()
         torch.cuda.synchronize()
     steps = eng._step - steps0
+    split = _graphed_step_split(eng, wall_ms) if graphs else None
     while eng.step():
         pass
 
@@ -1220,58 +1276,127 @@ def phase_profile() -> dict:
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    events = [e for e in prof.key_averages() if dev_us(e) > 0]
+    averages = prof.key_averages()
+    events = [e for e in averages if dev_us(e) > 0]
     kernels = [e for e in events if not e.key.startswith(("aten::", "cuda"))]
     device_ms = sum(dev_us(e) for e in kernels) / 1e3
-    launches = sum(e.count for e in prof.key_averages()
+    launches = sum(e.count for e in averages
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaLaunchKernelExC"))
+    # every CUDA API call (cuda* and cu*) the host made, by name: a graphed
+    # step's launch is one cudaGraphLaunch
+    api = {e.key: e.count / max(steps, 1) for e in averages
+           if re.match(r"cu(da)?[A-Z]", e.key)}
     # the host waits for the device: a stream or device synchronize (a
     # pageable host-to-device copy and every device-to-host copy make one)
-    syncs = {e.key: e.count for e in prof.key_averages()
-             if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-                          "cudaMemcpyAsync", "cudaMemcpy")}
+    syncs = {k: v for k, v in api.items()
+             if k in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                      "cudaMemcpyAsync", "cudaMemcpy")}
     by_kernel = sorted(((dev_us(e) / 1e3 / max(steps, 1), e.count // max(
         steps, 1), e.key[:90]) for e in kernels), reverse=True)
     ours = {"sc_gemm_kernel": 0.0, "paged_decode_kernel": 0.0}
-    for ms, _, name in by_kernel:
+    records = {"sc_gemm_kernel": 0, "paged_decode_kernel": 0}
+    for e in kernels:
         for key in ours:
-            if key in name:
-                ours[key] += ms
+            if key in e.key:
+                ours[key] += dev_us(e) / 1e3 / max(steps, 1)
+                records[key] += e.count
     host = sorted(((e.self_cpu_time_total / 1e3 / max(steps, 1),
                     e.count // max(steps, 1), e.key[:60])
-                   for e in prof.key_averages()
+                   for e in averages
                    if e.key.startswith("aten::")), reverse=True)
     # no device time at all means the profiler did not trace the card
     busy = device_ms / steps / wall_ms if device_ms > 0 else None
-    out = {"decode_steps": steps, "wall_ms_per_step": wall_ms,
+    out = {"graphs": graphs, "decode_steps": steps,
+           "wall_ms_per_step": wall_ms, "graphed_step_split": split,
            "device_ms_per_step": device_ms / steps if busy else None,
            "device_busy_share": busy,
            "top_host_ops": [{"self_cpu_ms_per_step": ms, "calls_per_step": n,
                              "name": name} for ms, n, name in host[:10]],
            "kernel_launches_per_step": launches / max(steps, 1),
-           "host_syncs_per_step": {k: v / max(steps, 1)
-                                   for k, v in syncs.items()},
+           "host_api_calls_per_step": api,
+           "host_syncs_per_step": syncs,
            "ours_ms_per_step": ours,
+           "kernel_records_per_step": {k: v / max(steps, 1)
+                                       for k, v in records.items()},
            "top_kernels": [{"ms_per_step": ms, "calls_per_step": n,
                             "name": name} for ms, n, name in by_kernel[:12]]}
+    tag = "[profile:graphed]" if graphs else "[profile:eager]"
     busy_txt = (f"{device_ms / steps:.2f} ms/step of kernels (device busy "
                 f"{100 * busy:.1f}%)" if busy else
                 "device time not measured (no CUDA events in the trace)")
-    log(f"[profile] {steps} decode steps under torch.profiler; "
-        f"{out['wall_ms_per_step']:.1f} ms/step wall unprofiled, {busy_txt}, "
+    log(f"{tag} {steps} decode steps under torch.profiler; "
+        f"{out['wall_ms_per_step']:.2f} ms/step wall unprofiled, {busy_txt}, "
         f"{out['kernel_launches_per_step']:.0f} kernel launches/step, "
-        f"host syncs/step "
-        + ", ".join(f"{k} {v:.1f}" for k, v in
-                    sorted(out["host_syncs_per_step"].items()))
-        + f"; SC-GEMM {ours['sc_gemm_kernel']:.2f} ms, paged "
-        f"{ours['paged_decode_kernel']:.2f} ms per step")
+        f"host API calls/step {sum(api.values()):.0f}: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(api.items()))
+        + f"; SC-GEMM {ours['sc_gemm_kernel']:.3f} ms, paged "
+        f"{ours['paged_decode_kernel']:.3f} ms per step")
     for row in out["top_kernels"][:8]:
-        log(f"[profile]   device {row['ms_per_step']:8.3f} ms/step "
+        log(f"{tag}   device {row['ms_per_step']:8.3f} ms/step "
             f"{row['calls_per_step']:5d} calls  {row['name']}")
     for row in out["top_host_ops"][:8]:
-        log(f"[profile]   host {row['self_cpu_ms_per_step']:8.3f} ms/step "
+        log(f"{tag}   host {row['self_cpu_ms_per_step']:8.3f} ms/step "
             f"{row['calls_per_step']:5d} calls  {row['name']}")
+    if graphs:
+        log(f"{tag} a step's {wall_ms:.3f} ms: graph replay "
+            f"{split['replay_ms']:.3f} ms on the device back to back "
+            f"(kernels {device_ms / steps:.3f} ms), the logits' copy to "
+            f"the host {split['logits_copy_ms']:.3f} ms, the rest "
+            f"{split['rest_ms']:.3f} ms (inputs' copies, the scheduler, "
+            f"sampling)")
+        counts = eng._decode.launch_counts
+        per_step = out["kernel_records_per_step"]
+        out["captured_launch_counts"] = counts
+        log(f"{tag} kernel records a replay: sc_gemm_kernel "
+            f"{per_step['sc_gemm_kernel']:.0f} (captured "
+            f"{counts.get('sc_linear')}), paged_decode_kernel "
+            f"{per_step['paged_decode_kernel']:.0f} (captured "
+            f"{counts.get('paged_attention')})")
+        if busy and (per_step["sc_gemm_kernel"] != counts.get("sc_linear")
+                     or per_step["paged_decode_kernel"]
+                     != counts.get("paged_attention")):
+            raise AssertionError(f"{tag} a replay's kernel records "
+                                 f"{per_step} differ from the launches its "
+                                 f"capture recorded {counts}")
+    return out
+
+
+def _graphed_step_split(eng, wall_ms: float, n: int = 20) -> dict:
+    """A graphed decode step's wall time in parts: ``n`` replays back to
+    back timed with CUDA events (the graph's time on the device, gaps
+    between its kernels included), ``n`` copies of the logit rows to the
+    host, and the rest. The replays write K/V at positions the next real
+    steps write again before they read them; the positions are put back."""
+    import torch
+    step = eng._decode
+    saved = step.cache.pos.clone()
+    replay_ms = cuda_ms(step.replay, n, warmup=0)
+    step.cache.pos.copy_(saved)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng._rows(step.logits)
+    copy_ms = (time.perf_counter() - t0) * 1e3 / n
+    return {"replay_ms": replay_ms, "logits_copy_ms": copy_ms,
+            "rest_ms": wall_ms - replay_ms - copy_ms}
+
+
+def phase_profile() -> dict:
+    """Where a decode step's time goes, eager and graphed: device time by
+    kernel, host time by operator, host API calls, and the device's busy
+    share against the wall time of two unprofiled steps of the same
+    engine."""
+    import dataclasses
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import steps
+    from repro_torch.models import bind
+    cfg = dataclasses.replace(ARCHS["smollm-360m"],
+                              use_sc_gemm=True).validate()
+    params = bind(cfg, "cuda").init_params(0)
+    out = {"eager": _profile_engine(cfg, params, graphs=False),
+           "graphed": _profile_engine(cfg, params, graphs=True)}
+    steps.clear_decode_steps()
     return out
 
 

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from repro_torch.core.sc_matmul import signed_counts
 from repro_torch.core.sc_numerics import quantize_sign_magnitude
 from repro_torch.core.tcu import stream_length
-from repro_torch.errors import ConfigError
+from repro_torch.errors import ConfigError, KernelLaunchError
 
 from . import build
 
@@ -135,7 +135,9 @@ def plan(m: int, n: int, k: int, sms: int) -> tuple[int, int, int]:
 _SMS: dict[int, int] = {}
 #: Per stream: the tile counters (zeroed once; the kernel's last block of
 #: each tile puts its counter back to 0) and the K split's int32 partials.
-#: Launches on one stream run in order, so each launch finds both free.
+#: Launches on one stream run in order, so each launch finds both free. A
+#: CUDA graph captured on a stream keeps that stream's scratch: it is made
+#: by eager runs on the stream before the capture, never during one.
 _SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 _FN = None
 
@@ -144,6 +146,12 @@ def _scratch(dev: torch.device, stream: int, tiles: int,
              partials: int) -> tuple[torch.Tensor, torch.Tensor]:
     key = (dev.index, stream)
     counters, ws = _SCRATCH.get(key, (None, None))
+    grow = (counters is None or counters.numel() < tiles
+            or ws.numel() < partials)
+    if grow and torch.cuda.is_current_stream_capturing():
+        raise KernelLaunchError("SC-GEMM scratch of a capturing stream must "
+                                "exist before the capture: run the step on "
+                                "that stream first")
     if counters is None or counters.numel() < tiles:
         counters = torch.zeros((max(tiles, 1 << 12),), dtype=torch.int32,
                                device=dev)

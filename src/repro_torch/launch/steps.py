@@ -1,18 +1,35 @@
-"""Serving step functions of the port (the serving subset of
-``repro/launch/steps.py``).
+"""Serving step functions of the port and its per-shape decode-step cache
+(the serving subset of ``repro/launch/steps.py``).
 
-The JAX package builds one jitted, mesh-sharded executable per shape and
-memoizes the step factories. PyTorch runs eagerly, so here each step is a plain
-function: it runs the bound model's step under ``torch.no_grad()``
-(no autograd bookkeeping on the serving path). Capturing decode in CUDA
-graphs, one per shape, is later work.
+Prefill steps are plain functions run eagerly under ``torch.no_grad()``.
+A decode step is a :class:`DecodeStep`: one step over static buffers that
+the engine fills and reads (tokens, block table, logits), advancing the
+pool's positions in place. :func:`cached_decode_step` memoises one such
+step per decode shape, as the JAX package memoises one jitted executable
+per shape (``cached_decode_step`` / ``cached_paged_decode_step``), and
+captures it into a CUDA graph: on the card every decode step of the
+engine is one graph replay. An entry owns the weights and the KV pool it
+was captured over; an engine binding it copies its weights in.
 """
 from __future__ import annotations
 
+import dataclasses
+import warnings
+
 import torch
 
+from repro_torch.errors import ConfigError
+from repro_torch.models import cache_ops
+
 __all__ = ["prompt_buckets", "bucket_for", "prefill_step", "decode_step",
-           "chunked_prefill_step", "paged_decode_step"]
+           "chunked_prefill_step", "paged_decode_step", "DecodeStep",
+           "cached_decode_step", "capture", "decode_steps",
+           "clear_decode_steps", "launch_counters"]
+
+#: Eager runs of a step on the capture stream before its capture: they
+#: allocate the SC-GEMM scratch of that stream and make the kernels'
+#: one-time attribute calls outside the capture.
+WARMUP_RUNS = 3
 
 
 def prompt_buckets(max_seq: int, chunk: int) -> tuple[int, ...]:
@@ -66,3 +83,247 @@ def paged_decode_step(model, params, cache, tables: torch.Tensor,
     """One token per slot straight on the page pool (fused: attention
     walks the block table)."""
     return model.paged_decode_step(params, cache, tables, batch)
+
+
+# --------------------------------------------------------------- decode
+
+
+def launch_counters() -> dict:
+    """The kernel wrappers that count their launches (``fn.launches``), by
+    name: a replayed graph launches their kernels without calling them,
+    so :meth:`DecodeStep.replay` adds what its capture recorded."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.sc_bitops import sc_stream_mul_cuda
+    from repro_torch.kernels.sc_matmul import (sc_linear,
+                                               sc_matmul_counts_signed)
+    return {"sc_linear": sc_linear,
+            "sc_matmul_counts": sc_matmul_counts_signed,
+            "paged_attention": paged_attention,
+            "flash_attention": flash_attention,
+            "sc_stream_mul": sc_stream_mul_cuda}
+
+
+def _tensors(tree):
+    """The tensors of a parameter tree, in a fixed order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from _tensors(getattr(tree, f.name))
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def _empty_like(tree):
+    """A parameter tree of the same structure with new, uninitialised
+    tensors."""
+    if isinstance(tree, dict):
+        return {k: _empty_like(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_empty_like(v) for v in tree)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _empty_like(getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, torch.Tensor):
+        return torch.empty_like(tree)
+    return tree
+
+
+class DecodeStep:
+    """One batched decode step over static buffers.
+
+    The caller writes ``tokens (capacity, 1)`` and, paged, ``tables
+    (capacity, max_blocks)`` (int32) in place, calls :meth:`replay`, and
+    reads ``logits (capacity, 1, vocab)`` (float32). The step advances
+    ``cache.pos`` in place, so the pool's positions tensor is the same
+    one for the step's whole life; admission and eviction write it in
+    place too. ``fused=False`` runs the gather → dense decode → commit
+    round trip; ``max_blocks=None`` is the contiguous pool.
+
+    :meth:`replay` runs :meth:`run` eagerly until :func:`capture` makes
+    it a CUDA graph's replay. ``launch_counts`` holds, by wrapper name,
+    the kernel launches one captured step makes; each replay adds them to
+    the wrappers' counters."""
+
+    def __init__(self, model, params, cache, *, capacity: int,
+                 max_blocks: int | None = None, block: int | None = None,
+                 fused: bool = True):
+        dev = cache.pos.device
+        self.model, self.params, self.cache = model, params, cache
+        self.paged = max_blocks is not None
+        self.block, self.fused = block, fused
+        self.tokens = torch.zeros((capacity, 1), dtype=torch.int32,
+                                  device=dev)
+        self.tables = None if not self.paged else torch.full(
+            (capacity, max_blocks), -1, dtype=torch.int32, device=dev)
+        self.logits = torch.zeros((capacity, 1, model.cfg.vocab_size),
+                                  dtype=torch.float32, device=dev)
+        self.captures = 0
+        self.replays = 0
+        self.launch_counts: dict[str, int] = {}
+        self.stream = None
+        self.owner = None       # a weakref to the engine it serves
+        self._replay = self.run
+
+    @torch.no_grad()
+    def run(self) -> None:
+        """The step, eagerly: the existing step functions on the static
+        buffers, the logits and the new positions copied into place."""
+        batch = {"tokens": self.tokens}
+        if not self.paged:
+            logits, new = decode_step(self.model, self.params, self.cache,
+                                      batch)
+        elif self.fused:
+            logits, new = paged_decode_step(self.model, self.params,
+                                            self.cache, self.tables, batch)
+        else:
+            dense = cache_ops.paged_gather(self.cache, self.tables,
+                                           block=self.block)
+            logits, dense = decode_step(self.model, self.params, dense,
+                                        batch)
+            new = cache_ops.paged_commit(self.cache, dense, self.tables,
+                                         block=self.block)
+        self.logits.copy_(logits)
+        self.cache.pos.copy_(new.pos)
+
+    def replay(self) -> None:
+        self._replay()
+        self.replays += 1
+        if self.launch_counts:
+            counters = launch_counters()
+            for name, n in self.launch_counts.items():
+                counters[name].launches += n
+
+    def load(self, params) -> None:
+        """Copy ``params`` (a tree of the same structure and shapes) into
+        the step's own weights."""
+        pairs = list(zip(_tensors(self.params), _tensors(params),
+                         strict=True))
+        for dst, src in pairs:
+            if dst.shape != src.shape or dst.dtype != src.dtype:
+                raise ConfigError(f"weights {tuple(src.shape)} {src.dtype} "
+                                  f"do not fit the captured step's "
+                                  f"{tuple(dst.shape)} {dst.dtype}")
+        with torch.no_grad():
+            for dst, src in pairs:
+                dst.copy_(src)
+
+    def reset(self) -> None:
+        """An empty pool: pages, positions and inputs zeroed, every table
+        entry unallocated."""
+        with torch.no_grad():
+            for t in (*self.cache.k, *self.cache.v, self.cache.pos,
+                      self.tokens, self.logits):
+                t.zero_()
+            if self.tables is not None:
+                self.tables.fill_(-1)
+
+
+def capture(step: DecodeStep) -> None:
+    """Capture ``step.run`` into a CUDA graph and make its replay the
+    step's :meth:`~DecodeStep.replay`, PyTorch's way: :data:`WARMUP_RUNS`
+    eager runs on a side stream (with synchronizing calls made errors),
+    then the capture on that stream under ``torch.no_grad()``, into the
+    memory pool every decode graph shares. The launches the capture
+    recorded become ``step.launch_counts``; the counters are put back,
+    since a capture launches nothing. Raises, never falls back."""
+    dev = step.cache.pos.device
+    if dev.type != "cuda":
+        raise ConfigError(f"decode graphs need the card, not {dev}; on the "
+                          f"CPU the engine runs the eager step "
+                          f"(graphs=None or False)")
+    global _POOL
+    if _POOL is None:
+        _POOL = torch.cuda.graph_pool_handle()
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "Synchronization debug mode")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.cuda.stream(stream):
+                for _ in range(WARMUP_RUNS):
+                    step.run()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    counters = launch_counters()
+    before = {name: fn.launches for name, fn in counters.items()}
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad(), torch.cuda.graph(graph, pool=_POOL, stream=stream):
+        step.run()
+    step.launch_counts = {name: fn.launches - before[name]
+                          for name, fn in counters.items()
+                          if fn.launches != before[name]}
+    for name, fn in counters.items():
+        fn.launches = before[name]
+    # the step keeps its stream: that stream's SC-GEMM scratch, keyed by
+    # its handle, is what the graph's SC-GEMM launches use
+    step.stream = stream
+    step._replay = graph.replay
+    step.captures += 1
+
+
+_POOL = None
+_STEPS: dict[tuple, DecodeStep] = {}
+
+
+def _decode_key(cfg, device: torch.device, *, capacity: int, max_seq: int,
+                block: int, n_blocks: int, max_blocks: int | None,
+                fused: bool) -> tuple:
+    """What the reference keys its cached decode steps on: the config
+    (attention mode and ``sc_bits`` included), the pool's shape, the
+    fused/gather structure and the device."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if max_blocks is None:
+        return (cfg, str(device), "contiguous", capacity, max_seq)
+    return (cfg, str(device), "paged", capacity, block, n_blocks, max_blocks,
+            fused)
+
+
+def cached_decode_step(model, params, *, capacity: int, max_seq: int,
+                       block: int = 0, n_blocks: int = 0,
+                       max_blocks: int | None = None,
+                       fused: bool = True) -> DecodeStep:
+    """The decode step of this shape (paged, or with ``max_blocks=None``
+    the contiguous pool), made and captured (:func:`capture`) on first
+    use and shared by every engine of the shape after that.
+    Table contents, page churn and positions are inputs: they never cause
+    a second capture. A new entry owns new weights (``params``' structure,
+    loaded from ``params``) and a new, empty KV pool; engines bind it
+    through :meth:`DecodeStep.load` and :meth:`DecodeStep.reset`."""
+    key = _decode_key(model.cfg, model.device, capacity=capacity,
+                      max_seq=max_seq, block=block, n_blocks=n_blocks,
+                      max_blocks=max_blocks, fused=fused)
+    step = _STEPS.get(key)
+    if step is None:
+        cache = model.init_cache(capacity, max_seq) if max_blocks is None \
+            else cache_ops.paged_init(model.init_cache, capacity, n_blocks,
+                                      block)
+        step = DecodeStep(model, _empty_like(params), cache,
+                          capacity=capacity, max_blocks=max_blocks,
+                          block=block, fused=fused)
+        step.load(params)
+        capture(step)
+        step.reset()
+        _STEPS[key] = step
+    return step
+
+
+def decode_steps() -> dict[tuple, DecodeStep]:
+    """The cached decode steps, by key."""
+    return dict(_STEPS)
+
+
+def clear_decode_steps() -> None:
+    """Forget every cached decode step (engines holding one keep it)."""
+    _STEPS.clear()
+

@@ -20,7 +20,12 @@ runs one batched decode over every live slot; :meth:`Engine.run` and
   re-queues the request, whose restarted stream is identical.
 * *Decode*: one paged (or dense) decode step advances all slots a token;
   tokens are pushed through per-request ``on_token`` callbacks or pulled
-  through :meth:`Engine.stream`.
+  through :meth:`Engine.stream`. The step is a
+  ``launch.steps.DecodeStep`` over static buffers: the engine copies the
+  tokens and the block table in from pinned host staging, replays it, and
+  reads the logit rows. On the card it is the decode shape's cached step,
+  one CUDA graph replay a decode step (``launch.steps.cached_decode_step``,
+  looked up at construction); on the CPU it runs eagerly.
 * *Evict*: a request leaves on EOS or length; its slot and pages free on
   the same step.
 
@@ -33,6 +38,7 @@ the card alike, with SC attention (``cfg.attn_sc``) on or off.
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Any, Callable, Iterator, Sequence
 
@@ -40,9 +46,10 @@ import numpy as np
 import torch
 
 from repro_torch.errors import ConfigError, EngineInvariantError
-from repro_torch.launch.steps import (bucket_for, chunked_prefill_step,
-                                      decode_step, paged_decode_step,
-                                      prefill_step, prompt_buckets)
+from repro_torch.launch.steps import (DecodeStep, bucket_for,
+                                      cached_decode_step,
+                                      chunked_prefill_step, prefill_step,
+                                      prompt_buckets)
 from repro_torch.models import bind, cache_ops
 from repro_torch.models.transformer import pack_sc_weights, params_to
 
@@ -86,7 +93,16 @@ class Engine:
     step) or "oneshot".
 
     ``device=None`` means the card; a machine without CUDA raises
-    :class:`ConfigError` unless ``device="cpu"`` is asked for. SC attention
+    :class:`ConfigError` unless ``device="cpu"`` is asked for.
+    ``graphs=None`` replays a captured CUDA graph a decode step on the
+    card and runs the step eagerly on the CPU; ``graphs=False`` runs it
+    eagerly on the card too (the A/B); ``graphs=True`` on the CPU raises
+    :class:`ConfigError`. A graphed engine serves from its decode shape's
+    cached step, which holds the weights and the KV pool the graph was
+    captured over: binding it copies this engine's packed weights in and
+    empties the pool, and is refused while another engine holds requests
+    in it. An engine whose step another engine has since bound binds it
+    again on its next step, when it holds no request. SC attention
     (``cfg.attn_sc``) is served, in both prefill modes. The prefix cache
     (``prefix_cache=True``) and speculative decoding (``speculate_k > 0``)
     come with later slices of the port and are refused here.
@@ -99,7 +115,8 @@ class Engine:
                  prefill_mode: str = "chunked", chunk: int = 16,
                  prefill_budget: int | None = None,
                  prefix_cache: bool = False,
-                 speculate_k: int | None = None):
+                 speculate_k: int | None = None,
+                 graphs: bool | None = None):
         cfg.validate()
         if prefill_mode not in ("chunked", "oneshot"):
             raise ConfigError(f"unknown prefill_mode {prefill_mode!r}")
@@ -125,18 +142,44 @@ class Engine:
         self.prefill_budget = chunk if prefill_budget is None \
             else prefill_budget
         self.buckets = prompt_buckets(max_seq, chunk)
+        self.graphs = self.device.type == "cuda" if graphs is None \
+            else graphs
+        self._source = params
         # SC-GEMM weights are quantized and packed here, once per engine
         self._params = pack_sc_weights(params_to(params, self.device), cfg)
 
+        max_blocks = None
         if paged:
             block, max_blocks, n_blocks = PagedSlotPool.plan(
                 capacity, max_seq, block, n_blocks)
+        cache = None
+        if self.graphs:
+            self._decode = cached_decode_step(
+                self._m, self._params, capacity=capacity, max_seq=max_seq,
+                block=block, n_blocks=n_blocks, max_blocks=max_blocks,
+                fused=self.fused)
+            self._bind_decode(self._params)
+            self._params, cache = self._decode.params, self._decode.cache
+        if paged:
             self.pool: Any = PagedSlotPool(self._m, capacity, max_seq,
-                                           block=block, n_blocks=n_blocks)
+                                           block=block, n_blocks=n_blocks,
+                                           cache=cache)
         else:
-            self.pool = SlotPool(self._m, capacity, max_seq)
+            self.pool = SlotPool(self._m, capacity, max_seq, cache=cache)
+        if not self.graphs:
+            self._decode = DecodeStep(self._m, self._params, self.pool.cache,
+                                      capacity=capacity,
+                                      max_blocks=max_blocks, block=block,
+                                      fused=self.fused)
 
-        self._tok_buf = np.zeros((capacity, 1), np.int32)
+        # host staging of the step's inputs: pinned on the card, so their
+        # copies to the step's static buffers do not wait on the host
+        pin = self.device.type == "cuda"
+        self._tok_host = torch.zeros((capacity, 1), dtype=torch.int32,
+                                     pin_memory=pin)
+        self._tok_buf = self._tok_host.numpy()
+        self._tables_host = None if not paged else torch.zeros(
+            (capacity, max_blocks), dtype=torch.int32, pin_memory=pin)
         self.queue = RequestQueue()
         self.stats: dict[str, Any] = {}
         self._step = 0          # decode-step counter (admissions are free)
@@ -170,7 +213,25 @@ class Engine:
         self.pool.check_fits(req)
 
     def _rows(self, logits: torch.Tensor) -> np.ndarray:
-        return logits[:, -1].to(torch.float32).cpu().numpy()
+        # a copy: the decode step's logits buffer is overwritten each step
+        return logits[:, -1].to("cpu", torch.float32, copy=True).numpy()
+
+    @property
+    def _holds_requests(self) -> bool:
+        return bool(self.pool.entries) or self._staging is not None
+
+    def _bind_decode(self, params) -> None:
+        """Make the cached decode step serve this engine: its weights
+        become ``params`` and its pool empty."""
+        d = self._decode
+        other = None if d.owner is None else d.owner()
+        if other is not None and other is not self and other._holds_requests:
+            raise ConfigError("the decode step of this shape serves another "
+                              "engine that holds requests; drain it first "
+                              "or pass graphs=False")
+        d.load(params)
+        d.reset()
+        d.owner = weakref.ref(self)
 
     def _sample(self, entry: SlotEntry, row: np.ndarray) -> np.ndarray:
         """One token from a logit row. Greedy is argmax; temperature > 0
@@ -365,31 +426,20 @@ class Engine:
                         raise   # run() pre-check makes this unreachable
                     self._preempt_youngest()
 
-    @torch.no_grad()
     def _decode_once(self) -> np.ndarray:
         """One batched decode step over every slot; returns the ``(C, V)``
-        last-token logit rows."""
+        last-token logit rows. The inputs go into the step's static
+        buffers and the step advances the pool's positions in place."""
         t0 = time.perf_counter()
-        batch = {"tokens": torch.as_tensor(self._tok_buf, device=self.device)}
+        d = self._decode
         if self.paged:
             self._grow_pages()
-            tables = torch.as_tensor(self.pool.tables, device=self.device)
-            if self.fused:
-                logits, self.pool.cache = paged_decode_step(
-                    self._m, self._params, self.pool.cache, tables, batch)
-            else:
-                block = self.pool.block
-                dense = cache_ops.paged_gather(self.pool.cache, tables,
-                                               block=block)
-                logits, dense = decode_step(self._m, self._params, dense,
-                                            batch)
-                self.pool.cache = cache_ops.paged_commit(
-                    self.pool.cache, dense, tables, block=block)
-        else:
-            logits, self.pool.cache = decode_step(self._m, self._params,
-                                                  self.pool.cache, batch)
+            self._tables_host.numpy()[:] = self.pool.tables
+            d.tables.copy_(self._tables_host, non_blocking=True)
+        d.tokens.copy_(self._tok_host, non_blocking=True)
+        d.replay()
         self._step += 1
-        rows = self._rows(logits)
+        rows = self._rows(d.logits)
         now = time.perf_counter()
         self._decode_s += now - t0
         if self._last_decode_end is not None:
@@ -406,6 +456,12 @@ class Engine:
         slots. Returns whether work remains."""
         if not self.has_work:
             return False
+        if self.graphs and self._decode.owner() is not self:
+            # another engine of this shape bound the step since, and emptied
+            # the pool: this one holds no request (that engine's bind
+            # refuses otherwise), so it binds the step back
+            self._bind_decode(pack_sc_weights(
+                params_to(self._source, self.device), self.cfg))
         if self.prefill_mode == "chunked":
             if self.continuous:
                 self._advance_prefill(self.prefill_budget)
@@ -521,6 +577,7 @@ class Engine:
         self.stats = {
             "mode": "continuous" if self.continuous else "static",
             "layout": "paged" if self.paged else "contiguous",
+            "decode_graphs": self.graphs,
             "prefill_mode": self.prefill_mode,
             "device": str(self.device),
             "requests": len(out),

@@ -731,3 +731,134 @@ def test_stream_wrapper_counts_launches_and_never_falls_back(cuda):
     with pytest.raises(ConfigError, match="block_rows"):
         ops.sc_stream_mul(x, x, bits=8, block_rows=16)
     assert sc_stream_mul_cuda.launches == before + 1
+
+
+# ----------------------------------------------------- decode graphs
+
+
+def _graph_cfg(attn_sc: bool):
+    return dataclasses.replace(ARCHS["smollm-360m"].reduced(dtype="float32"),
+                               use_sc_gemm=True, attn_sc=attn_sc,
+                               sc_bits=8).validate()
+
+
+def _graph_requests(cfg):
+    rng = np.random.default_rng(13)
+    lens, gens = (9, 30, 17, 5, 22), (5, 12, 7, 14, 9)
+    return [Request(uid=f"r{i}",
+                    prompt=rng.integers(0, cfg.vocab_size,
+                                        size=(n,)).astype(np.int32),
+                    max_new_tokens=g)
+            for i, (n, g) in enumerate(zip(lens, gens))]
+
+
+GRAPH_ENGINE = dict(capacity=2, max_seq=64, block=16, chunk=16)
+
+
+class _Recording(Engine):
+    """An engine that keeps every decode step's logit rows."""
+
+    def _decode_once(self):
+        rows = super()._decode_once()
+        self.rows = getattr(self, "rows", []) + [rows]
+        return rows
+
+
+@pytest.mark.parametrize("attn_sc,kw", [
+    (False, {}), (True, {}), (False, dict(prefill_mode="oneshot")),
+    (True, dict(fused=False)), (False, dict(paged=False))],
+    ids=["fused-float", "fused-sc", "oneshot", "gather-sc", "contiguous"])
+def test_graph_replay_logits_bitwise_equal_the_eager_step(cuda, attn_sc, kw):
+    """Five requests through two slots, so requests are admitted and
+    evicted between decode steps (one-shot: an eager SC-GEMM prefill on
+    the default stream between replays): every decode step's logit rows
+    from the replayed graph equal the eager step's bit for bit."""
+    from repro_torch.launch import steps
+    steps.clear_decode_steps()
+    cfg = _graph_cfg(attn_sc)
+    params = bind(cfg, cuda).init_params(0)
+    runs = {}
+    for graphs in (False, True):
+        eng = _Recording(cfg, params, device=cuda, graphs=graphs,
+                         **GRAPH_ENGINE, **kw)
+        runs[graphs] = (eng, eng.run(_graph_requests(cfg)))
+    (eager, eager_res), (graphed, res) = runs[False], runs[True]
+    assert graphed.graphs and not eager.graphs
+    assert len(graphed.rows) == len(eager.rows) >= 12
+    for i, (g, e) in enumerate(zip(graphed.rows, eager.rows)):
+        np.testing.assert_array_equal(g, e, err_msg=f"decode step {i}")
+    for r, e in zip(res, eager_res):
+        np.testing.assert_array_equal(r.tokens, e.tokens)
+    assert graphed._decode.captures == 1
+    assert graphed._decode.replays == len(graphed.rows)
+    steps.clear_decode_steps()
+
+
+def test_one_capture_per_shape_over_engine_runs(cuda):
+    """The default engine on the card is graphed; a second engine of the
+    shape (another prefill mode) replays the same capture."""
+    from repro_torch.launch import steps
+    steps.clear_decode_steps()
+    cfg = _graph_cfg(False)
+    params = bind(cfg, cuda).init_params(0)
+    first = Engine(cfg, params, device=cuda, **GRAPH_ENGINE)
+    assert first.graphs and len(steps.decode_steps()) == 1
+    first.run(_graph_requests(cfg))
+    second = Engine(cfg, params, device=cuda, prefill_mode="oneshot",
+                    **GRAPH_ENGINE)
+    second.run(_graph_requests(cfg))
+    step = first._decode
+    assert second._decode is step and step.captures == 1
+    assert len(steps.decode_steps()) == 1
+    assert step.replays == (first.stats["decode_steps"]
+                            + second.stats["decode_steps"])
+    steps.clear_decode_steps()
+
+
+@pytest.mark.parametrize("attn_sc", [False, True], ids=["float", "sc"])
+def test_replays_count_the_launches_their_capture_recorded(cuda, attn_sc):
+    """A capture records one fused SC-GEMM launch a projection and one
+    paged launch a layer, what an eager run of the step launches; N
+    replays add N times that to the counters."""
+    from repro_torch.launch import steps
+    steps.clear_decode_steps()
+    cfg = _graph_cfg(attn_sc)
+    eng = Engine(cfg, bind(cfg, cuda).init_params(0), device=cuda,
+                 **GRAPH_ENGINE)
+    step = eng._decode
+    want = {"sc_linear": 7 * cfg.n_layers + 1,
+            "paged_attention": cfg.n_layers}
+    assert step.launch_counts == want
+    s0, p0 = sc_linear.launches, paged_attention.launches
+    step.run()
+    assert (sc_linear.launches - s0, paged_attention.launches - p0) == \
+        (want["sc_linear"], want["paged_attention"])
+    s0, p0 = sc_linear.launches, paged_attention.launches
+    for _ in range(5):
+        step.replay()
+    torch.cuda.synchronize()
+    assert (sc_linear.launches - s0, paged_attention.launches - p0) == \
+        (5 * want["sc_linear"], 5 * want["paged_attention"])
+    steps.clear_decode_steps()
+
+
+def test_a_capture_that_synchronizes_raises(cuda):
+    """A host synchronization in the step fails the warm-up (synchronizing
+    calls are errors there); the capture raises and nothing is cached."""
+    from repro_torch.launch import steps
+    steps.clear_decode_steps()
+    cfg = _graph_cfg(False)
+    eng = Engine(cfg, bind(cfg, cuda).init_params(0), device=cuda,
+                 graphs=False, **GRAPH_ENGINE)
+
+    class Syncing(steps.DecodeStep):
+        def run(self):
+            super().run()
+            int(self.cache.pos.sum())
+
+    step = Syncing(eng._m, eng._params, eng.pool.cache,
+                   capacity=GRAPH_ENGINE["capacity"],
+                   max_blocks=eng.pool.max_blocks, block=eng.pool.block)
+    with pytest.raises(RuntimeError):
+        steps.capture(step)
+    assert step.captures == 0 and not steps.decode_steps()
