@@ -36,9 +36,12 @@ Phases (each raises on failure, so any failure exits non-zero):
    one-shot and chunked shapes, and the long prompts L1-L3 (2,048 tokens:
    smollm one-shot, its last chunk, qwen2-7b's width; bf16, float and SC);
    kernel (back to back and device), plain, bound and (float)
-   ``scaled_dot_product_attention`` ms at the serve shapes and L1-L3; then
-   chunked rows must equal one-shot rows bit for bit through the kernel,
-   with garbage or NaN in the staging cache past the chunk;
+   ``scaled_dot_product_attention`` ms at the serve shapes and L1-L3 (a
+   chunk call with its offset as an int32 on the card, as a captured
+   chunk passes it, the host offset's device ms beside it); every offset
+   read on the card must give the host offset's bits; then chunked rows
+   must equal one-shot rows bit for bit through the kernel, with garbage
+   or NaN in the staging cache past the chunk;
 6. the bit-parallel stream kernel through ``ops.sc_stream_mul`` on every
    operand pair at B = 5, 6, 7, 8, 10 and 12 (16,777,216 pairs), counter
    set to 0 just before: counts exactly equal to the plain version and
@@ -54,21 +57,29 @@ Phases (each raises on failure, so any failure exits non-zero):
    compared;
 9. serve 8 requests at full width (smollm-360m, bf16, SC-GEMM on, random
    weights from seed 0) through ``Engine(capacity=4, max_seq=256, block=64,
-   chunk=16)``, first with ``graphs=False`` (every decode step dispatched
+   chunk=16)``, first with ``graphs=False`` (every step dispatched
    operator by operator), then graphed (the default on the card: each
    decode step one replay of the shape's captured CUDA graph, captured
-   once when the engine is built); for each, the launch counters, set to
-   0 just before, must show the kernels on every decode step and prefill
-   chunk, and exactly one fused SC-GEMM launch per projection; streams
-   must equal the sequential ``generate`` baseline on the card; decode
-   ms/step, tokens/s, TTFT p50 and peak memory side by side;
+   once when the engine is built, and each prefill chunk or one-shot
+   prefill one replay of its shape's graph, captured at first use) twice
+   on one engine, the first run capturing its prefill shape and the
+   second none; for each run, the launch counters, set to 0 just before,
+   must show the kernels on every decode step and prefill chunk (and a
+   capture's warm-up runs), exactly one fused SC-GEMM launch per
+   projection, one capture a prefill shape, one replay a prefill call and
+   225 SC-GEMM and 32 flash launches a prefill replay; streams must equal
+   the sequential ``generate`` baseline on the card; decode ms/step,
+   tokens/s, TTFT p50 and peak memory side by side (eager against the
+   graphed second run);
 10. the same with SC attention at 8 bits, chunked and then one-shot
     prefill, each against the sequential baseline;
 11. a ``torch.profiler`` pass over two full-width decode steps, eager and
-    then graphed: device time by kernel, host time by operator, kernel
-    launches, host API calls and synchronizations per step, the device's
-    busy share, and the kernel records of the graphed steps against the
-    launches their capture recorded.
+    then graphed, and over two chunks of a 240-token prompt's chunked
+    prefill, eager and then graphed: device time by kernel, host time by
+    operator, kernel launches, host API calls and synchronizations per
+    step or chunk, the device's busy share, the graphed step's and
+    chunk's wall split, and the kernel records of the graphed steps and
+    chunks against the launches their capture recorded.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Details go to
@@ -77,6 +88,7 @@ Nothing of JAX or of the JAX package is imported.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -663,8 +675,10 @@ def _flash_chunk_invariance(gen, dev) -> list[str]:
     """Chunked rows == one-shot rows, bit for bit, through the kernel: a
     64-token prompt one-shot (group 64) against 16-row chunks at their
     staging offsets over larger extents (group = extent), as the engine's
-    two prefill modes and the baseline run; the staging cache past the
-    chunk holds large garbage, or NaN. Returns what differed."""
+    two prefill modes and the baseline run; each chunk with its offset as
+    a host int and as an int32 on the card (what a captured chunk reads);
+    the staging cache past the chunk holds large garbage, or NaN. Returns
+    what differed."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
     h, kv, d, s = 15, 5, 64, 64
@@ -686,19 +700,24 @@ def _flash_chunk_invariance(gen, dev) -> list[str]:
                         if fill == "nan":
                             kx[:, :, off + 16:] = math.nan
                             vx[:, :, off + 16:] = math.nan
-                        got = flash_attention(q[:, :, off:off + 16], kx, vx,
-                                              q_offset=off, group=extent,
-                                              sc_bits=bits)
-                        torch.cuda.synchronize()
-                        if not torch.equal(got, one[:, :, off:off + 16]):
-                            differ.append(f"{fill} {off}/{extent}")
+                        for where in ("host", "device"):
+                            o = off if where == "host" else torch.tensor(
+                                off, dtype=torch.int32, device=dev)
+                            got = flash_attention(q[:, :, off:off + 16], kx,
+                                                  vx, q_offset=o,
+                                                  group=extent, sc_bits=bits)
+                            torch.cuda.synchronize()
+                            if not torch.equal(got, one[:, :, off:off + 16]):
+                                differ.append(f"{fill} {off}/{extent} "
+                                              f"offset on the {where}")
             what = f"{str(dtype)[6:]} sc={bits}"
             if differ:
                 bad.append(f"{what}: chunks {differ} differ from the "
                            f"one-shot rows")
             log(f"[flash] chunked rows == one-shot rows {what} (chunks at "
-                f"0/16/32/48 over 64/128/256, garbage or NaN past the "
-                f"chunk): {'ok' if not differ else 'DIFFERS'}")
+                f"0/16/32/48 over 64/128/256, offset on the host and on the "
+                f"card, garbage or NaN past the chunk): "
+                f"{'ok' if not differ else 'DIFFERS'}")
     return bad
 
 
@@ -740,9 +759,17 @@ def phase_flash() -> dict:
                           sc_bits=bits)
                 got = flash_attention(q, k, v, **kw)
                 want = flash_attention_torch(q, k, v, **kw)
+                # the offset read on the card (a worst-case grid) gives the
+                # host offset's bits
+                on_card = flash_attention(q, k, v, **{**kw, "q_offset": (
+                    torch.tensor(off, dtype=torch.int32, device=dev))})
                 torch.cuda.synchronize()
                 rtol, atol = tol[dtype]
                 shape = (b, h, kv, sq, skv, d, off, group, causal)
+                if not torch.equal(on_card, got):
+                    raise AssertionError(f"flash {dtype} sc={bits} {shape}: "
+                                         f"the offset read on the card gives "
+                                         f"other bits than the host offset")
                 err = check_close(got, want, rtol=rtol, atol=atol, v=v,
                                   bits=bits, what=f"flash {dtype} sc={bits} "
                                                   f"{shape}")
@@ -769,12 +796,23 @@ def phase_flash() -> dict:
         return lambda: F.scaled_dot_product_attention(q, kr, vr,
                                                       attn_mask=mask)
 
-    def timed(q, k, v, off, group, bits, iters, plain_iters):
+    def timed(q, k, v, off, group, bits, iters, plain_iters,
+              on_card=False):
+        """``on_card``: the offset as an int32 on the card, as a captured
+        chunk passes it (the kernel's times); the host offset's device
+        time beside it."""
         kw = dict(q_offset=off, group=group, sc_bits=bits)
-        row = {"ms": cuda_ms(lambda: flash_attention(q, k, v, **kw),
+        run_kw = kw if not on_card else {**kw, "q_offset": torch.tensor(
+            off, dtype=torch.int32, device=dev)}
+        row = {"ms": cuda_ms(lambda: flash_attention(q, k, v, **run_kw),
                              iters=iters),
-               "device_ms": device_ms(lambda: flash_attention(q, k, v, **kw),
-                                      "flash_fwd", iters=min(iters, 20)),
+               "device_ms": device_ms(
+                   lambda: flash_attention(q, k, v, **run_kw), "flash_fwd",
+                   iters=min(iters, 20)),
+               "offset_on_card": on_card,
+               "host_offset_device_ms": None if not on_card else device_ms(
+                   lambda: flash_attention(q, k, v, **kw), "flash_fwd",
+                   iters=min(iters, 20)),
                "plain_ms": cuda_ms(lambda: flash_attention_torch(q, k, v,
                                                                  **kw),
                                    iters=plain_iters, warmup=1),
@@ -792,9 +830,12 @@ def phase_flash() -> dict:
         lib = (f", SDPA {row['library_ms']:.4f} ms (device "
                f"{_ms(row['library_device_ms'])})"
                if row["library_ms"] is not None else "")
+        card = (f" (offset on the card; host offset device "
+                f"{_ms(row['host_offset_device_ms'])})"
+                if row.get("offset_on_card") else "")
         log(f"[flash] {tag}: kernel {row['ms']:.4f} ms, device "
-            f"{_ms(row['device_ms'])}, plain {row['plain_ms']:.3f} ms{lib}, "
-            f"bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+            f"{_ms(row['device_ms'])}{card}, plain {row['plain_ms']:.3f} "
+            f"ms{lib}, bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
 
     # the long prompts: the kernel against its plain version, then timed
     h, kv, d = 15, 5, 64
@@ -831,7 +872,8 @@ def phase_flash() -> dict:
         for sq, skv, off in calls:
             q, k, v = _flash_inputs(torch.bfloat16, 1, h, kv, sq, skv, d,
                                     gen, dev, True)
-            row = timed(q, k, v, off, skv, bits, iters=100, plain_iters=10)
+            row = timed(q, k, v, off, skv, bits, iters=100, plain_iters=10,
+                        on_card=sq < skv)
             row.update(sq=sq, skv=skv, q_offset=off)
             per.append(row)
             show(f"bf16 sc={bits} Sq={sq} Skv={skv} offset={off}", row)
@@ -844,7 +886,8 @@ def phase_flash() -> dict:
                                        sum(c[name] for c in chunked))
                                 for name in ("ms", "device_ms", "plain_ms",
                                              "library_ms", "library_device_ms",
-                                             "bound_ms")}}
+                                             "bound_ms",
+                                             "host_offset_device_ms")}}
 
     bad = _flash_chunk_invariance(gen, dev)
     if bad:
@@ -1061,28 +1104,44 @@ def _serve_launch_counters():
             "flash_attention": flash_attention}
 
 
-def _serve_run(cfg, params, reqs, mode, baseline, graphs):
+def _serve_engine(cfg, params, mode, graphs):
+    from repro_torch.serving import Engine
+    return Engine(cfg, params, device="cuda", capacity=4, max_seq=256,
+                  block=64, chunk=16, prefill_mode=mode, prefix_cache=False,
+                  speculate_k=0, graphs=graphs)
+
+
+def _serve_run(cfg, eng, reqs, mode, baseline, *, run: int = 1,
+               captured: int = 0):
     """One engine run at full width: counters set to 0 just before and read
     just after; streams checked against the sequential baseline. Graphed,
     the engine's decode step must have been captured once, when it was
-    built, with one fused SC-GEMM launch a projection and one paged launch
-    a layer, and never again during the run."""
+    built (``captured`` new entries then), with one fused SC-GEMM launch a
+    projection and one paged launch a layer, and never again; its prefill
+    shape (one bucket chunked, one prompt length one-shot) must be
+    captured once, at first use in run 1 and never in run 2, with 225
+    SC-GEMM and 32 flash launches a replay and one replay a prefill chunk
+    or prefill."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.launch import steps as step_cache
-    from repro_torch.serving import Engine
+    from repro_torch.launch.steps import WARMUP_RUNS
+    graphs = eng.graphs
     graphs0 = len(step_cache.decode_steps())
-    eng = Engine(cfg, params, device="cuda", capacity=4, max_seq=256,
-                 block=64, chunk=16, prefill_mode=mode, prefix_cache=False,
-                 speculate_k=0, graphs=graphs)
     step = eng._decode
-    captured = len(step_cache.decode_steps()) - graphs0
+    decode_replays0 = step.replays
+    replays0 = {k: s.replays for k, s in eng.prefill_steps().items()}
     # a request's TTFT runs from its enqueue stamp: stamp all of them now,
     # as they are submitted together, not when the list was built
     now = time.perf_counter()
-    reqs = [dataclasses.replace(r, enqueued_at=now) for r in reqs]
+    # (a later run of the same engine takes new uids: the queue refuses
+    # one it has seen)
+    reqs = [dataclasses.replace(r, enqueued_at=now, uid=r.uid if run == 1
+                                else f"{r.uid}-run{run}") for r in reqs]
     counters = _serve_launch_counters()
+    # engines of earlier runs are gone: only this one's memory is counted
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
@@ -1095,19 +1154,48 @@ def _serve_run(cfg, params, reqs, mode, baseline, graphs):
     reserved = torch.cuda.memory_reserved()
     steps = st["decode_steps"]
     tag = (f"[{'serve_sc' if cfg.attn_sc else 'serve'}:{mode}"
-           f"{':graphed' if graphs else ':eager'}]")
+           f"{':graphed' if graphs else ':eager'}{':run2' if run > 1 else ''}]")
+    prefill_calls = (st["prefill_chunks"] if mode == "chunked"
+                     else st["prefills"])
+    prefill_graph = None
     if graphs:
         want = {"sc_linear": 7 * N_LAYERS + 1, "paged_attention": N_LAYERS}
         log(f"{tag} decode graph: captured {step.captures} time(s), "
             f"{captured} new while building this engine, replayed "
-            f"{step.replays} times; a replay counts {step.launch_counts}")
-        if (captured != 1 or step.captures != 1 or step.replays != steps
-                or len(step_cache.decode_steps()) != graphs0 + captured
+            f"{step.replays} times in all; a replay counts "
+            f"{step.launch_counts}")
+        if (captured != (1 if run == 1 else 0) or step.captures != 1
+                or step.replays - decode_replays0 != steps
+                or len(step_cache.decode_steps()) != graphs0
                 or step.launch_counts != want):
             raise AssertionError(f"{tag} decode graph: {step.captures} "
-                                 f"captures, {step.replays} replays for "
-                                 f"{steps} steps, counts "
-                                 f"{step.launch_counts} (want {want})")
+                                 f"captures, counts {step.launch_counts} "
+                                 f"(want {want})")
+        entries = eng.prefill_steps()
+        want_p = {"sc_linear": 7 * N_LAYERS + 1, "flash_attention": N_LAYERS}
+        replays = {k: s.replays - replays0.get(k, 0)
+                   for k, s in entries.items()}
+        prefill_graph = {"shapes": [list(k) for k in entries],
+                         "captures": [s.captures for s in entries.values()],
+                         "replays_this_run": list(replays.values()),
+                         "new_captures": st["prefill_captures"],
+                         "launch_counts": [s.launch_counts
+                                           for s in entries.values()]}
+        log(f"{tag} prefill graphs: shapes {prefill_graph['shapes']}, "
+            f"captured {prefill_graph['captures']} time(s), "
+            f"{st['prefill_captures']} new in this run, replayed "
+            f"{list(replays.values())} times for {prefill_calls} prefill "
+            f"calls; a replay counts {prefill_graph['launch_counts']}")
+        if (len(entries) != 1
+                or any(s.captures != 1 for s in entries.values())
+                or st["prefill_captures"] != (1 if run == 1 else 0)
+                or sum(replays.values()) != prefill_calls
+                or any(s.launch_counts != want_p
+                       for s in entries.values())):
+            raise AssertionError(f"{tag} prefill graphs: {prefill_graph} "
+                                 f"for {prefill_calls} prefill calls (want "
+                                 f"one shape, captured once, in run 1, "
+                                 f"counting {want_p})")
     log(f"{tag} {st['requests']} requests, {st['generated_tokens']} tokens "
         f"in {st['wall_s']:.2f}s: {st['tok_per_s']:.2f} tok/s, TTFT p50 "
         f"{st['ttft_p50_s'] * 1e3:.1f} ms, decode {st['decode_ms_per_step']:.2f}"
@@ -1119,17 +1207,18 @@ def _serve_run(cfg, params, reqs, mode, baseline, graphs):
         f"attention {launches['paged_attention']} (>= {steps} x {N_LAYERS}), "
         f"flash attention {launches['flash_attention']} (= "
         f"{st['prefill_chunks'] if mode == 'chunked' else st['prefills']}"
-        f" x {N_LAYERS}); max_memory_allocated {peak / 2**30:.3f} GiB, "
+        f" x {N_LAYERS}, and {N_LAYERS} a warm-up run of a capture in this "
+        f"run); max_memory_allocated {peak / 2**30:.3f} GiB, "
         f"memory_reserved {reserved / 2**30:.3f} GiB")
     if steps < 1:
         raise AssertionError("the engine ran no decode step")
     # one fused launch per projection: 7 a layer and the LM head, on
     # every decode step and every prefill call; no weight is quantized on
     # the way (the counts entry, which takes planes quantized per call, is
-    # never reached)
-    prefill_calls = (st["prefill_chunks"] if mode == "chunked"
-                     else st["prefills"])
-    projections = (7 * N_LAYERS + 1) * (steps + prefill_calls)
+    # never reached). A prefill capture in this run adds its warm-up's
+    # eager runs (launch.steps.WARMUP_RUNS), which launch the kernels too.
+    warm = WARMUP_RUNS * st.get("prefill_captures", 0) if graphs else 0
+    projections = (7 * N_LAYERS + 1) * (steps + prefill_calls + warm)
     if launches["sc_linear"] != projections or launches["sc_matmul_counts"]:
         raise AssertionError(f"SC-GEMM: {launches['sc_linear']} fused and "
                              f"{launches['sc_matmul_counts']} counts-entry "
@@ -1140,7 +1229,7 @@ def _serve_run(cfg, params, reqs, mode, baseline, graphs):
                              f"{steps} decode steps")
     # one flash launch per layer per prefill call (chunk or one-shot)
     if prefill_calls < 1 or launches["flash_attention"] != \
-            prefill_calls * N_LAYERS:
+            (prefill_calls + warm) * N_LAYERS:
         raise AssertionError(f"flash kernel launched "
                              f"{launches['flash_attention']} times for "
                              f"{prefill_calls} prefill calls")
@@ -1166,6 +1255,7 @@ def _serve_run(cfg, params, reqs, mode, baseline, graphs):
                              "replays": step.replays,
                              "launch_counts": step.launch_counts}
             if graphs else None,
+            "prefill_graph": prefill_graph,
             "first_stream": results[0].tokens[:16].tolist()}
 
 
@@ -1222,13 +1312,27 @@ def _serve_phase(attn_sc: bool, modes) -> dict:
     out = {}
     for mode in modes:
         # no cached step is alive during the eager run, so its peak memory
-        # is the eager engine's own; the graphed engine then captures anew
+        # is the eager engine's own; the graphed engine then captures anew:
+        # its decode step when it is built, its prefill shape at first use
+        # in its first run; the second run is the graphed cell
         steps.clear_decode_steps()
-        eager = _serve_run(cfg, params, reqs, mode, baseline, graphs=False)
-        graphed = _serve_run(cfg, params, reqs, mode, baseline, graphs=True)
+        eager = _serve_run(cfg, _serve_engine(cfg, params, mode, False),
+                           reqs, mode, baseline)
+        n0 = len(steps.decode_steps())
+        eng = _serve_engine(cfg, params, mode, True)
+        first = _serve_run(cfg, eng, reqs, mode, baseline,
+                           captured=len(steps.decode_steps()) - n0)
+        graphed = _serve_run(cfg, eng, reqs, mode, baseline, run=2)
+        del eng
+        graphed["first_run"] = first
         graphed["eager"] = eager
         graphed["eager_vs_graphed"] = _side_by_side(
             f"{tag[:-1]}:{mode}]", eager, graphed)
+        fs = first["stats"]
+        log(f"{tag[:-1]}:{mode}] graphed first run (its prefill capture "
+            f"included): tokens/s {fs['tok_per_s']:.2f}, TTFT p50 "
+            f"{fs['ttft_p50_s'] * 1e3:.2f} ms, peak allocated "
+            f"{first['max_memory_allocated'] / 2**30:.3f} GiB")
         out[mode] = graphed
     steps.clear_decode_steps()
     return out
@@ -1271,77 +1375,17 @@ def _profile_engine(cfg, params, graphs: bool) -> dict:
     split = _graphed_step_split(eng, wall_ms) if graphs else None
     while eng.step():
         pass
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    averages = prof.key_averages()
-    events = [e for e in averages if dev_us(e) > 0]
-    kernels = [e for e in events if not e.key.startswith(("aten::", "cuda"))]
-    device_ms = sum(dev_us(e) for e in kernels) / 1e3
-    launches = sum(e.count for e in averages
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                "cudaLaunchKernelExC"))
-    # every CUDA API call (cuda* and cu*) the host made, by name: a graphed
-    # step's launch is one cudaGraphLaunch
-    api = {e.key: e.count / max(steps, 1) for e in averages
-           if re.match(r"cu(da)?[A-Z]", e.key)}
-    # the host waits for the device: a stream or device synchronize (a
-    # pageable host-to-device copy and every device-to-host copy make one)
-    syncs = {k: v for k, v in api.items()
-             if k in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-                      "cudaMemcpyAsync", "cudaMemcpy")}
-    by_kernel = sorted(((dev_us(e) / 1e3 / max(steps, 1), e.count // max(
-        steps, 1), e.key[:90]) for e in kernels), reverse=True)
-    ours = {"sc_gemm_kernel": 0.0, "paged_decode_kernel": 0.0}
-    records = {"sc_gemm_kernel": 0, "paged_decode_kernel": 0}
-    for e in kernels:
-        for key in ours:
-            if key in e.key:
-                ours[key] += dev_us(e) / 1e3 / max(steps, 1)
-                records[key] += e.count
-    host = sorted(((e.self_cpu_time_total / 1e3 / max(steps, 1),
-                    e.count // max(steps, 1), e.key[:60])
-                   for e in averages
-                   if e.key.startswith("aten::")), reverse=True)
-    # no device time at all means the profiler did not trace the card
-    busy = device_ms / steps / wall_ms if device_ms > 0 else None
     out = {"graphs": graphs, "decode_steps": steps,
            "wall_ms_per_step": wall_ms, "graphed_step_split": split,
-           "device_ms_per_step": device_ms / steps if busy else None,
-           "device_busy_share": busy,
-           "top_host_ops": [{"self_cpu_ms_per_step": ms, "calls_per_step": n,
-                             "name": name} for ms, n, name in host[:10]],
-           "kernel_launches_per_step": launches / max(steps, 1),
-           "host_api_calls_per_step": api,
-           "host_syncs_per_step": syncs,
-           "ours_ms_per_step": ours,
-           "kernel_records_per_step": {k: v / max(steps, 1)
-                                       for k, v in records.items()},
-           "top_kernels": [{"ms_per_step": ms, "calls_per_step": n,
-                            "name": name} for ms, n, name in by_kernel[:12]]}
+           **_trace_summary(prof, steps, wall_ms)}
     tag = "[profile:graphed]" if graphs else "[profile:eager]"
-    busy_txt = (f"{device_ms / steps:.2f} ms/step of kernels (device busy "
-                f"{100 * busy:.1f}%)" if busy else
-                "device time not measured (no CUDA events in the trace)")
-    log(f"{tag} {steps} decode steps under torch.profiler; "
-        f"{out['wall_ms_per_step']:.2f} ms/step wall unprofiled, {busy_txt}, "
-        f"{out['kernel_launches_per_step']:.0f} kernel launches/step, "
-        f"host API calls/step {sum(api.values()):.0f}: "
-        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(api.items()))
-        + f"; SC-GEMM {ours['sc_gemm_kernel']:.3f} ms, paged "
-        f"{ours['paged_decode_kernel']:.3f} ms per step")
-    for row in out["top_kernels"][:8]:
-        log(f"{tag}   device {row['ms_per_step']:8.3f} ms/step "
-            f"{row['calls_per_step']:5d} calls  {row['name']}")
-    for row in out["top_host_ops"][:8]:
-        log(f"{tag}   host {row['self_cpu_ms_per_step']:8.3f} ms/step "
-            f"{row['calls_per_step']:5d} calls  {row['name']}")
+    _log_trace(tag, out, steps, "step", "decode steps")
+    busy = out["device_busy_share"]
+    device_ms = out["device_ms_per_step"]
     if graphs:
         log(f"{tag} a step's {wall_ms:.3f} ms: graph replay "
             f"{split['replay_ms']:.3f} ms on the device back to back "
-            f"(kernels {device_ms / steps:.3f} ms), the logits' copy to "
+            f"(kernels {_ms(device_ms)}), the logits' copy to "
             f"the host {split['logits_copy_ms']:.3f} ms, the rest "
             f"{split['rest_ms']:.3f} ms (inputs' copies, the scheduler, "
             f"sampling)")
@@ -1360,6 +1404,93 @@ def _profile_engine(cfg, params, graphs: bool) -> dict:
                                  f"{per_step} differ from the launches its "
                                  f"capture recorded {counts}")
     return out
+
+
+def _dev_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+#: kernels whose device time and records the profile phase reads by name
+OUR_KERNELS = ("sc_gemm_kernel", "paged_decode_kernel", "flash_fwd_")
+
+
+def _trace_summary(prof, steps: int, wall_ms: float) -> dict:
+    """A ``torch.profiler`` trace of ``steps`` steps (decode steps or
+    prefill chunks) in numbers a step: device time by kernel, host time by
+    operator, kernel launches, host API calls and synchronizations, our
+    kernels' device time and records, and the device's busy share against
+    ``wall_ms``, the unprofiled wall time a step."""
+    dev_us = _dev_us
+    averages = prof.key_averages()
+    events = [e for e in averages if dev_us(e) > 0]
+    kernels = [e for e in events if not e.key.startswith(("aten::", "cuda"))]
+    device_ms = sum(dev_us(e) for e in kernels) / 1e3
+    launches = sum(e.count for e in averages
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC"))
+    # every CUDA API call (cuda* and cu*) the host made, by name: a graphed
+    # step's launch is one cudaGraphLaunch
+    api = {e.key: e.count / max(steps, 1) for e in averages
+           if re.match(r"cu(da)?[A-Z]", e.key)}
+    # the host waits for the device: a stream or device synchronize (a
+    # pageable host-to-device copy and every device-to-host copy make one)
+    syncs = {k: v for k, v in api.items()
+             if k in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                      "cudaMemcpyAsync", "cudaMemcpy")}
+    by_kernel = sorted(((dev_us(e) / 1e3 / max(steps, 1), e.count // max(
+        steps, 1), e.key[:90]) for e in kernels), reverse=True)
+    ours = {key: 0.0 for key in OUR_KERNELS}
+    records = {key: 0 for key in OUR_KERNELS}
+    for e in kernels:
+        for key in ours:
+            if key in e.key:
+                ours[key] += dev_us(e) / 1e3 / max(steps, 1)
+                records[key] += e.count
+    host = sorted(((e.self_cpu_time_total / 1e3 / max(steps, 1),
+                    e.count // max(steps, 1), e.key[:60])
+                   for e in averages
+                   if e.key.startswith("aten::")), reverse=True)
+    # no device time at all means the profiler did not trace the card
+    busy = device_ms / steps / wall_ms if device_ms > 0 else None
+    return {"device_ms_per_step": device_ms / steps if busy else None,
+            "device_busy_share": busy,
+            "top_host_ops": [{"self_cpu_ms_per_step": ms,
+                              "calls_per_step": n, "name": name}
+                             for ms, n, name in host[:10]],
+            "kernel_launches_per_step": launches / max(steps, 1),
+            "host_api_calls_per_step": api,
+            "host_syncs_per_step": syncs,
+            "ours_ms_per_step": ours,
+            "kernel_records_per_step": {k: v / max(steps, 1)
+                                        for k, v in records.items()},
+            "top_kernels": [{"ms_per_step": ms, "calls_per_step": n,
+                             "name": name}
+                            for ms, n, name in by_kernel[:12]]}
+
+
+def _log_trace(tag: str, out: dict, n: int, unit: str, what: str) -> None:
+    """One trace's line and its top kernels and host operators."""
+    busy = out["device_busy_share"]
+    api = out["host_api_calls_per_step"]
+    ours = out["ours_ms_per_step"]
+    busy_txt = (f"{out['device_ms_per_step']:.2f} ms/{unit} of kernels "
+                f"(device busy {100 * busy:.1f}%)" if busy else
+                "device time not measured (no CUDA events in the trace)")
+    log(f"{tag} {n} {what} under torch.profiler; {out[f'wall_ms_per_{unit}']:.2f} ms/{unit} "
+        f"wall unprofiled, {busy_txt}, "
+        f"{out['kernel_launches_per_step']:.0f} kernel launches/{unit}, "
+        f"host API calls/{unit} {sum(api.values()):.0f}: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(api.items()))
+        + f"; SC-GEMM {ours['sc_gemm_kernel']:.3f} ms, paged "
+        f"{ours['paged_decode_kernel']:.3f} ms, flash "
+        f"{ours['flash_fwd_']:.3f} ms per {unit}")
+    for row in out["top_kernels"][:8]:
+        log(f"{tag}   device {row['ms_per_step']:8.3f} ms/{unit} "
+            f"{row['calls_per_step']:5d} calls  {row['name']}")
+    for row in out["top_host_ops"][:8]:
+        log(f"{tag}   host {row['self_cpu_ms_per_step']:8.3f} ms/{unit} "
+            f"{row['calls_per_step']:5d} calls  {row['name']}")
 
 
 def _graphed_step_split(eng, wall_ms: float, n: int = 20) -> dict:
@@ -1382,11 +1513,78 @@ def _graphed_step_split(eng, wall_ms: float, n: int = 20) -> dict:
             "rest_ms": wall_ms - replay_ms - copy_ms}
 
 
+def _profile_prefill(cfg, params, graphs: bool, n: int = 6) -> dict:
+    """A chunk of a chunked prefill, eager or graphed: chunks of 16 tokens
+    of a 240-token prompt (bucket 256) driven as the engine drives them
+    (pinned inputs copied in, the bucket's step replayed), ``n`` timed
+    unprofiled (wall ms a chunk, ending in a synchronize) and two under
+    ``torch.profiler``. Graphed, the chunk's wall time is split into the
+    replay's device time back to back (CUDA events, the staging position
+    put back before each) and the rest, and the trace must hold 225
+    SC-GEMM and 32 flash kernel records a chunk and no kernel launch from
+    the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import Engine
+    eng = Engine(cfg, params, device="cuda", capacity=4, max_seq=256,
+                 block=64, chunk=16, graphs=graphs)
+    req = _workload(cfg, 1, 240, 1, 1, seed=11)[0]
+    st = eng._start_prefill(req)     # graphed: captures the bucket's step
+    step = st.step
+    eng._prefill_chunk_once(st)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng._prefill_chunk_once(st)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            eng._prefill_chunk_once(st)
+        torch.cuda.synchronize()
+    out = {"graphs": graphs, "prompt": req.prompt_len, "bucket": st.bucket,
+           "wall_ms_per_chunk": wall_ms,
+           **_trace_summary(prof, 2, wall_ms)}
+    tag = "[profile:prefill:graphed]" if graphs else "[profile:prefill:eager]"
+    _log_trace(tag, out, 2, "chunk", f"prefill chunks (offsets "
+               f"{16 * (n + 1)}, {16 * (n + 2)})")
+    if graphs:
+        saved = step.cache.pos.clone()
+
+        def replay():
+            step.cache.pos.copy_(saved)
+            step.replay()
+
+        replay_ms = cuda_ms(replay, 10, warmup=0)
+        out["graphed_chunk_split"] = {"replay_ms": replay_ms,
+                                      "rest_ms": wall_ms - replay_ms}
+        counts = step.launch_counts
+        per = out["kernel_records_per_step"]
+        log(f"{tag} a chunk's {wall_ms:.3f} ms: graph replay "
+            f"{replay_ms:.3f} ms on the device back to back (kernels "
+            f"{_ms(out['device_ms_per_step'])}), the rest "
+            f"{wall_ms - replay_ms:.3f} ms (the inputs' copies, the "
+            f"scheduler's bookkeeping); kernel records a replay: "
+            f"sc_gemm_kernel {per['sc_gemm_kernel']:.0f}, flash "
+            f"{per['flash_fwd_']:.0f} (captured {counts})")
+        if out["kernel_launches_per_step"]:
+            raise AssertionError(f"{tag} a graphed chunk launched "
+                                 f"{out['kernel_launches_per_step']} kernels "
+                                 f"from the host")
+        if out["device_busy_share"] and (
+                per["sc_gemm_kernel"] != counts.get("sc_linear")
+                or per["flash_fwd_"] != counts.get("flash_attention")):
+            raise AssertionError(f"{tag} a replay's kernel records {per} "
+                                 f"differ from its capture's {counts}")
+    return out
+
+
 def phase_profile() -> dict:
-    """Where a decode step's time goes, eager and graphed: device time by
-    kernel, host time by operator, host API calls, and the device's busy
-    share against the wall time of two unprofiled steps of the same
-    engine."""
+    """Where a decode step's and a prefill chunk's time goes, eager and
+    graphed: device time by kernel, host time by operator, host API calls,
+    and the device's busy share against the wall time of unprofiled steps
+    or chunks of the same engine."""
     import dataclasses
     from repro_torch.configs.registry import ARCHS
     from repro_torch.launch import steps
@@ -1397,6 +1595,15 @@ def phase_profile() -> dict:
     out = {"eager": _profile_engine(cfg, params, graphs=False),
            "graphed": _profile_engine(cfg, params, graphs=True)}
     steps.clear_decode_steps()
+    out["prefill"] = {"eager": _profile_prefill(cfg, params, graphs=False),
+                      "graphed": _profile_prefill(cfg, params, graphs=True)}
+    steps.clear_decode_steps()
+    e, g = out["prefill"]["eager"], out["prefill"]["graphed"]
+    log("[profile:prefill] eager -> graphed a chunk: wall "
+        f"{e['wall_ms_per_chunk']:.3f} -> {g['wall_ms_per_chunk']:.3f} ms, "
+        f"host API calls {sum(e['host_api_calls_per_step'].values()):.0f} "
+        f"-> {sum(g['host_api_calls_per_step'].values()):.0f}, device "
+        f"{_ms(e['device_ms_per_step'])} -> {_ms(g['device_ms_per_step'])}")
     return out
 
 
@@ -1501,7 +1708,8 @@ def main() -> int:
                 "device_ms": None if dev_ms is None else N_LAYERS * dev_ms,
                 "unit": "one 64-token prompt's chunked prefill: 32 layers x 4 "
                         "chunk calls (16 rows at offsets 0/16/32/48 over the "
-                        "64-token bucket), H=15 KV=5 D=64 bf16"
+                        "64-token bucket, the offset read on the card), "
+                        "H=15 KV=5 D=64 bf16"
                         + (f" SC {bits}-bit" if bits else ""),
                 "long_prompt_call": {
                     n: {k2: r[k2] for k2 in

@@ -9,7 +9,12 @@
 // Skv, D), out like q, each addressed by (b, h, s) strides with a
 // contiguous D axis, so the model's (B, S, H, D) tensors and cache slices
 // are read in place. Positions are absolute: query row i at q_offset + i,
-// key j at j.
+// key j at j. q_offset is a launch scalar, or an int32 in device memory
+// that every block reads at entry: a captured CUDA graph of a prefill
+// chunk then replays at the staging offset of the moment. The grid is
+// then the worst case for Sq rows at any offset (ceil((Sq - 1) / 16) + 1
+// m-tiles); a block finds its m-tiles from the offset it read, and a block
+// past the last active m-tile returns at once.
 //
 // Blocks. Query positions are cut into m-tiles of kMTile = 16 aligned to
 // position 0 (m-tile t holds positions 16t .. 16t+15; a position outside
@@ -123,6 +128,7 @@ struct Args {
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
   int q_offset, causal, group, sc_bits, vec;
   float scale;
+  const int* q_off;  // q_offset in device memory, or null: the scalar
 };
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~static_cast<size_t>(15); }
@@ -231,9 +237,11 @@ __device__ __forceinline__ float byte_f(uint32_t w, int i) {
 
 // The block's place: m-tiles [mt0, mt0 + mt) (heaviest first), heads
 // kvh * G + hb0 + [0, nh) of KV head kvh, batch row b; its active positions
-// are [lo, hi) and it reads keys [0, kv_end).
+// are [lo, hi) and it reads keys [0, kv_end). off is the query offset;
+// a block of a worst-case grid past the offset's m-tiles is not active.
 struct Place {
-  int mt0, hb0, nh, kvh, b, lo, hi, kv_end;
+  int mt0, hb0, nh, kvh, b, lo, hi, kv_end, off;
+  bool active;
 };
 
 __device__ __forceinline__ Place place(const Args& a) {
@@ -243,11 +251,17 @@ __device__ __forceinline__ Place place(const Args& a) {
   p.hb0 = (blockIdx.y - p.kvh * n_hg) * a.hb;
   p.nh = min(a.hb, a.G - p.hb0);
   p.b = blockIdx.z;
-  const int first = a.q_offset / kMTile;
-  const int end = (a.q_offset + a.Sq + kMTile - 1) / kMTile;
-  p.mt0 = first + (gridDim.x - 1 - blockIdx.x) * a.mt;
-  p.lo = max(a.q_offset, p.mt0 * kMTile);
-  p.hi = min(a.q_offset + a.Sq, min(end, p.mt0 + a.mt) * kMTile);
+  p.off = a.q_off ? *a.q_off : a.q_offset;
+  const int first = p.off / kMTile;
+  const int end = (p.off + a.Sq + kMTile - 1) / kMTile;
+  // the blocks this offset needs, numbered as a grid of exactly that many
+  // would number them: a row's m-tile, slot and block do not depend on
+  // whether the offset came as a scalar or from device memory
+  const int blocks = (end - first + a.mt - 1) / a.mt;
+  p.active = static_cast<int>(blockIdx.x) < blocks;
+  p.mt0 = first + (blocks - 1 - static_cast<int>(blockIdx.x)) * a.mt;
+  p.lo = max(p.off, p.mt0 * kMTile);
+  p.hi = min(p.off + a.Sq, min(end, p.mt0 + a.mt) * kMTile);
   p.kv_end = a.causal ? min(a.Skv, p.hi) : a.Skv;
   return p;
 }
@@ -290,6 +304,7 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32) flash_fwd_mma_kernel(Args a
   constexpr int LD = DP + 8;  // shared row stride in bf16: 16 bytes of padding
   constexpr int NK = DP / 16;
   const Place pl = place(a);
+  if (!pl.active) return;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int D = a.D, ksteps = (D + 15) / 16;
   const int n_qrows = kMTile * a.hb * a.mt;
@@ -319,7 +334,7 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32) flash_fwd_mma_kernel(Args a
       const int r = i / cpr, c = i - r * cpr;
       const int hh = (r / kMTile) % a.hb, pos = (pl.mt0 + r / (kMTile * a.hb)) * kMTile + r % kMTile;
       const bool ok = hh < pl.nh && pos >= pl.lo && pos < pl.hi;
-      const bf16* src = qg + (pl.kvh * a.G + pl.hb0 + hh) * a.q_sh + (pos - a.q_offset) * a.q_ss;
+      const bf16* src = qg + (pl.kvh * a.G + pl.hb0 + hh) * a.q_sh + (pos - pl.off) * a.q_ss;
       if (vec)
         cp_async16(q_s + r * LD + c * 8, ok ? src + c * 8 : qg, ok ? 16 : 0);
       else
@@ -492,7 +507,7 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32) flash_fwd_mma_kernel(Args a
       const bool row_ok = e < 2 ? act0 : act1;
       if (row_ok && col < D) {
         const int pos = e < 2 ? pos0 : pos1;
-        og[(pos - a.q_offset) * a.o_ss + col] =
+        og[(pos - pl.off) * a.o_ss + col] =
             __float2bfloat16(__fdiv_rn(o[n][e], e < 2 ? d0 : d1));
       }
     }
@@ -503,6 +518,7 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32) flash_fwd_mma_kernel(Args a
 
 __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Args a) {
   const Place pl = place(a);
+  if (!pl.active) return;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int D = a.D, DS = D + 4, R = kMTile * a.hb;
 
@@ -524,7 +540,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Args a) {
     const int r = i / D, d = i - r * D;
     const int hh = r / kMTile, pos = pl.mt0 * kMTile + r % kMTile;
     const bool ok = hh < pl.nh && pos >= pl.lo && pos < pl.hi;
-    q_s[i] = ok ? qg[(pl.kvh * a.G + pl.hb0 + hh) * a.q_sh + (pos - a.q_offset) * a.q_ss + d]
+    q_s[i] = ok ? qg[(pl.kvh * a.G + pl.hb0 + hh) * a.q_sh + (pos - pl.off) * a.q_ss + d]
                 : 0.f;
     acc[i] = 0.f;
   }
@@ -594,7 +610,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Args a) {
     const int r = i / D, d = i - r * D;
     const int hh = r / kMTile, pos = pl.mt0 * kMTile + r % kMTile;
     if (hh < pl.nh && pos >= pl.lo && pos < pl.hi)
-      og[(pl.kvh * a.G + pl.hb0 + hh) * a.o_sh + (pos - a.q_offset) * a.o_ss + d] =
+      og[(pl.kvh * a.G + pl.hb0 + hh) * a.o_sh + (pos - pl.off) * a.o_ss + d] =
           __fdiv_rn(acc[i], fmaxf(l_s[r], 1e-30f));
   }
 }
@@ -665,6 +681,7 @@ __device__ __forceinline__ void quant_rows(int rows, int D, int n_max, Src src, 
 template <typename T>
 __global__ void __launch_bounds__(kScThreads) flash_fwd_sc_kernel(Args a) {
   const Place pl = place(a);
+  if (!pl.active) return;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   constexpr int kWarps = kScThreads / 32;
   const int D = a.D, DW = (D + 3) / 4, R = kMTile * a.hb, grp = a.group;
@@ -755,7 +772,7 @@ __global__ void __launch_bounds__(kScThreads) flash_fwd_sc_kernel(Args a) {
       [&](int r) -> const T* {
         const int hh = r / kMTile, pos = pl.mt0 * kMTile + r % kMTile;
         if (hh >= pl.nh || pos < pl.lo || pos >= pl.hi) return nullptr;
-        return qg + (pl.kvh * a.G + pl.hb0 + hh) * a.q_sh + (pos - a.q_offset) * a.q_ss;
+        return qg + (pl.kvh * a.G + pl.hb0 + hh) * a.q_sh + (pos - pl.off) * a.q_ss;
       },
       [&](int r, int ww, float scale, uint32_t mag, uint32_t neg) {
         uint32_t xa, xd;
@@ -926,7 +943,7 @@ __global__ void __launch_bounds__(kScThreads) flash_fwd_sc_kernel(Args a) {
       const int hh = r / kMTile, pos = pl.mt0 * kMTile + r % kMTile;
       if (r < R && hh < pl.nh && pos >= pl.lo && pos < pl.hi) {
         const float den = fmaxf(l_s[r], 1e-30f);
-        T* orow = og + (pl.kvh * a.G + pl.hb0 + hh) * a.o_sh + (pos - a.q_offset) * a.o_ss;
+        T* orow = og + (pl.kvh * a.G + pl.hb0 + hh) * a.o_sh + (pos - pl.off) * a.o_ss;
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           if (4 * w + j < D) orow[4 * w + j] = from_f<T>(__fdiv_rn(acc[k][j], den));
@@ -968,9 +985,12 @@ template <typename T>
 int launch(const Args& a, int B, int KV, void* stream) {
   if (B <= 0 || a.Sq <= 0) return static_cast<int>(cudaGetLastError());
   if (a.D < 1 || a.D > kMaxD || a.hb < 1 || a.mt < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int first = a.q_offset / kMTile, end = (a.q_offset + a.Sq + kMTile - 1) / kMTile;
+  // m-tiles of the rows: exact for a scalar offset, the worst case over
+  // every offset for one read on the device (flash_attention.py::plan)
+  const int tiles = a.q_off ? (a.Sq + kMTile - 2) / kMTile + 1
+                            : (a.q_offset + a.Sq + kMTile - 1) / kMTile - a.q_offset / kMTile;
   const int n_hg = (a.G + a.hb - 1) / a.hb;
-  dim3 grid((end - first + a.mt - 1) / a.mt, KV * n_hg, B);
+  dim3 grid((tiles + a.mt - 1) / a.mt, KV * n_hg, B);
   const size_t esz = sizeof(T);
   if (a.sc_bits > 0) {
     if (kMTile * a.hb > kScItems * (kScThreads / ((a.D + 3) / 4)))
@@ -1011,12 +1031,13 @@ extern "C" long long flash_attention_smem_bytes(int path, int esz, int hb, int m
                       long long q_sh, long long q_ss, long long k_sb, long long k_sh,        \
                       long long k_ss, long long v_sb, long long v_sh, long long v_ss,        \
                       long long o_sb, long long o_sh, long long o_ss, int q_offset,          \
-                      int causal, int group, int sc_bits, int vec, float scale,              \
-                      void* stream) {                                                        \
+                      const void* q_offset_dev, int causal, int group, int sc_bits, int vec, \
+                      float scale, void* stream) {                                           \
     (void)H;                                                                                 \
     const Args a{q,    k,    v,    out,  Sq,   Skv,  D,        G,      hb,      mt,         \
                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,     v_sh,   v_ss,    o_sb,       \
-                 o_sh, o_ss, q_offset, causal, group, sc_bits, vec, scale};                  \
+                 o_sh, o_ss, q_offset, causal, group, sc_bits, vec, scale,                   \
+                 static_cast<const int*>(q_offset_dev)};                                     \
     return launch<T>(a, B, KV, stream);                                                      \
   }
 

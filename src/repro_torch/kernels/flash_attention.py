@@ -20,9 +20,13 @@ and the output takes ``q``'s layout). Returns ``(B, H, Sq, D)`` in
 where shared memory allows), so each K/V tile is read once for them.
 
 Positions are absolute: query row ``i`` sits at ``q_offset + i`` and key
-``j`` at ``j``. Query positions are cut into m-tiles of :data:`BLOCK_Q`
-aligned to position 0 (:func:`row_tile`), so a row's tile and slot depend
-on its position alone. The kernel masks the ragged Sq/Skv edges itself,
+``j`` at ``j``. ``q_offset`` is a host int, or a 0-dim int32 tensor on the
+card that the kernel reads at block entry: a CUDA graph captured over a
+prefill chunk then replays at the staging offset of the moment, and the
+launch (grid, heads a block) is the same for every offset (:func:`plan`).
+Query positions are cut into m-tiles of :data:`BLOCK_Q` aligned to
+position 0 (:func:`row_tile`), so a row's tile and slot depend on its
+position alone, whichever way the offset came. The kernel masks the ragged Sq/Skv edges itself,
 so nothing is padded, and zero-fills key rows past the last one a block's
 rows can see (a staging cache past the chunk may hold NaN). What it
 computes differs from the TPU kernel on purpose in two points:
@@ -70,7 +74,7 @@ from . import build
 from .sc_attention import check_sc_bits
 
 __all__ = ["flash_attention", "flash_attention_torch", "sc_tolerance",
-           "plan", "Plan", "row_tile", "BLOCK_Q", "TILE_K", "MAX_D",
+           "plan", "Plan", "row_tile", "m_tile_count", "BLOCK_Q", "TILE_K", "MAX_D",
            "MAX_GROUP", "SMEM_MAX"]
 
 #: Query positions per m-tile (a tile's rows are positions 16t .. 16t+15).
@@ -137,12 +141,25 @@ def row_tile(pos: int) -> tuple[int, int]:
     return divmod(pos, BLOCK_Q)
 
 
+def m_tile_count(sq: int, q_offset: int | torch.Tensor = 0) -> int:
+    """The m-tiles the launch covers: those of rows ``q_offset ..
+    q_offset + Sq - 1`` for a host offset; for an offset held on the card,
+    whose value the host never reads, the most any offset needs,
+    ``ceil((Sq - 1) / 16) + 1`` (the kernel's blocks past the offset's
+    last m-tile return at once)."""
+    if isinstance(q_offset, torch.Tensor):
+        return (sq + BLOCK_Q - 2) // BLOCK_Q + 1
+    return row_tile(q_offset + sq - 1)[0] + 1 - row_tile(q_offset)[0]
+
+
 def plan(b: int, h: int, kv: int, sq: int, d: int, group: int,
-         q_offset: int = 0, sc_bits: int | None = None, *,
+         q_offset: int | torch.Tensor = 0, sc_bits: int | None = None, *,
          esz: int = 2, sms: int | None = None) -> Plan:
     """The launch for ``B`` batch rows of ``H`` query heads over ``KV`` KV
     heads, ``Sq`` rows at ``q_offset``, head dim ``d``, elements of
-    ``esz`` bytes. bf16 float: up to :data:`MMA_MAX_WARPS` heads a block
+    ``esz`` bytes. A tensor ``q_offset`` (read on the card) plans for
+    :func:`m_tile_count`'s worst case, so the launch does not depend on
+    its value. bf16 float: up to :data:`MMA_MAX_WARPS` heads a block
     (a warp each), with m-tiles added until a block has 4 warps. f32
     float: 4 heads a block. SC: as many heads as fit shared memory with
     the group's counts and :data:`SC_ITEMS` outputs a thread — fewer when
@@ -150,7 +167,7 @@ def plan(b: int, h: int, kv: int, sq: int, d: int, group: int,
     chunk: one m-tile a KV head), trading repeated K/V quantization for
     blocks that run in parallel. No result depends on the plan."""
     g = h // kv
-    first, end = row_tile(q_offset)[0], row_tile(q_offset + sq - 1)[0] + 1
+    tiles = m_tile_count(sq, q_offset)
     if sc_bits is not None:
         path, threads, m_tiles = "sc", SC_THREADS, 1
         row_sets = SC_THREADS // -(-d // 4)
@@ -158,15 +175,15 @@ def plan(b: int, h: int, kv: int, sq: int, d: int, group: int,
                      if smem_bytes("sc", n, 1, d, group, esz) <= SMEM_MAX
                      and BLOCK_Q * n <= SC_ITEMS * row_sets] or [1])
         while sms and heads > 1 and \
-                b * (end - first) * kv * -(-g // heads) < sms:
+                b * tiles * kv * -(-g // heads) < sms:
             heads -= 1
     elif esz == 2:
         path, heads = "mma", min(g, MMA_MAX_WARPS)
-        m_tiles = max(1, min(-(-4 // heads), end - first))
+        m_tiles = max(1, min(-(-4 // heads), tiles))
         threads = 32 * heads * m_tiles
     else:
         path, heads, m_tiles, threads = "f32", min(g, 4), 1, THREADS
-    grid = (-(-(end - first) // m_tiles), kv * -(-g // heads), b)
+    grid = (-(-tiles // m_tiles), kv * -(-g // heads), b)
     return Plan(path, heads, m_tiles, threads, grid,
                 smem_bytes(path, heads, m_tiles, d, group, esz))
 
@@ -175,10 +192,10 @@ _PTR, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
 #: Argument types of the C entries ``flash_attention_{f32,bf16}``: the four
 #: tensors, the shapes and the plan (B, H, KV, Sq, Skv, D, G, heads,
-#: m-tiles), twelve strides, q_offset, causal, group, sc_bits, vec, the
-#: attention scale and the stream.
-ARGTYPES = ([_PTR] * 4 + [_I32] * 9 + [_I64] * 12 + [_I32] * 5
-            + [_F32, _PTR])
+#: m-tiles), twelve strides, q_offset and its device copy (or null),
+#: causal, group, sc_bits, vec, the attention scale and the stream.
+ARGTYPES = ([_PTR] * 4 + [_I32] * 9 + [_I64] * 12 + [_I32, _PTR]
+            + [_I32] * 4 + [_F32, _PTR])
 _ENTRIES: dict = {}
 
 
@@ -217,11 +234,12 @@ def sc_tolerance(v: torch.Tensor, bits: int) -> float:
 
 
 def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, q_offset: int = 0,
-                          group: int = 64,
+                          *, causal: bool = True,
+                          q_offset: int | torch.Tensor = 0, group: int = 64,
                           sc_bits: int | None = None) -> torch.Tensor:
     """Plain version: the model layers' flash formulation with positions
-    ``q_offset + i`` / ``j`` and ``kv_block = group``."""
+    ``q_offset + i`` / ``j`` (built on the tensors' device, from a tensor
+    offset too) and ``kv_block = group``."""
     from repro_torch.models.layers import _flash_plain
     b, h, sq, _ = q.shape
     skv = k.shape[2]
@@ -238,11 +256,27 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2)
 
 
+def _check_offset(q_offset, q: torch.Tensor) -> None:
+    """A host offset is an int >= 0; an offset on the device a 0-dim (or
+    one-element) int32 tensor on the query's device, whose value is the
+    caller's to keep >= 0 (reading it would synchronize)."""
+    if isinstance(q_offset, torch.Tensor):
+        if (q_offset.numel() != 1 or q_offset.dtype != torch.int32
+                or q_offset.device != q.device):
+            raise ConfigError(f"flash kernel: a tensor q_offset is one int32 "
+                              f"on the query's device, got {q_offset.dtype} "
+                              f"{tuple(q_offset.shape)} on {q_offset.device}")
+    elif q_offset < 0:
+        raise ConfigError(f"flash kernel needs q_offset >= 0, got {q_offset}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, q_offset: int = 0, group: int = 64,
+                    causal: bool = True, q_offset: int | torch.Tensor = 0,
+                    group: int = 64,
                     sc_bits: int | None = None) -> torch.Tensor:
     """Fused flash forward: the CUDA kernel for tensors on the card, the
-    plain version for tensors on the CPU."""
+    plain version for tensors on the CPU. ``q_offset`` is an int, or a
+    one-element int32 tensor on the query's device (read by the kernel)."""
     check_sc_bits(sc_bits)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ConfigError(f"flash kernel layout: q (B, H, Sq, D), k/v "
@@ -253,9 +287,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if (b2, d2) != (b, d) or kv < 1 or h % kv:
         raise ConfigError(f"flash kernel: k/v {tuple(k.shape)} do not match "
                           f"q {tuple(q.shape)} (H must be a multiple of KV)")
-    if group < 1 or q_offset < 0:
-        raise ConfigError(f"flash kernel needs group >= 1 and q_offset >= 0, "
-                          f"got {group}, {q_offset}")
+    if group < 1:
+        raise ConfigError(f"flash kernel needs group >= 1, got {group}")
+    _check_offset(q_offset, q)
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal=causal,
                                      q_offset=q_offset, group=group,
@@ -285,10 +319,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
               and all(s * esz % 16 == 0 for s in strides[:9]))
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    on_device = isinstance(q_offset, torch.Tensor)
     rc = _entries()[q.dtype](
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kv,
-        sq, skv, d, h // kv, p.heads, p.m_tiles, *strides, int(q_offset),
-        int(causal), int(group), sc_bits or 0, vec, d ** -0.5, stream)
+        sq, skv, d, h // kv, p.heads, p.m_tiles, *strides,
+        0 if on_device else int(q_offset),
+        q_offset.data_ptr() if on_device else None, int(causal), int(group),
+        sc_bits or 0, vec, d ** -0.5, stream)
     build.check(rc, "flash_attention")
     flash_attention.launches += 1
     return out

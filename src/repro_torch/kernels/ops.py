@@ -72,8 +72,8 @@ def sc_stream_mul(x: torch.Tensor, y: torch.Tensor, *, bits: int = 8,
 
 
 def flash_attention_tuned(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, q_offset: int = 0,
-                          group: int = 64,
+                          *, causal: bool = True,
+                          q_offset: int | torch.Tensor = 0, group: int = 64,
                           sc_bits: int | None = None) -> torch.Tensor:
     """The flash kernel in its layout ``q (B, H, Sq, D)``, ``k, v (B, KV,
     Skv, D)``. The JAX package picks ``(bq, bk)`` through its autotuner;

@@ -21,6 +21,7 @@ the kernel's row tile and K split from the shape; the source note says why.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from dataclasses import dataclass
 
@@ -37,7 +38,8 @@ from . import build
 __all__ = ["sc_matmul_counts", "sc_matmul_counts_torch",
            "sc_matmul_counts_signed", "sc_matmul_counts_signed_torch",
            "pack_signed", "plane_dtype", "check_exact", "PackedWeight",
-           "pack_weight", "sc_linear", "sc_linear_torch", "plan"]
+           "pack_weight", "sc_linear", "sc_linear_torch", "plan",
+           "scratch_scope"]
 
 #: Largest |count| a float32 holds exactly.
 EXACT_LIMIT = 1 << 24
@@ -135,20 +137,40 @@ def plan(m: int, n: int, k: int, sms: int) -> tuple[int, int, int]:
 _SMS: dict[int, int] = {}
 #: Per stream: the tile counters (zeroed once; the kernel's last block of
 #: each tile puts its counter back to 0) and the K split's int32 partials.
-#: Launches on one stream run in order, so each launch finds both free. A
-#: CUDA graph captured on a stream keeps that stream's scratch: it is made
-#: by eager runs on the stream before the capture, never during one.
+#: Launches on one stream run in order, so each launch finds both free.
 _SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+#: The scratch table of a CUDA graph's capture (:func:`scratch_scope`), or
+#: None for the shared one above.
+_SCOPE: dict | None = None
 _FN = None
+
+
+@contextlib.contextmanager
+def scratch_scope(table: dict):
+    """Give every SC-GEMM launch inside the block its scratch from
+    ``table`` instead of the shared per-stream table. A captured step
+    warms up and captures inside its own table and keeps it: its graph
+    replays over scratch that no later call, on whatever stream (the
+    streams that captures take come from a small pool and repeat), can
+    grow and so free. The table is made by the eager warm-up runs, never
+    during the capture (:func:`_scratch` raises then)."""
+    global _SCOPE
+    outer, _SCOPE = _SCOPE, table
+    try:
+        yield table
+    finally:
+        _SCOPE = outer
 
 
 def _scratch(dev: torch.device, stream: int, tiles: int,
              partials: int) -> tuple[torch.Tensor, torch.Tensor]:
+    table = _SCRATCH if _SCOPE is None else _SCOPE
     key = (dev.index, stream)
-    counters, ws = _SCRATCH.get(key, (None, None))
+    counters, ws = table.get(key, (None, None))
     grow = (counters is None or counters.numel() < tiles
             or ws.numel() < partials)
-    if grow and torch.cuda.is_current_stream_capturing():
+    if grow and dev.type == "cuda" and \
+            torch.cuda.is_current_stream_capturing():
         raise KernelLaunchError("SC-GEMM scratch of a capturing stream must "
                                 "exist before the capture: run the step on "
                                 "that stream first")
@@ -158,7 +180,7 @@ def _scratch(dev: torch.device, stream: int, tiles: int,
     if ws is None or ws.numel() < partials:
         ws = torch.empty((max(partials, 1 << 20),), dtype=torch.int32,
                          device=dev)
-    _SCRATCH[key] = (counters, ws)
+    table[key] = (counters, ws)
     return counters, ws
 
 

@@ -1,15 +1,24 @@
-"""Serving step functions of the port and its per-shape decode-step cache
-(the serving subset of ``repro/launch/steps.py``).
+"""Serving step functions of the port and its per-shape compiled-step
+cache (the serving subset of ``repro/launch/steps.py``).
 
-Prefill steps are plain functions run eagerly under ``torch.no_grad()``.
-A decode step is a :class:`DecodeStep`: one step over static buffers that
-the engine fills and reads (tokens, block table, logits), advancing the
-pool's positions in place. :func:`cached_decode_step` memoises one such
-step per decode shape, as the JAX package memoises one jitted executable
-per shape (``cached_decode_step`` / ``cached_paged_decode_step``), and
-captures it into a CUDA graph: on the card every decode step of the
-engine is one graph replay. An entry owns the weights and the KV pool it
-was captured over; an engine binding it copies its weights in.
+The step functions run eagerly under ``torch.no_grad()``. The engine runs
+them through step objects over static buffers that it fills and reads: a
+:class:`DecodeStep` (tokens, block table, logits; it advances the pool's
+positions in place) and a :class:`PrefillStep` (one chunk of a chunked
+prefill into a B=1 staging cache of a prompt bucket's extent, or a
+one-shot prefill of one prompt length). :func:`cached_decode_step`
+memoises one decode step per decode shape, as the JAX package memoises
+one jitted executable per shape (``cached_decode_step`` /
+``cached_paged_decode_step``), and captures it into a CUDA graph; its
+prefill steps hang off it, one per (bucket, chunk) or prompt length
+(:func:`cached_chunked_prefill_step`, :func:`cached_prefill_step`, the
+reference's ``cached_chunked_prefill_step`` / ``cached_prefill_step``),
+captured at first use over the same weights. On the card every decode
+step, prefill chunk and one-shot prefill of the engine is one graph
+replay. A decode entry owns the weights and the KV pool it was captured
+over, and its prefill entries' staging buffers; an engine binding it
+copies its weights in. Every replay runs on the caller's current stream,
+so the graphs, which share one memory pool, never run at once.
 """
 from __future__ import annotations
 
@@ -19,16 +28,18 @@ import warnings
 import torch
 
 from repro_torch.errors import ConfigError
+from repro_torch.kernels.sc_matmul import scratch_scope
 from repro_torch.models import cache_ops
 
 __all__ = ["prompt_buckets", "bucket_for", "prefill_step", "decode_step",
            "chunked_prefill_step", "paged_decode_step", "DecodeStep",
-           "cached_decode_step", "capture", "decode_steps",
+           "PrefillStep", "cached_decode_step", "cached_chunked_prefill_step",
+           "cached_prefill_step", "capture", "decode_steps",
            "clear_decode_steps", "launch_counters"]
 
-#: Eager runs of a step on the capture stream before its capture: they
-#: allocate the SC-GEMM scratch of that stream and make the kernels'
-#: one-time attribute calls outside the capture.
+#: Eager runs of a step on the capture stream before its capture, each
+#: from the step's reset state: they allocate the step's SC-GEMM scratch
+#: and make the kernels' one-time attribute calls outside the capture.
 WARMUP_RUNS = 3
 
 
@@ -72,8 +83,9 @@ def decode_step(model, params, cache, batch: dict):
 
 @torch.no_grad()
 def chunked_prefill_step(model, params, cache, batch: dict):
-    """One prompt chunk into a B=1 staging cache: ``batch = {"tokens":
-    (1, chunk), "n_valid": int}``."""
+    """One prompt chunk into a B=1 staging cache, which it advances in
+    place: ``batch = {"tokens": (1, chunk), "n_valid": int or (1,) int32
+    tensor}``."""
     return model.prefill_chunk_step(params, cache, batch)
 
 
@@ -85,13 +97,13 @@ def paged_decode_step(model, params, cache, tables: torch.Tensor,
     return model.paged_decode_step(params, cache, tables, batch)
 
 
-# --------------------------------------------------------------- decode
+# ------------------------------------------------------- graphed steps
 
 
 def launch_counters() -> dict:
     """The kernel wrappers that count their launches (``fn.launches``), by
     name: a replayed graph launches their kernels without calling them,
-    so :meth:`DecodeStep.replay` adds what its capture recorded."""
+    so a step's ``replay`` adds what its capture recorded."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.sc_bitops import sc_stream_mul_cuda
@@ -135,7 +147,36 @@ def _empty_like(tree):
     return tree
 
 
-class DecodeStep:
+class _Step:
+    """What a step over static buffers shares with the others: ``run``
+    (the step, eagerly) and ``reset`` (its reset state) are the
+    subclass's; :meth:`replay` runs ``run`` until :func:`capture` makes it
+    a CUDA graph's replay. ``launch_counts`` holds, by wrapper name, the
+    kernel launches one captured step makes; each replay adds them to the
+    wrappers' counters. ``scratch`` is the SC-GEMM scratch the graph was
+    captured over (``kernels.sc_matmul.scratch_scope``), kept as long as
+    the step."""
+
+    def _init_replay(self) -> None:
+        self.captures = 0
+        self.replays = 0
+        self.launch_counts: dict[str, int] = {}
+        self.scratch: dict = {}
+        self._graph = None
+
+    def replay(self) -> None:
+        if self._graph is None:
+            self.run()
+        else:
+            self._graph.replay()
+        self.replays += 1
+        if self.launch_counts:
+            counters = launch_counters()
+            for name, n in self.launch_counts.items():
+                counters[name].launches += n
+
+
+class DecodeStep(_Step):
     """One batched decode step over static buffers.
 
     The caller writes ``tokens (capacity, 1)`` and, paged, ``tables
@@ -146,10 +187,10 @@ class DecodeStep:
     place too. ``fused=False`` runs the gather → dense decode → commit
     round trip; ``max_blocks=None`` is the contiguous pool.
 
-    :meth:`replay` runs :meth:`run` eagerly until :func:`capture` makes
-    it a CUDA graph's replay. ``launch_counts`` holds, by wrapper name,
-    the kernel launches one captured step makes; each replay adds them to
-    the wrappers' counters."""
+    ``prefills`` holds the prefill steps of this entry, by shape
+    (:func:`cached_chunked_prefill_step`, :func:`cached_prefill_step`):
+    they run over the same weights, and are captured when this step
+    was."""
 
     def __init__(self, model, params, cache, *, capacity: int,
                  max_blocks: int | None = None, block: int | None = None,
@@ -164,12 +205,9 @@ class DecodeStep:
             (capacity, max_blocks), -1, dtype=torch.int32, device=dev)
         self.logits = torch.zeros((capacity, 1, model.cfg.vocab_size),
                                   dtype=torch.float32, device=dev)
-        self.captures = 0
-        self.replays = 0
-        self.launch_counts: dict[str, int] = {}
-        self.stream = None
+        self.prefills: dict[tuple, PrefillStep] = {}
         self.owner = None       # a weakref to the engine it serves
-        self._replay = self.run
+        self._init_replay()
 
     @torch.no_grad()
     def run(self) -> None:
@@ -191,14 +229,6 @@ class DecodeStep:
                                          block=self.block)
         self.logits.copy_(logits)
         self.cache.pos.copy_(new.pos)
-
-    def replay(self) -> None:
-        self._replay()
-        self.replays += 1
-        if self.launch_counts:
-            counters = launch_counters()
-            for name, n in self.launch_counts.items():
-                counters[name].launches += n
 
     def load(self, params) -> None:
         """Copy ``params`` (a tree of the same structure and shapes) into
@@ -225,18 +255,90 @@ class DecodeStep:
                 self.tables.fill_(-1)
 
 
-def capture(step: DecodeStep) -> None:
-    """Capture ``step.run`` into a CUDA graph and make its replay the
-    step's :meth:`~DecodeStep.replay`, PyTorch's way: :data:`WARMUP_RUNS`
-    eager runs on a side stream (with synchronizing calls made errors),
-    then the capture on that stream under ``torch.no_grad()``, into the
-    memory pool every decode graph shares. The launches the capture
-    recorded become ``step.launch_counts``; the counters are put back,
-    since a capture launches nothing. Raises, never falls back."""
+class PrefillStep(_Step):
+    """One prefill over static buffers, on the weights ``params``.
+
+    Chunked (``chunk`` tokens): the caller writes ``tokens (1, chunk)``
+    (zero-padded past the valid ones) and ``n_valid (1,)`` (int32) in
+    place, calls :meth:`replay`, and reads ``logits (1, 1, vocab)``
+    (float32, the last valid row). The chunk lands in the B=1 staging
+    ``cache`` of ``extent`` positions (a prompt bucket) at ``cache.pos``,
+    which the step advances in place; a new prompt starts with
+    :meth:`start`. The caller keeps ``cache.pos + chunk <= extent``.
+
+    One-shot (``chunk=None``): ``tokens (1, extent)`` is the prompt;
+    ``cache`` (extent ``extent``, ``pos`` = ``extent``) and ``logits``
+    take the prefill's K/V and last-row logits.
+
+    Either way the caller copies ``cache`` out (``cache_ops.truncate_seq``
+    and the pool's admission) before the step runs again."""
+
+    def __init__(self, model, params, *, extent: int,
+                 chunk: int | None = None):
+        dev = model.device
+        self.model, self.params = model, params
+        self.extent, self.chunk = extent, chunk
+        self.tokens = torch.zeros((1, extent if chunk is None else chunk),
+                                  dtype=torch.int32, device=dev)
+        self.n_valid = None if chunk is None else torch.zeros(
+            (1,), dtype=torch.int32, device=dev)
+        self.cache = model.init_cache(1, extent)
+        self.logits = torch.zeros((1, 1, model.cfg.vocab_size),
+                                  dtype=torch.float32, device=dev)
+        self._init_replay()
+        self.reset()
+
+    @torch.no_grad()
+    def run(self) -> None:
+        """The step, eagerly: the existing prefill functions on the static
+        buffers, the logits (and, one-shot, the K/V) copied into place."""
+        if self.chunk is not None:
+            logits, _ = chunked_prefill_step(
+                self.model, self.params, self.cache,
+                {"tokens": self.tokens, "n_valid": self.n_valid})
+        else:
+            logits, out = prefill_step(self.model, self.params,
+                                       {"tokens": self.tokens})
+            for dst, src in zip((*self.cache.k, *self.cache.v),
+                                (*out.k, *out.v), strict=True):
+                dst.copy_(src)
+        self.logits.copy_(logits)
+
+    def start(self) -> None:
+        """A new prompt: the staging position back to 0. K/V left past it
+        by an earlier prompt stay: every key past a row's position is
+        masked to an exact zero weight."""
+        self.cache.pos.zero_()
+
+    def reset(self) -> None:
+        """Zero tokens at position 0 (a full chunk valid), zero K/V and
+        logits: what a capture runs on."""
+        with torch.no_grad():
+            for t in (*self.cache.k, *self.cache.v, self.tokens,
+                      self.logits):
+                t.zero_()
+            if self.chunk is None:
+                self.cache.pos.fill_(self.extent)
+            else:
+                self.cache.pos.zero_()
+                self.n_valid.fill_(self.chunk)
+
+
+def capture(step: _Step) -> None:
+    """Capture ``step.run`` (a :class:`DecodeStep` or a
+    :class:`PrefillStep`) into a CUDA graph and make its replay the step's
+    ``replay``, PyTorch's way: :data:`WARMUP_RUNS` eager runs on a side
+    stream, each from ``step.reset()`` (with synchronizing calls made
+    errors), then the capture on that stream from the reset state under
+    ``torch.no_grad()``, into the memory pool every graph shares. The
+    warm-up and the capture take their SC-GEMM scratch from the step's
+    own table, which the step keeps. The launches the capture recorded
+    become ``step.launch_counts``; the counters are put back, since a
+    capture launches nothing. Raises, never falls back."""
     dev = step.cache.pos.device
     if dev.type != "cuda":
-        raise ConfigError(f"decode graphs need the card, not {dev}; on the "
-                          f"CPU the engine runs the eager step "
+        raise ConfigError(f"CUDA graphs need the card, not {dev}; on the "
+                          f"CPU the engine runs the eager steps "
                           f"(graphs=None or False)")
     global _POOL
     if _POOL is None:
@@ -244,30 +346,31 @@ def capture(step: DecodeStep) -> None:
     stream = torch.cuda.Stream(dev)
     stream.wait_stream(torch.cuda.current_stream(dev))
     mode = torch.cuda.get_sync_debug_mode()
-    with warnings.catch_warnings():
-        warnings.filterwarnings("ignore", "Synchronization debug mode")
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            with torch.cuda.stream(stream):
-                for _ in range(WARMUP_RUNS):
-                    step.run()
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
-    torch.cuda.current_stream(dev).wait_stream(stream)
     counters = launch_counters()
-    before = {name: fn.launches for name, fn in counters.items()}
-    graph = torch.cuda.CUDAGraph()
-    with torch.no_grad(), torch.cuda.graph(graph, pool=_POOL, stream=stream):
-        step.run()
+    with scratch_scope(step.scratch):
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", "Synchronization debug mode")
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                with torch.cuda.stream(stream):
+                    for _ in range(WARMUP_RUNS):
+                        step.reset()
+                        step.run()
+                    step.reset()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        before = {name: fn.launches for name, fn in counters.items()}
+        graph = torch.cuda.CUDAGraph()
+        with torch.no_grad(), torch.cuda.graph(graph, pool=_POOL,
+                                               stream=stream):
+            step.run()
     step.launch_counts = {name: fn.launches - before[name]
                           for name, fn in counters.items()
                           if fn.launches != before[name]}
     for name, fn in counters.items():
         fn.launches = before[name]
-    # the step keeps its stream: that stream's SC-GEMM scratch, keyed by
-    # its handle, is what the graph's SC-GEMM launches use
-    step.stream = stream
-    step._replay = graph.replay
+    step._graph = graph
     step.captures += 1
 
 
@@ -295,7 +398,8 @@ def cached_decode_step(model, params, *, capacity: int, max_seq: int,
                        fused: bool = True) -> DecodeStep:
     """The decode step of this shape (paged, or with ``max_blocks=None``
     the contiguous pool), made and captured (:func:`capture`) on first
-    use and shared by every engine of the shape after that.
+    use and shared by every engine of the shape after that, with its
+    prefill steps.
     Table contents, page churn and positions are inputs: they never cause
     a second capture. A new entry owns new weights (``params``' structure,
     loaded from ``params``) and a new, empty KV pool; engines bind it
@@ -316,6 +420,44 @@ def cached_decode_step(model, params, *, capacity: int, max_seq: int,
         step.reset()
         _STEPS[key] = step
     return step
+
+
+def _prefill_entry(decode: DecodeStep, key: tuple, *, extent: int,
+                   chunk: int | None = None) -> PrefillStep:
+    step = decode.prefills.get(key)
+    if step is None:
+        step = PrefillStep(decode.model, decode.params, extent=extent,
+                           chunk=chunk)
+        if decode.captures:
+            capture(step)
+            step.reset()
+        decode.prefills[key] = step
+    return step
+
+
+def cached_chunked_prefill_step(decode: DecodeStep, *, bucket: int,
+                                chunk: int) -> PrefillStep:
+    """The chunked-prefill step of ``decode``'s engines for prompts of
+    ``bucket`` (a :func:`prompt_buckets` extent) in chunks of ``chunk``:
+    made on first use over ``decode``'s weights, captured (:func:`capture`,
+    with zero tokens at position 0, then reset) when ``decode`` was, and
+    kept in ``decode.prefills``. Like the reference's
+    ``cached_chunked_prefill_step`` it is keyed on the config (through the
+    decode entry: attention mode and ``sc_bits`` included), the device,
+    the bucket and the chunk, so an engine makes at most
+    ``len(prompt_buckets(max_seq, chunk))`` of them; the chunk's offset
+    and valid length are inputs, never a new capture."""
+    return _prefill_entry(decode, ("chunked", bucket, chunk), extent=bucket,
+                          chunk=chunk)
+
+
+def cached_prefill_step(decode: DecodeStep, *,
+                        prompt_len: int) -> PrefillStep:
+    """The one-shot prefill step of ``decode``'s engines for prompts of
+    ``prompt_len`` tokens, made and captured as
+    :func:`cached_chunked_prefill_step`'s: one per distinct prompt length,
+    as the reference compiles one prefill per prompt length."""
+    return _prefill_entry(decode, ("oneshot", prompt_len), extent=prompt_len)
 
 
 def decode_steps() -> dict[tuple, DecodeStep]:

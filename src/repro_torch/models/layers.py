@@ -13,8 +13,10 @@ and PV contractions run through the paper's popcount multiplier
 its fused flash kernel only for canonical positions at 128-aligned widths
 and sends chunked prefill through the jnp formulation. Here the kernel
 takes a ``q_offset`` (query row ``i`` at position ``q_offset + i``, keys at
-``0..Skv-1``), so on the card one-shot prefill (offset 0) and chunked
-prefill (the staging offset) both run it — and the chunked engine, the
+``0..Skv-1``; an int, or a one-element int32 tensor on the card that the
+kernel reads, so a captured chunk replays at any staging offset), so on
+the card one-shot prefill (offset 0) and chunked prefill (the staging
+offset) both run it — and the chunked engine, the
 one-shot engine and the sequential baseline reduce each row identically.
 The MXU alignment is dropped: the gate is causal, no window, no softcap,
 not ``bf16_probs``, SC bits in 2..8.
@@ -161,8 +163,10 @@ class _FlashKernelCall(torch.autograd.Function):
         q_offset, kv_block, sc_bits, q_block, skip = ctx.opts
         b, sq = q.shape[:2]
         skv = k.shape[1]
+        # a tensor offset stays on the device: positions are built there
         qpos = (q_offset + torch.arange(sq, dtype=torch.int32,
                                         device=q.device)).expand(b, sq)
+        canonical = isinstance(q_offset, int) and q_offset == 0
         kpos = torch.arange(skv, dtype=torch.int32,
                             device=q.device).expand(b, skv)
         with torch.enable_grad():
@@ -170,7 +174,7 @@ class _FlashKernelCall(torch.autograd.Function):
             out = _flash_plain(*leaves, q_positions=qpos, kv_positions=kpos,
                                causal=True, window=None, logit_softcap=None,
                                q_block=q_block, kv_block=kv_block,
-                               skip_masked_blocks=skip and q_offset == 0,
+                               skip_masked_blocks=skip and canonical,
                                bf16_probs=False, sc_bits=sc_bits)
             grads = torch.autograd.grad(out, leaves, grad)
         return (*grads, None, None, None, None, None)
@@ -183,7 +187,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_block: int = 512, kv_block: int = 1024,
                     skip_masked_blocks: bool = False,
                     bf16_probs: bool = False, kernel_impl: str = "auto",
-                    q_offset: int | None = None,
+                    q_offset: int | torch.Tensor | None = None,
                     sc_bits: int | None = None) -> torch.Tensor:
     """Blocked online-softmax attention with grouped (GQA) heads.
 
@@ -194,8 +198,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``kv_block`` of keys.
 
     ``q_offset`` declares the positions canonical: query row ``i`` at
-    ``q_offset + i`` and keys at ``0..Skv-1`` for every batch row. Only
-    then may the fused kernel serve the call (module docstring):
+    ``q_offset + i`` and keys at ``0..Skv-1`` for every batch row (an int,
+    or a one-element int32 tensor on the positions' device, never read on
+    the host). Only then may the fused kernel serve the call (module
+    docstring):
     ``kernel_impl="auto"`` runs it for tensors on the card, "pallas_tuned"
     goes through its wrapper on every eligible call (the plain version on
     the CPU), "jnp" forces the plain formulation. The kernel quantizes SC
@@ -213,7 +219,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         sc_bits=sc_bits)
     if eligible and (kernel_impl == "pallas_tuned"
                      or (kernel_impl == "auto" and q.is_cuda)):
-        return _FlashKernelCall.apply(q, k, v, int(q_offset), kv_block,
+        if not isinstance(q_offset, torch.Tensor):
+            q_offset = int(q_offset)
+        return _FlashKernelCall.apply(q, k, v, q_offset, kv_block,
                                       sc_bits, q_block, skip_masked_blocks)
     return _flash_plain(q, k, v, q_positions=q_positions,
                         kv_positions=kv_positions, causal=causal,

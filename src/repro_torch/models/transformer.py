@@ -35,7 +35,6 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sc_layers import sc_proj
 from repro_torch.device import resolve_device
-from repro_torch.errors import CacheLayoutError
 from repro_torch.kernels.sc_matmul import pack_weight
 
 from .layers import (PagedKV, apply_rope, decode_attention, flash_attention,
@@ -341,23 +340,33 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, cache: KVCache,
     current position (chunked prefill).
 
     ``batch["tokens"]: (1, T)`` is the chunk, zero-padded past
-    ``batch["n_valid"]`` real tokens. Returns the logits of the last valid
-    row ``(1, 1, V)`` and the cache (updated in place) advanced by
-    ``n_valid``. Pad rows write garbage K/V past the prompt, which
-    ``cache_ops.truncate_seq`` slices away before pool admission.
+    ``batch["n_valid"]`` real tokens (an int, or an int32 tensor of one
+    element). Returns the logits of the last valid row ``(1, 1, V)`` and
+    the cache, updated in place: the chunk's K/V written at its positions
+    and ``cache.pos`` advanced by ``n_valid``. Pad rows write garbage K/V
+    past the prompt, which ``cache_ops.truncate_seq`` slices away before
+    pool admission.
+
+    Nothing here reads a device value on the host, so a CUDA graph can
+    capture the step and replay it at any offset: the offset and the
+    valid length stay tensors (the JAX step's ``dynamic_slice_in_dim``
+    becomes ``index_copy_`` / ``index_select`` at positions computed on
+    the device, and the flash kernel reads its ``q_offset`` there). The
+    caller, which knows the offset on the host, keeps ``pos + T`` within
+    the staging extent.
     """
     tokens = batch["tokens"]
     x = _embed_tokens(params, cfg, tokens)
     b, t, _ = x.shape
-    n_valid = int(torch.as_tensor(batch["n_valid"]).reshape(-1)[0])
-    off = int(cache.pos.reshape(-1)[0])
+    n_valid = torch.as_tensor(batch["n_valid"], dtype=torch.int32,
+                              device=x.device).reshape(-1)[:1]
     pos = cache.pos.expand(b) if cache.pos.numel() == 1 else cache.pos
     positions = (pos[:, None].to(torch.int32)
                  + torch.arange(t, dtype=torch.int32, device=x.device)[None])
+    # every row of the chunk sits at the shared staging offset
+    offset = pos[0]
+    cols = positions[0].to(torch.long)
     e = cache.k[0].shape[2]
-    if off + t > e:
-        raise CacheLayoutError(f"chunk [{off}, {off + t}) overruns the "
-                               f"staging cache extent {e}")
     kv_pos = torch.arange(e, dtype=torch.int32, device=x.device).expand(b, e)
     for i, layer in enumerate(params["layers"]):
         k_cache, v_cache = _layer_kv(cache, cfg, i)
@@ -365,26 +374,27 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, cache: KVCache,
 
         def attend(p, h, k_cache=k_cache, v_cache=v_cache, window=window):
             q, k, v = _qkv(p, h, cfg, positions)
-            # every row of the chunk sits at the shared staging offset;
             # columns past the filled prefix are causally masked, so bucket
             # padding and pad-row writes are exact no-ops for valid rows.
             # q_offset puts the chunk on the flash kernel on the card, so
             # its rows reduce as a one-shot prefill's do.
-            k_cache[:, off:off + t] = k.to(k_cache.dtype)
-            v_cache[:, off:off + t] = v.to(v_cache.dtype)
+            k_cache.index_copy_(1, cols, k.to(k_cache.dtype))
+            v_cache.index_copy_(1, cols, v.to(v_cache.dtype))
             return flash_attention(
                 q, k_cache, v_cache, q_positions=positions,
                 kv_positions=kv_pos, causal=True, window=window,
                 logit_softcap=cfg.attn_softcap,
                 q_block=min(cfg.q_block, t), kv_block=min(cfg.kv_block, e),
                 skip_masked_blocks=False, bf16_probs=cfg.bf16_probs,
-                kernel_impl=cfg.attn_kernel, q_offset=off,
+                kernel_impl=cfg.attn_kernel, q_offset=offset,
                 sc_bits=_attn_sc_bits(cfg))
 
         x = _layer(layer, x, cfg, attend)
     x = _final(params, cfg, x)
-    logits = logits_from_hidden(params, cfg, x[:, n_valid - 1:n_valid])
-    return logits, KVCache(k=cache.k, v=cache.v, pos=cache.pos + n_valid)
+    last = x.index_select(1, (n_valid - 1).to(torch.long))
+    logits = logits_from_hidden(params, cfg, last)
+    cache.pos.add_(n_valid)
+    return logits, cache
 
 
 # ------------------------------------------------------------------ decode

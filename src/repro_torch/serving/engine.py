@@ -14,6 +14,13 @@ runs one batched decode over every live slot; :meth:`Engine.run` and
   for more than a chunk. The finished staging cache is truncated to the
   prompt (``cache_ops.truncate_seq``) and admitted like a one-shot prefill.
   ``prefill_mode="oneshot"`` keeps whole-prompt admission as the A/B.
+  Either runs through a ``launch.steps.PrefillStep`` of its shape (the
+  bucket, or the prompt length): the engine stages a prompt in pinned host
+  buffers once, copies each chunk's tokens and valid length into the
+  step's static buffers, replays it, and reads the final logit row. On the
+  card a step is its shape's captured CUDA graph, captured at first use
+  (``launch.steps.cached_chunked_prefill_step`` /
+  ``cached_prefill_step``); on the CPU it runs eagerly.
 * *Grow (paged)*: before each decode step every live slot's next write
   position gets its page (``PagedSlotPool.ensure_page``); exhaustion
   preempts youngest-first — an in-flight staging prefill included — and
@@ -45,10 +52,11 @@ from typing import Any, Callable, Iterator, Sequence
 import numpy as np
 import torch
 
-from repro_torch.errors import ConfigError, EngineInvariantError
-from repro_torch.launch.steps import (DecodeStep, bucket_for,
-                                      cached_decode_step,
-                                      chunked_prefill_step, prefill_step,
+from repro_torch.errors import (CacheLayoutError, ConfigError,
+                                EngineInvariantError)
+from repro_torch.launch.steps import (DecodeStep, PrefillStep, bucket_for,
+                                      cached_chunked_prefill_step,
+                                      cached_decode_step, cached_prefill_step,
                                       prompt_buckets)
 from repro_torch.models import bind, cache_ops
 from repro_torch.models.transformer import pack_sc_weights, params_to
@@ -68,11 +76,11 @@ TokenCallback = Callable[[str, int, np.ndarray, "str | None"], None]
 @dataclass
 class _StagingPrefill:
     """One in-flight chunked prefill: the queue head being committed, chunk
-    by chunk, into a B=1 staging cache of ``bucket`` extent. ``rows``
+    by chunk, into the B=1 staging cache of its bucket's step. ``rows``
     holds the final chunk's logit row once complete."""
     entry: SlotEntry
     bucket: int
-    cache: Any
+    step: PrefillStep
     rows: np.ndarray | None = None
 
     @property
@@ -94,18 +102,20 @@ class Engine:
 
     ``device=None`` means the card; a machine without CUDA raises
     :class:`ConfigError` unless ``device="cpu"`` is asked for.
-    ``graphs=None`` replays a captured CUDA graph a decode step on the
-    card and runs the step eagerly on the CPU; ``graphs=False`` runs it
-    eagerly on the card too (the A/B); ``graphs=True`` on the CPU raises
-    :class:`ConfigError`. A graphed engine serves from its decode shape's
-    cached step, which holds the weights and the KV pool the graph was
-    captured over: binding it copies this engine's packed weights in and
-    empties the pool, and is refused while another engine holds requests
-    in it. An engine whose step another engine has since bound binds it
-    again on its next step, when it holds no request. SC attention
-    (``cfg.attn_sc``) is served, in both prefill modes. The prefix cache
-    (``prefix_cache=True``) and speculative decoding (``speculate_k > 0``)
-    come with later slices of the port and are refused here.
+    ``graphs=None`` replays a captured CUDA graph a decode step, a prefill
+    chunk or a one-shot prefill on the card and runs the steps eagerly on
+    the CPU; ``graphs=False`` runs them eagerly on the card too (the A/B);
+    ``graphs=True`` on the CPU raises :class:`ConfigError`. A graphed
+    engine serves from its decode shape's cached step, which holds the
+    weights, the KV pool and the prefill steps' staging buffers its graphs
+    were captured over: binding it copies this engine's packed weights in
+    and empties the pool, and is refused while another engine holds
+    requests in it (a staging prefill included). An engine whose step
+    another engine has since bound binds it again on its next step, when
+    it holds no request. SC attention (``cfg.attn_sc``) is served, in both
+    prefill modes. The prefix cache (``prefix_cache=True``) and
+    speculative decoding (``speculate_k > 0``) come with later slices of
+    the port and are refused here.
     """
 
     def __init__(self, cfg, params, *, capacity: int = 4, max_seq: int = 256,
@@ -180,6 +190,14 @@ class Engine:
         self._tok_buf = self._tok_host.numpy()
         self._tables_host = None if not paged else torch.zeros(
             (capacity, max_blocks), dtype=torch.int32, pin_memory=pin)
+        # a prompt, zero-padded to its bucket, and each chunk's valid
+        # length, written once a prompt; _copied marks the last copy out
+        # of them, which a new prompt waits for before it overwrites them
+        self._prompt_host = torch.zeros((1, self.buckets[-1]),
+                                        dtype=torch.int32, pin_memory=pin)
+        self._nv_host = torch.zeros((self.buckets[-1] // chunk,),
+                                    dtype=torch.int32, pin_memory=pin)
+        self._copied = torch.cuda.Event() if pin else None
         self.queue = RequestQueue()
         self.stats: dict[str, Any] = {}
         self._step = 0          # decode-step counter (admissions are free)
@@ -284,36 +302,70 @@ class Engine:
         else:
             self._tok_buf[slot] = tok
 
+    # ------------------------------------------------------------ prefill
+
+    def _stage_prompt(self, req: Request, width: int) -> None:
+        """Write the prompt, zero-padded to ``width``, and each chunk's
+        valid length into the pinned host buffers."""
+        if self._copied is not None:
+            # the previous prompt's copies out of these buffers have run (a
+            # prompt's last logit row is read back, so this waits only for
+            # a prompt preempted mid-prefill)
+            self._copied.synchronize()
+        n = req.prompt_len
+        self._prompt_host.numpy()[0, :width] = 0
+        self._prompt_host.numpy()[0, :n] = req.prompt
+        nv = [min(self.chunk, n - off) for off in range(0, n, self.chunk)]
+        self._nv_host.numpy()[:len(nv)] = nv
+
+    def _copy_in(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        dst.copy_(src, non_blocking=True)
+        if self._copied is not None:
+            self._copied.record()
+
+    def _prefill_captures(self) -> int:
+        return sum(s.captures for s in self._decode.prefills.values())
+
+    def prefill_steps(self) -> dict[tuple, PrefillStep]:
+        """The prefill steps of this engine's decode entry, by shape:
+        ``("chunked", bucket, chunk)`` or ``("oneshot", prompt_len)``."""
+        return dict(self._decode.prefills)
+
     # ----------------------------------------------------- chunked prefill
 
     def _start_prefill(self, req: Request) -> _StagingPrefill:
-        """Pop the queue head into a fresh staging prefill of its bucket;
-        the entry is created now, so it is the youngest for preemption."""
+        """Pop the queue head into a staging prefill of its bucket, on that
+        bucket's step (its staging position back to 0); the entry is
+        created now, so it is the youngest for preemption."""
         self.pool.check_fits(req)
         bucket = bucket_for(req.prompt_len, self.buckets)
         self._prefill_shapes.add((bucket, self.chunk))
+        step = cached_chunked_prefill_step(self._decode, bucket=bucket,
+                                           chunk=self.chunk)
+        self._stage_prompt(req, bucket)
+        step.start()
         entry = SlotEntry(request=req, admitted_at=0.0, admit_step=self._step,
                           admit_index=self._admit_counter)
         self._admit_counter += 1
-        return _StagingPrefill(entry=entry, bucket=bucket,
-                               cache=self._m.init_cache(1, bucket))
+        return _StagingPrefill(entry=entry, bucket=bucket, step=step)
 
     def _prefill_chunk_once(self, st: _StagingPrefill) -> None:
         """Commit one chunk of the staging prompt (the final chunk is
         zero-padded past its real tokens)."""
-        req = st.entry.request
+        req, step = st.entry.request, st.step
         off = st.entry.prefill_offset
-        nv = min(self.chunk, req.prompt_len - off)
-        toks = np.zeros((self.chunk,), np.int32)
-        toks[:nv] = req.prompt[off:off + nv]
-        batch = {"tokens": torch.as_tensor(toks, device=self.device)[None],
-                 "n_valid": nv}
-        logits, st.cache = chunked_prefill_step(self._m, self._params,
-                                                st.cache, batch)
-        st.entry.prefill_offset = off + nv
+        if off + self.chunk > st.bucket:
+            raise CacheLayoutError(f"chunk [{off}, {off + self.chunk}) "
+                                   f"overruns the staging extent {st.bucket}")
+        i = off // self.chunk
+        step.tokens.copy_(self._prompt_host[:, off:off + self.chunk],
+                          non_blocking=True)
+        self._copy_in(step.n_valid, self._nv_host[i:i + 1])
+        step.replay()
+        st.entry.prefill_offset = off + min(self.chunk, req.prompt_len - off)
         self._n_prefill_chunks += 1
         if st.done:
-            st.rows = self._rows(logits)[0]
+            st.rows = self._rows(step.logits)[0]
 
     def _can_admit_staged(self, st: _StagingPrefill) -> bool:
         if not self.pool.has_free:
@@ -329,7 +381,9 @@ class Engine:
         st = self._staging
         self._staging = None
         req = st.entry.request
-        single = cache_ops.truncate_seq(st.cache, req.prompt_len)
+        # the pool copies the prompt's K/V out of the staging cache now, in
+        # stream order before any later replay of its step
+        single = cache_ops.truncate_seq(st.step.cache, req.prompt_len)
         st.entry.admitted_at = time.perf_counter()
         st.entry.admit_step = self._step
         slot = self.pool.admit(st.entry, single)
@@ -367,17 +421,21 @@ class Engine:
         return self.pool.can_admit(self.queue.peek())
 
     def _admit_one(self, req: Request) -> None:
-        self._prefill_shapes.add((req.prompt_len, 0))
-        batch = {"tokens": torch.as_tensor(req.prompt, device=self.device)[None]}
-        logits, single = prefill_step(self._m, self._params, batch)
+        n = req.prompt_len
+        self._prefill_shapes.add((n, 0))
+        step = cached_prefill_step(self._decode, prompt_len=n)
+        self._stage_prompt(req, n)
+        self._copy_in(step.tokens, self._prompt_host[:, :n])
+        step.replay()
+        rows = self._rows(step.logits)
         entry = SlotEntry(request=req, admitted_at=time.perf_counter(),
                           admit_step=self._step,
                           admit_index=self._admit_counter,
                           prefill_offset=req.prompt_len)
         self._admit_counter += 1
         self._n_prefills += 1
-        slot = self.pool.admit(entry, single)
-        self._emit(slot, entry, self._sample(entry, self._rows(logits)[0]))
+        slot = self.pool.admit(entry, step.cache)
+        self._emit(slot, entry, self._sample(entry, rows[0]))
 
     # ----------------------------------------------------------- the pool
 
@@ -548,7 +606,7 @@ class Engine:
         t0 = time.perf_counter()
         steps0, prefills0 = self._step, self._n_prefills
         chunks0, preempt0 = self._n_prefill_chunks, self._n_preemptions
-        decode0 = self._decode_s
+        decode0, captures0 = self._decode_s, self._prefill_captures()
         self._backpressure = {"admission": [], "decode": []}
         self._last_decode_end = None
         self._max_decode_gap = 0.0
@@ -578,6 +636,7 @@ class Engine:
             "mode": "continuous" if self.continuous else "static",
             "layout": "paged" if self.paged else "contiguous",
             "decode_graphs": self.graphs,
+            "prefill_captures": self._prefill_captures() - captures0,
             "prefill_mode": self.prefill_mode,
             "device": str(self.device),
             "requests": len(out),

@@ -238,9 +238,13 @@ def test_engine_streams_equal_sequential_baseline_on_the_card(cuda, block):
     res = engine.run([Request(uid=f"r{i}", prompt=p, max_new_tokens=g)
                       for i, (p, g) in enumerate(zip(prompts, gens))])
     st = engine.stats
-    # one fused launch a projection; no weight quantized per call
+    # one fused launch a projection; no weight quantized per call. A
+    # prefill shape's capture (at its first use in the run) launches too,
+    # in its warm-up runs
+    from repro_torch.launch.steps import WARMUP_RUNS
     assert sc_linear.launches - fused0 == (7 * cfg.n_layers + 1) * (
-        st["decode_steps"] + st["prefill_chunks"])
+        st["decode_steps"] + st["prefill_chunks"]
+        + WARMUP_RUNS * st["prefill_captures"])
     assert sc_matmul_counts_signed.launches == counts0
     for r, p, g in zip(res, prompts, gens):
         ref = generate(cfg, params, p[None], gen_tokens=g, device=cuda)
@@ -862,3 +866,182 @@ def test_a_capture_that_synchronizes_raises(cuda):
     with pytest.raises(RuntimeError):
         steps.capture(step)
     assert step.captures == 0 and not steps.decode_steps()
+
+
+# ----------------------------------------------------- prefill graphs
+
+
+@pytest.mark.parametrize("bits", [None, 8], ids=["float", "sc8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_device_offset_equals_the_int_offset_bitwise(cuda, dtype,
+                                                           bits):
+    """The offset read on the device (a worst-case grid whose blocks find
+    their m-tiles from it) gives the int-offset launch's bits at every
+    chunk offset of a 256-token bucket and at ragged offsets, with NaN in
+    the staging cache past the chunk."""
+    rng = np.random.default_rng(11)
+    h, kv, e, d, chunk = 15, 5, 256, 64, 16
+    q = torch.as_tensor(rng.standard_normal((1, e, h, d)), dtype=dtype
+                        ).to(cuda).transpose(1, 2)
+    k, v = (torch.as_tensor(rng.standard_normal((1, kv, e, d)),
+                            dtype=dtype).to(cuda) for _ in range(2))
+    offsets = list(range(0, e - chunk + 1, chunk)) + [3, 37, 100, 239]
+    for off in offsets:
+        kx, vx = (torch.full_like(t, math.nan) for t in (k, v))
+        kx[:, :, :off + chunk], vx[:, :, :off + chunk] = (
+            k[:, :, :off + chunk], v[:, :, :off + chunk])
+        rows = q[:, :, off:off + chunk]
+        want = flash_attention(rows, kx, vx, q_offset=off, group=e,
+                               sc_bits=bits)
+        dev_off = torch.tensor(off, dtype=torch.int32, device=cuda)
+        got = flash_attention(rows, kx, vx, q_offset=dev_off, group=e,
+                              sc_bits=bits)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), off
+        assert torch.equal(got, want), off
+
+
+def _prefill_run(step, prompt, chunk=None):
+    """A prompt through a prefill step, as the engine drives it: each
+    chunk's (or the one-shot's) logits, then the step's K/V."""
+    logits = []
+    if chunk is None:
+        step.tokens.copy_(torch.as_tensor(prompt)[None])
+        step.replay()
+        logits.append(step.logits.clone())
+    else:
+        step.start()
+        for off in range(0, len(prompt), chunk):
+            nv = min(chunk, len(prompt) - off)
+            toks = np.zeros((1, chunk), np.int32)
+            toks[0, :nv] = prompt[off:off + nv]
+            step.tokens.copy_(torch.as_tensor(toks))
+            step.n_valid.fill_(nv)
+            step.replay()
+            logits.append(step.logits.clone())
+    n = len(prompt)
+    return logits, [t[:, :, :n].clone()
+                    for t in (*step.cache.k, *step.cache.v)]
+
+
+@pytest.mark.parametrize("mode", ["chunked", "oneshot"])
+@pytest.mark.parametrize("attn_sc", [False, True], ids=["float", "sc"])
+def test_prefill_replays_bitwise_equal_the_eager_step(cuda, attn_sc, mode):
+    """A captured prefill step's replays give each chunk's logits (or the
+    one-shot's) and the staging K/V bit for bit as the same step run
+    eagerly; chunked, two prompts go through one staging buffer, the
+    second shorter, so the second meets the first's K/V past it."""
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import pack_sc_weights
+    cfg = _graph_cfg(attn_sc)
+    model = bind(cfg, cuda)
+    params = pack_sc_weights(model.init_params(0), cfg)
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in (45, 21)]
+
+    def pair(**shape):
+        eager = steps.PrefillStep(model, params, **shape)
+        graphed = steps.PrefillStep(model, params, **shape)
+        steps.capture(graphed)
+        graphed.reset()
+        assert graphed.captures == 1 and graphed.launch_counts == {
+            "sc_linear": 7 * cfg.n_layers + 1,
+            "flash_attention": cfg.n_layers}
+        return eager, graphed
+
+    if mode == "chunked":
+        steps_for = [pair(extent=64, chunk=16)] * len(prompts)
+    else:
+        steps_for = [pair(extent=len(p)) for p in prompts]
+    chunk = 16 if mode == "chunked" else None
+    for prompt, (eager, graphed) in zip(prompts, steps_for):
+        le, ke = _prefill_run(eager, prompt, chunk)
+        lg, kg = _prefill_run(graphed, prompt, chunk)
+        torch.cuda.synchronize()
+        assert len(le) == len(lg) == (-(-len(prompt) // 16) if chunk else 1)
+        for a, b in zip((*le, *ke), (*lg, *kg)):
+            assert torch.equal(a, b)
+        assert graphed.replays == eager.replays
+
+
+def test_a_prefill_capture_that_synchronizes_raises(cuda):
+    """A host read in a prefill step fails its warm-up: the capture
+    raises, and the step stays uncaptured."""
+    from repro_torch.launch import steps
+    cfg = _graph_cfg(False)
+    model = bind(cfg, cuda)
+
+    class Syncing(steps.PrefillStep):
+        def run(self):
+            super().run()
+            int(self.cache.pos.sum())
+
+    step = Syncing(model, model.init_params(0), extent=32, chunk=16)
+    with pytest.raises(RuntimeError):
+        steps.capture(step)
+    assert step.captures == 0 and step.launch_counts == {}
+
+
+def test_decode_graph_is_bitwise_unmoved_by_prefill_captures(cuda):
+    """The scratch hazard: forty prefill steps captured and replayed after
+    the decode graph (more captures than the stream pool holds, so their
+    streams repeat the decode graph's, and with more SC-GEMM rows than a
+    decode step) leave the decode graph's logit rows bitwise equal to the
+    eager engine's, run for run (a second run's idle slots start from the
+    first run's leftovers, in both engines alike)."""
+    from repro_torch.launch import steps
+    steps.clear_decode_steps()
+    cfg = _graph_cfg(True)
+    params = bind(cfg, cuda).init_params(0)
+    again = [dataclasses.replace(r, uid=r.uid + "-again")
+             for r in _graph_requests(cfg)]
+    eager = _Recording(cfg, params, device=cuda, graphs=False,
+                       **GRAPH_ENGINE)
+    eager.run(_graph_requests(cfg))
+    eager_first, eager.rows = eager.rows, []
+    eager.run(again)
+    graphed = _Recording(cfg, params, device=cuda, **GRAPH_ENGINE)
+    graphed.run(_graph_requests(cfg))
+    for i, (a, b) in enumerate(zip(graphed.rows, eager_first, strict=True)):
+        np.testing.assert_array_equal(a, b, err_msg=f"decode step {i}")
+    decode = graphed._decode
+    rng = np.random.default_rng(19)
+    for n in range(1, 41):
+        step = steps.cached_prefill_step(decode, prompt_len=n)
+        step.tokens.copy_(torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (1, n)), dtype=torch.int32))
+        step.replay()
+    assert all(s.captures == 1 for s in decode.prefills.values())
+    graphed.rows = []
+    graphed.run(again)
+    for i, (a, b) in enumerate(zip(graphed.rows, eager.rows, strict=True)):
+        np.testing.assert_array_equal(a, b, err_msg=f"decode step {i}")
+    assert decode.captures == 1
+    steps.clear_decode_steps()
+
+
+@pytest.mark.parametrize("mode", ["chunked", "oneshot"])
+def test_graphed_engine_replays_one_prefill_capture_a_shape(cuda, mode):
+    """The engine's prefill runs through its shape's captured step: one
+    capture a shape used, replays equal to the run's prefill chunks or
+    prefills, none captured again on a second run."""
+    from repro_torch.launch import steps
+    steps.clear_decode_steps()
+    cfg = _graph_cfg(False)
+    eng = Engine(cfg, bind(cfg, cuda).init_params(0), device=cuda,
+                 prefill_mode=mode, **GRAPH_ENGINE)
+    reqs = _graph_requests(cfg)
+    eng.run(reqs)
+    entries = eng.prefill_steps()
+    want = ({("chunked", b, 16) for b in {16, 32}} if mode == "chunked"
+            else {("oneshot", r.prompt_len) for r in reqs})
+    assert set(entries) == want
+    assert eng.stats["prefill_captures"] == len(want)
+    calls = "prefill_chunks" if mode == "chunked" else "prefills"
+    assert sum(s.replays for s in entries.values()) == eng.stats[calls]
+    eng.run([dataclasses.replace(r, uid=r.uid + "-again") for r in reqs])
+    assert eng.stats["prefill_captures"] == 0
+    assert all(s.captures == 1 for s in eng.prefill_steps().values())
+    steps.clear_decode_steps()
