@@ -9,8 +9,9 @@ keys by double-buffered 16-byte ``cp.async``), float32 float attention on
 CUDA cores (no TF32), and SC attention (``sc_bits``: the QKᵀ and PV
 contractions through the popcount multiplier, ``csrc/sc_attention.cuh``)
 on packed 8-bit magnitudes in byte SIMD. ``flash_attention.launches``
-counts launches. :func:`plan` is the launch plan as a pure function of the
-shapes; the source's header has the design.
+counts launches, ``flash_attention.sc.launches`` the SC path's alone.
+:func:`plan` is the launch plan as a pure function of the shapes; the
+source's header has the design.
 
 Layout: ``q (B, H, Sq, D)``, ``k, v (B, KV, Skv, D)`` with head ``h``
 reading KV head ``h // (H // KV)``; any strides with a contiguous last
@@ -63,6 +64,7 @@ output by at most ``max|v| / (2**bits - 1)`` (``sc_tolerance``).
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
@@ -328,7 +330,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         sc_bits or 0, vec, d ** -0.5, stream)
     build.check(rc, "flash_attention")
     flash_attention.launches += 1
+    if sc_bits is not None:
+        flash_attention.sc.launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.sc = SimpleNamespace(launches=0)

@@ -40,7 +40,8 @@ one; the tolerance is the float path's, plus one output quantization step
 of a rounding boundary. Every head layout is served under SC.
 
 ``paged_attention.launches`` counts kernel launches, both paths: one a
-call. :func:`plan` is the launch plan as a pure function of the shapes.
+call; ``paged_attention.sc.launches`` counts the SC path's alone.
+:func:`plan` is the launch plan as a pure function of the shapes.
 
 Layout: ``q (C, KV, G, D)``; ``k_pages, v_pages (P, block, KV, D)`` with
 page ``P - 1`` the trash page; ``tables (C, MB) int32`` (−1 = unallocated);
@@ -49,6 +50,7 @@ page ``P - 1`` the trash page; ``tables (C, MB) int32`` (−1 = unallocated);
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
@@ -222,7 +224,10 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             d ** -0.5, win, sc_bits, stream)
     build.check(rc, "paged_attention")
     paged_attention.launches += 1
+    if sc_bits is not None:
+        paged_attention.sc.launches += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.sc = SimpleNamespace(launches=0)

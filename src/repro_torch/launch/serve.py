@@ -4,12 +4,12 @@ and the sequential per-request :func:`generate` baseline (port of
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
         --sc-gemm [--attn-sc [--attn-sc-bits 8]] \\
+        [--speculate-k 3 [--draft-bits 4]] \\
         [--requests 8 --prompt-len 64 --gen 64] [--device cpu]
 
 Runs on the card unless ``--device cpu`` is given. ``generate`` is the
-sequential baseline for SC attention too. The flags of the JAX CLI that the
-port does not carry yet (prefix cache, speculative decoding) come with
-their slices.
+sequential baseline for SC attention and speculative decoding too. The
+JAX CLI's prefix-cache flags come with that slice.
 """
 from __future__ import annotations
 
@@ -115,6 +115,15 @@ def main(argv=None) -> None:
                     help="prefill chunk length in tokens")
     ap.add_argument("--prefill-budget", type=int, default=None,
                     help="prefill tokens per engine step (default: a chunk)")
+    ap.add_argument("--speculate-k", type=int, default=0,
+                    help="self-speculative decoding: draft this many tokens "
+                         "a round through the SC popcount path, verify them "
+                         "with one exact (k+1)-row window; greedy acceptance "
+                         "keeps streams equal to the baseline. 0 disables. "
+                         "Needs the paged layout and temperature 0")
+    ap.add_argument("--draft-bits", type=int, default=4,
+                    help="SC operand width (2..8) of the speculative draft; "
+                         "lower is cheaper but accepts less")
     ap.add_argument("--stream", action="store_true",
                     help="print an SSE-style event per token as it lands")
     args = ap.parse_args(argv)
@@ -157,7 +166,9 @@ def main(argv=None) -> None:
                     paged=not args.no_paged, block=args.block,
                     n_blocks=args.pages, fused=not args.no_fused_paged,
                     prefill_mode=args.prefill_mode, chunk=args.chunk,
-                    prefill_budget=args.prefill_budget)
+                    prefill_budget=args.prefill_budget,
+                    speculate_k=args.speculate_k,
+                    draft_bits=args.draft_bits)
     t0 = time.time()
     if args.stream:
         def on_token(uid, index, tok, reason):
@@ -175,6 +186,12 @@ def main(argv=None) -> None:
     pages = (f", pages peak {st['peak_pages']}/{st['n_blocks']}"
              f" (block {st['block']}, {st['preemptions']} preemptions)"
              if st["layout"] == "paged" else "")
+    if st["speculative"]:
+        pages += (f", spec k={st['speculate_k']}@{st['draft_bits']}b: "
+                  f"{st['spec_acceptance_rate']:.0%} accepted, "
+                  f"{st['spec_tokens_per_round']:.2f} tok/round "
+                  f"(draft {st['spec_draft_us']:.0f}us "
+                  f"verify {st['spec_verify_us']:.0f}us)")
     print(f"[serve] {st['device']} {st['mode']}/{st['layout']}/"
           f"{st['prefill_mode']}: {st['requests']} requests, "
           f"{st['generated_tokens']} tokens in {dt:.1f}s "

@@ -6,18 +6,23 @@ them through step objects over static buffers that it fills and reads: a
 :class:`DecodeStep` (tokens, block table, logits; it advances the pool's
 positions in place) and a :class:`PrefillStep` (one chunk of a chunked
 prefill into a B=1 staging cache of a prompt bucket's extent, or a
-one-shot prefill of one prompt length). :func:`cached_decode_step`
+one-shot prefill of one prompt length) and the three steps of a
+self-speculative round (:class:`DraftStep`, :class:`VerifyStep`,
+:class:`RollbackStep`). :func:`cached_decode_step`
 memoises one decode step per decode shape, as the JAX package memoises
 one jitted executable per shape (``cached_decode_step`` /
 ``cached_paged_decode_step``), and captures it into a CUDA graph; its
 prefill steps hang off it, one per (bucket, chunk) or prompt length
 (:func:`cached_chunked_prefill_step`, :func:`cached_prefill_step`, the
 reference's ``cached_chunked_prefill_step`` / ``cached_prefill_step``),
-captured at first use over the same weights. On the card every decode
-step, prefill chunk and one-shot prefill of the engine is one graph
-replay. A decode entry owns the weights and the KV pool it was captured
-over, and its prefill entries' staging buffers; an engine binding it
-copies its weights in. Every replay runs on the caller's current stream,
+captured at first use over the same weights, and so do its speculative
+steps (:func:`cached_draft_loop_step`, :func:`cached_verify_window_step`,
+:func:`cached_rollback_step`), over its KV pool. On the card every decode
+step, prefill chunk, one-shot prefill and draft, verify or rollback of
+the engine is one graph replay. A decode entry owns the weights and the
+KV pool it was captured over, its prefill entries' staging buffers and
+its drafts' weights packed at their width; an engine binding it copies
+its weights in. Every replay runs on the caller's current stream,
 so the graphs, which share one memory pool, never run at once.
 """
 from __future__ import annotations
@@ -28,14 +33,19 @@ import warnings
 import torch
 
 from repro_torch.errors import ConfigError
-from repro_torch.kernels.sc_matmul import scratch_scope
-from repro_torch.models import cache_ops
+from repro_torch.kernels.sc_matmul import PackedWeight, scratch_scope
+from repro_torch.models import bind, cache_ops
+from repro_torch.models.transformer import pack_sc_weights
 
 __all__ = ["prompt_buckets", "bucket_for", "prefill_step", "decode_step",
            "chunked_prefill_step", "paged_decode_step", "DecodeStep",
            "PrefillStep", "cached_decode_step", "cached_chunked_prefill_step",
            "cached_prefill_step", "capture", "decode_steps",
-           "clear_decode_steps", "launch_counters"]
+           "clear_decode_steps", "launch_counters", "draft_config",
+           "draft_loop_step", "verify_window_step", "rollback_step",
+           "DraftStep", "VerifyStep", "RollbackStep",
+           "cached_draft_loop_step", "cached_verify_window_step",
+           "cached_rollback_step"]
 
 #: Eager runs of a step on the capture stream before its capture, each
 #: from the step's reset state: they allocate the step's SC-GEMM scratch
@@ -97,13 +107,75 @@ def paged_decode_step(model, params, cache, tables: torch.Tensor,
     return model.paged_decode_step(params, cache, tables, batch)
 
 
+def draft_config(cfg, draft_bits: int):
+    """The speculative draft's config: the same architecture and weights
+    through the paper's multiplier at ``draft_bits``, projections and
+    attention alike (self-speculation)."""
+    return dataclasses.replace(cfg, use_sc_gemm=True, attn_sc=True,
+                               sc_bits=draft_bits).validate()
+
+
+@torch.no_grad()
+def draft_loop_step(model, params, cache, tables: torch.Tensor, batch: dict,
+                    *, k: int, out: torch.Tensor | None = None):
+    """The speculative draft: ``k`` fused paged decode sub-steps of the
+    draft ``model`` (:func:`draft_config`) from each slot's last sampled
+    token ``batch["tokens"] (C, 1)``, each sub-step's token the argmax of
+    its logits on the device, fed to the next. Returns the ``(C, k)``
+    int32 proposals (into ``out`` when given) and the cache: the draft's
+    K/V rows are scratch at ``[pos, pos + k)`` that the verify step
+    overwrites, and ``cache.pos`` is back at its entry value."""
+    p0 = cache.pos.clone()
+    toks = batch["tokens"]
+    if out is None:
+        out = torch.empty((toks.shape[0], k), dtype=torch.int32,
+                          device=toks.device)
+    for i in range(k):
+        logits, new = paged_decode_step(model, params, cache, tables,
+                                        {"tokens": toks})
+        out[:, i] = torch.argmax(logits[:, -1], dim=-1)
+        cache.pos.copy_(new.pos)
+        toks = out[:, i:i + 1]
+    cache.pos.copy_(p0)
+    return out, cache
+
+
+@torch.no_grad()
+def verify_window_step(model, params, cache, tables: torch.Tensor,
+                       batch: dict, *, block: int, width: int):
+    """The speculative verify: the exact model over each slot's window
+    ``batch["tokens"] (C, width)`` — its last sampled token and the draft's
+    proposals — in one forward: gather the dense view, run
+    ``decode_window_step`` on it, fold the window's K/V rows back into the
+    pages (``cache_ops.paged_commit_window``). Returns the exact argmax
+    after each row, ``(C, width)`` int32 (row ``i`` is what ``i + 1``
+    sequential decode steps sample), never the logits, and the cache with
+    ``pos + width``."""
+    dense = cache_ops.paged_gather(cache, tables, block=block)
+    logits, dense = model.decode_window_step(params, dense, batch)
+    new = cache_ops.paged_commit_window(cache, dense, tables, block=block,
+                                        width=width)
+    return torch.argmax(logits, dim=-1).to(torch.int32), new
+
+
+@torch.no_grad()
+def rollback_step(cache, tables: torch.Tensor, accept: torch.Tensor, *,
+                  block: int, width: int):
+    """The speculative rollback: each slot's committed window rewound to
+    its ``accept`` tokens (``cache_ops.paged_rollback``)."""
+    return cache_ops.paged_rollback(cache, tables, block=block, width=width,
+                                    accept=accept)
+
+
 # ------------------------------------------------------- graphed steps
 
 
 def launch_counters() -> dict:
-    """The kernel wrappers that count their launches (``fn.launches``), by
+    """The launch counters of the kernel wrappers (``.launches``), by
     name: a replayed graph launches their kernels without calling them,
-    so a step's ``replay`` adds what its capture recorded."""
+    so a step's ``replay`` adds what its capture recorded. The attention
+    wrappers count all their launches and, under ``*_sc``, their SC
+    path's alone."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.sc_bitops import sc_stream_mul_cuda
@@ -112,7 +184,9 @@ def launch_counters() -> dict:
     return {"sc_linear": sc_linear,
             "sc_matmul_counts": sc_matmul_counts_signed,
             "paged_attention": paged_attention,
+            "paged_attention_sc": paged_attention.sc,
             "flash_attention": flash_attention,
+            "flash_attention_sc": flash_attention.sc,
             "sc_stream_mul": sc_stream_mul_cuda}
 
 
@@ -190,7 +264,11 @@ class DecodeStep(_Step):
     ``prefills`` holds the prefill steps of this entry, by shape
     (:func:`cached_chunked_prefill_step`, :func:`cached_prefill_step`):
     they run over the same weights, and are captured when this step
-    was."""
+    was. ``specs`` holds its speculative steps the same way, by
+    ``("draft", k, draft_bits)``, ``("verify", width)`` and
+    ``("rollback", width)``; ``drafts`` the draft model and the weights
+    packed at each draft width, shared by every draft step of that
+    width."""
 
     def __init__(self, model, params, cache, *, capacity: int,
                  max_blocks: int | None = None, block: int | None = None,
@@ -206,6 +284,8 @@ class DecodeStep(_Step):
         self.logits = torch.zeros((capacity, 1, model.cfg.vocab_size),
                                   dtype=torch.float32, device=dev)
         self.prefills: dict[tuple, PrefillStep] = {}
+        self.specs: dict[tuple, _Step] = {}
+        self.drafts: dict[int, tuple] = {}
         self.owner = None       # a weakref to the engine it serves
         self._init_replay()
 
@@ -230,9 +310,12 @@ class DecodeStep(_Step):
         self.logits.copy_(logits)
         self.cache.pos.copy_(new.pos)
 
-    def load(self, params) -> None:
+    def load(self, params, *, draft_bits: int | None = None) -> None:
         """Copy ``params`` (a tree of the same structure and shapes) into
-        the step's own weights."""
+        the step's own weights, and pack the draft weights of width
+        ``draft_bits`` (when there are any) anew from them. Other widths
+        keep the weights they were packed from until an engine drafting
+        at that width binds the step."""
         pairs = list(zip(_tensors(self.params), _tensors(params),
                          strict=True))
         for dst, src in pairs:
@@ -243,6 +326,13 @@ class DecodeStep(_Step):
         with torch.no_grad():
             for dst, src in pairs:
                 dst.copy_(src)
+            if draft_bits in self.drafts:
+                model, packed = self.drafts[draft_bits]
+                fresh = pack_sc_weights(self.params, model.cfg)
+                for dst, src in zip(_packs(packed), _packs(fresh),
+                                    strict=True):
+                    dst.plane.copy_(src.plane)
+                    dst.scale.copy_(src.scale)
 
     def reset(self) -> None:
         """An empty pool: pages, positions and inputs zeroed, every table
@@ -324,12 +414,116 @@ class PrefillStep(_Step):
                 self.n_valid.fill_(self.chunk)
 
 
+def _packs(tree):
+    """The packed weights of a parameter tree, in a fixed order."""
+    if isinstance(tree, PackedWeight):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _packs(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _packs(v)
+
+
+class VerifyStep(_Step):
+    """The verify of a speculative round over ``decode``'s pool, tables
+    and weights (:func:`verify_window_step`). ``window (C, width)`` int32
+    is its input: column 0 is copied from ``decode.tokens`` on the device
+    when the step runs, columns ``1 ..`` are written by the draft step
+    (its ``out`` is a view of them). ``out (C, width)`` int32 takes the
+    exact argmaxes; the pool's positions advance by ``width`` in place."""
+
+    def __init__(self, decode: DecodeStep, *, width: int):
+        dev = decode.cache.pos.device
+        self.decode, self.cache, self.width = decode, decode.cache, width
+        capacity = decode.tokens.shape[0]
+        self.window = torch.zeros((capacity, width), dtype=torch.int32,
+                                  device=dev)
+        self.out = torch.zeros((capacity, width), dtype=torch.int32,
+                               device=dev)
+        self._init_replay()
+
+    @torch.no_grad()
+    def run(self) -> None:
+        d = self.decode
+        self.window[:, :1].copy_(d.tokens)
+        out, new = verify_window_step(d.model, d.params, d.cache, d.tables,
+                                      {"tokens": self.window},
+                                      block=d.block, width=self.width)
+        self.out.copy_(out)
+        d.cache.pos.copy_(new.pos)
+
+    def reset(self) -> None:
+        """The decode entry's reset state (an empty pool) and zero
+        windows."""
+        self.decode.reset()
+        with torch.no_grad():
+            self.window.zero_()
+            self.out.zero_()
+
+
+class DraftStep(_Step):
+    """The draft of a speculative round (:func:`draft_loop_step`): ``k``
+    sub-steps of ``model`` (the draft config) over ``decode``'s pool and
+    tables, from ``decode.tokens``, its proposals written into ``out (C,
+    k)`` (a view of the verify step's window). ``params`` shares the
+    decode entry's float weights and holds its one extra copy, the
+    weights packed at the draft's width (``decode.drafts``), which
+    :meth:`DecodeStep.load` packs anew."""
+
+    def __init__(self, decode: DecodeStep, model, params,
+                 out: torch.Tensor, *, k: int):
+        self.decode, self.cache = decode, decode.cache
+        self.model, self.params, self.out, self.k = model, params, out, k
+        self._init_replay()
+
+    @torch.no_grad()
+    def run(self) -> None:
+        d = self.decode
+        draft_loop_step(self.model, self.params, d.cache, d.tables,
+                        {"tokens": d.tokens}, k=self.k, out=self.out)
+
+    @property
+    def weight_bytes(self) -> int:
+        """Device bytes of the draft's own packed weights."""
+        return sum(p.plane.nbytes + p.scale.nbytes
+                   for p in _packs(self.params))
+
+    def reset(self) -> None:
+        self.decode.reset()
+
+
+class RollbackStep(_Step):
+    """The rollback of a speculative round (:func:`rollback_step`) over
+    ``decode``'s pool and tables: ``accept (C,)`` int32 is its input (0
+    for a free slot); the pool's positions rewind in place."""
+
+    def __init__(self, decode: DecodeStep, *, width: int):
+        self.decode, self.cache, self.width = decode, decode.cache, width
+        self.accept = torch.zeros((decode.tokens.shape[0],),
+                                  dtype=torch.int32,
+                                  device=decode.cache.pos.device)
+        self._init_replay()
+
+    @torch.no_grad()
+    def run(self) -> None:
+        d = self.decode
+        new = rollback_step(d.cache, d.tables, self.accept, block=d.block,
+                            width=self.width)
+        d.cache.pos.copy_(new.pos)
+
+    def reset(self) -> None:
+        self.decode.reset()
+        self.accept.zero_()
+
+
 def capture(step: _Step) -> None:
-    """Capture ``step.run`` (a :class:`DecodeStep` or a
-    :class:`PrefillStep`) into a CUDA graph and make its replay the step's
-    ``replay``, PyTorch's way: :data:`WARMUP_RUNS` eager runs on a side
-    stream, each from ``step.reset()`` (with synchronizing calls made
-    errors), then the capture on that stream from the reset state under
+    """Capture ``step.run`` (any of the steps above) into a CUDA graph and
+    make its replay the step's ``replay``, PyTorch's way:
+    :data:`WARMUP_RUNS` eager runs on a side stream, each from
+    ``step.reset()`` (with synchronizing calls made errors), then the
+    capture on that stream from the reset state under
     ``torch.no_grad()``, into the memory pool every graph shares. The
     warm-up and the capture take their SC-GEMM scratch from the step's
     own table, which the step keeps. The launches the capture recorded
@@ -458,6 +652,60 @@ def cached_prefill_step(decode: DecodeStep, *,
     :func:`cached_chunked_prefill_step`'s: one per distinct prompt length,
     as the reference compiles one prefill per prompt length."""
     return _prefill_entry(decode, ("oneshot", prompt_len), extent=prompt_len)
+
+
+def _spec_entry(decode: DecodeStep, key: tuple, make) -> _Step:
+    step = decode.specs.get(key)
+    if step is None:
+        if not decode.paged:
+            raise ConfigError("speculative steps run on the paged pool")
+        step = make()
+        if decode.captures:
+            # the capture runs from the entry's reset state: an empty pool
+            capture(step)
+            step.reset()
+        decode.specs[key] = step
+    return step
+
+
+def cached_verify_window_step(decode: DecodeStep, *,
+                              width: int) -> VerifyStep:
+    """The verify step of ``decode``'s engines for windows of ``width``
+    rows (the reference's ``cached_verify_window_step``): made on first
+    use over ``decode``'s weights and pool, captured when ``decode`` was,
+    kept in ``decode.specs``. A capture resets the pool, so an engine asks
+    for its speculative steps when it binds the entry, holding nothing."""
+    return _spec_entry(decode, ("verify", width),
+                       lambda: VerifyStep(decode, width=width))
+
+
+def cached_draft_loop_step(decode: DecodeStep, *, k: int,
+                           draft_bits: int) -> DraftStep:
+    """The draft step of ``decode``'s engines for ``k`` proposals at
+    ``draft_bits`` (the reference's ``cached_draft_loop_step``), made and
+    captured as :func:`cached_verify_window_step`'s, writing into the
+    window of the verify step of width ``k + 1``. The entry's weights
+    are packed at ``draft_bits`` once (``decode.drafts``), one extra
+    copy shared by the draft steps of every ``k``."""
+    verify = cached_verify_window_step(decode, width=k + 1)
+    if draft_bits not in decode.drafts:
+        cfg = draft_config(decode.model.cfg, draft_bits)
+        decode.drafts[draft_bits] = (bind(cfg, decode.model.device),
+                                     pack_sc_weights(decode.params, cfg))
+
+    def make():
+        return DraftStep(decode, *decode.drafts[draft_bits],
+                         verify.window[:, 1:], k=k)
+
+    return _spec_entry(decode, ("draft", k, draft_bits), make)
+
+
+def cached_rollback_step(decode: DecodeStep, *,
+                         width: int) -> RollbackStep:
+    """The rollback step of ``decode``'s engines for windows of ``width``
+    rows (the reference's ``cached_rollback_step``)."""
+    return _spec_entry(decode, ("rollback", width),
+                       lambda: RollbackStep(decode, width=width))
 
 
 def decode_steps() -> dict[tuple, DecodeStep]:

@@ -19,8 +19,9 @@ Index math only, so parity with the JAX package is exact equality. Unlike
 the JAX package's pure functions, the writing ops (``slot_insert``,
 ``slot_evict``, ``paged_commit``, ``paged_insert``, ``paged_evict``) update
 the cache in place and return it: the pools are the largest tensors of a
-serving process. The copy-on-write ops of the prefix cache come with that
-slice.
+serving process; so do the speculative window's ``paged_commit_window`` and
+``paged_rollback``. The copy-on-write ops of the prefix cache come with
+that slice.
 """
 from __future__ import annotations
 
@@ -35,8 +36,8 @@ from .transformer import KVCache
 
 __all__ = ["slot_insert", "slot_read", "slot_evict", "slot_positions",
            "truncate_seq", "paged_init", "paged_gather", "paged_token_entry",
-           "paged_commit", "paged_insert", "paged_evict", "paged_read",
-           "SLOT_AXIS"]
+           "paged_commit", "paged_commit_window", "paged_rollback",
+           "paged_insert", "paged_evict", "paged_read", "SLOT_AXIS"]
 
 #: The slot (batch) dimension of every ``k``/``v`` cache leaf.
 SLOT_AXIS = 1
@@ -149,8 +150,9 @@ def paged_gather(data: KVCache, tables: torch.Tensor, *,
 def paged_token_entry(tables: torch.Tensor, pos, *,
                       block: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-slot ``(table entry, in-page offset)`` of the page cell holding
-    each row's token at ``pos``: the one derivation shared by
-    :func:`paged_commit` and the in-layer scatter of the paged decode step.
+    each row's token at ``pos`` (``(C,)``, or ``(C, W)`` for a window of
+    positions a slot): the one derivation shared by :func:`paged_commit`,
+    the windowed ops and the in-layer scatter of the paged decode step.
     The entry is the raw table value (callers redirect negatives to their
     trash page); a position outside the table's logical extent resolves to
     ``-1`` so the same redirect absorbs it."""
@@ -158,7 +160,8 @@ def paged_token_entry(tables: torch.Tensor, pos, *,
     pos = torch.as_tensor(pos, device=tables.device).to(torch.long)
     raw_ix = torch.div(pos, block, rounding_mode="floor")
     page_ix = torch.clamp(raw_ix, 0, max_blocks - 1)
-    entry = torch.gather(tables, 1, page_ix[:, None])[:, 0]
+    entry = torch.gather(tables, 1,
+                         page_ix.reshape(capacity, -1)).reshape(pos.shape)
     entry = torch.where((raw_ix < 0) | (raw_ix >= max_blocks),
                         torch.full_like(entry, -1), entry)
     return entry, torch.remainder(pos, block)
@@ -179,6 +182,56 @@ def paged_commit(data: KVCache, dense: KVCache, tables: torch.Tensor, *,
         col = torch.clamp(wpos, max=dl.shape[2] - 1)
         pl[:, bid, off] = dl[:, rows, col].to(pl.dtype)
     return KVCache(k=data.k, v=data.v, pos=dense.pos.clone())
+
+
+def _window(tables: torch.Tensor, base: torch.Tensor, width: int, *,
+            block: int):
+    """The ``(C, W)`` positions ``base + i`` and their page cells."""
+    wpos = (base.to(torch.long)[:, None]
+            + torch.arange(width, device=tables.device)[None, :])
+    entry, off = paged_token_entry(tables, wpos, block=block)
+    return wpos, entry, off
+
+
+def paged_commit_window(data: KVCache, dense: KVCache, tables: torch.Tensor,
+                        *, block: int, width: int) -> KVCache:
+    """Fold a ``width``-token verify step's rows back into pages (in
+    place): the windowed :func:`paged_commit` of speculative decoding. The
+    dense view holds ``width`` fresh K/V rows a slot at ``[pos, pos +
+    width)`` (``pos`` = ``data.pos``, the pre-step positions); each resolves
+    its page cell through :func:`paged_token_entry`, so cells on an
+    unallocated or out-of-range page land in the trash page. Every slot
+    commits its whole window: :func:`paged_rollback` zeroes what
+    verification rejects, and a free slot's window lands in the trash
+    page. ``pos`` is adopted from ``dense``."""
+    capacity = tables.shape[0]
+    wpos, entry, off = _window(tables, data.pos, width, block=block)
+    rows = torch.arange(capacity, device=tables.device)[:, None]
+    for pl, dl in zip(_leaves(data), _leaves(dense)):
+        bid = torch.where(entry < 0, _trash(pl), entry).to(torch.long)
+        col = torch.clamp(wpos, max=dl.shape[2] - 1)
+        pl[:, bid, off] = dl[:, rows, col].to(pl.dtype)
+    return KVCache(k=data.k, v=data.v, pos=dense.pos.clone())
+
+
+def paged_rollback(data: KVCache, tables: torch.Tensor, *, block: int,
+                   width: int, accept) -> KVCache:
+    """Rewind a committed ``width``-token window to its accepted prefix (in
+    place): positions go back to ``pos - width + accept`` and the ``width``
+    cells from there are zeroed — a deliberate overshoot past the dirty
+    span, whose cells are already zero or resolve to the trash page. A free
+    slot passes ``accept = 0``: its window committed to the trash page, so
+    the rewind restores its position and its zeros land there again.
+    Returns the cache with the rewound ``pos`` (a new tensor)."""
+    accept = torch.as_tensor(accept, device=tables.device).to(torch.long)
+    start = data.pos.to(torch.long) - width + accept
+    _, entry, off = _window(tables, start, width, block=block)
+    for pl in _leaves(data):
+        bid = torch.where(entry < 0, _trash(pl), entry).to(torch.long)
+        # a zero on the pool's device: a host scalar would be copied over,
+        # a synchronizing call a graph capture refuses
+        pl[:, bid, off] = pl.new_zeros(())
+    return KVCache(k=data.k, v=data.v, pos=start.to(data.pos.dtype))
 
 
 def paged_insert(data: KVCache, single: KVCache, slot: int, pages, *,

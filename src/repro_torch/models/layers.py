@@ -452,26 +452,32 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     the first row. Each row masks cache slots past its own position.
     ``sc_bits`` selects the SC score and PV path.
 
-    On the card a one-row step (``W == 1``) of an eligible layout runs the
-    paged kernel over the cache viewed as one page per sequence — the same
-    kernel, and so the same order of summation, as the engine's paged
-    decode, which keeps the sequential baseline and the engine
-    token-identical, float and SC alike. Everything else is the plain
-    formulation.
+    On the card every eligible layout runs the paged kernel over the cache
+    viewed as one page per sequence, the window flattened into ``B·W``
+    query rows: row ``(b, i)`` takes table row ``b`` at position
+    ``q_position[b] + i``, so it is exactly the one-row call at that
+    position. It is the same kernel, and so the same order of summation,
+    as the engine's paged decode: the sequential baseline, the engine and
+    a speculative verify window stay token-identical, float and SC alike.
+    Everything else (the CPU, softcap layers) is the plain formulation,
+    whose rows are W-invariant too.
     """
     b, w, h, d = q.shape
     _, s, kv, _ = k_cache.shape
     g = h // kv
-    if (q.is_cuda and w == 1 and k_cache.is_contiguous()
-            and v_cache.is_contiguous()
+    if (q.is_cuda and k_cache.is_contiguous() and v_cache.is_contiguous()
             and _paged_kernel_eligible(g, kv, logit_softcap, sc_bits)):
         from repro_torch.kernels.paged_attention import paged_attention
-        tables = torch.arange(b, dtype=torch.int32,
-                              device=q.device)[:, None]
-        out = paged_attention(q[:, 0].reshape(b, kv, g, d), k_cache, v_cache,
-                              tables, q_position, window=window,
-                              sc_bits=sc_bits)
-        return out.reshape(b, 1, h, d)
+        tables = torch.arange(b, dtype=torch.int32, device=q.device)[:, None]
+        rows = q_position
+        if w > 1:
+            tables = tables.expand(b, w).reshape(b * w, 1)
+            rows = (q_position.to(torch.int32)[:, None]
+                    + torch.arange(w, dtype=torch.int32,
+                                   device=q.device)[None, :]).reshape(b * w)
+        out = paged_attention(q.reshape(b * w, kv, g, d), k_cache, v_cache,
+                              tables, rows, window=window, sc_bits=sc_bits)
+        return out.reshape(b, w, h, d)
     return _decode_attention_plain(q, k_cache, v_cache, q_position=q_position,
                                    window=window, logit_softcap=logit_softcap,
                                    sc_bits=sc_bits)

@@ -48,6 +48,11 @@ class BoundModel:
     def decode_step(self, params, cache, batch):
         return self._mod.decode_step(params, self.cfg, cache, batch)
 
+    def decode_window_step(self, params, cache, batch):
+        """Speculative verify: ``W`` tokens a sequence in one forward, row
+        ``i`` equal to the ``i + 1``-th sequential decode step."""
+        return self._mod.decode_window_step(params, self.cfg, cache, batch)
+
     def paged_decode_step(self, params, cache, tables, batch):
         """Fused paged decode: ``cache`` in the ``cache_ops.paged_init``
         layout, ``tables`` the ``(capacity, max_blocks)`` block table."""

@@ -42,8 +42,8 @@ from .layers import (PagedKV, apply_rope, decode_attention, flash_attention,
 
 __all__ = ["init_params", "forward_hidden", "logits_from_hidden",
            "prefill_step", "prefill_chunk_step", "KVCache", "init_kv_cache",
-           "decode_step", "paged_decode_step", "model_dtype", "params_to",
-           "pack_sc_weights"]
+           "decode_step", "decode_window_step", "paged_decode_step",
+           "model_dtype", "params_to", "pack_sc_weights"]
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -401,13 +401,17 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, cache: KVCache,
 
 def _run_decode(params: dict, cfg: ModelConfig, cache: KVCache, batch: dict,
                 attend_cached) -> tuple[torch.Tensor, KVCache]:
-    """Shared one-token decode: embed, run the layers, project.
-    ``attend_cached(layer_index, q, k, v, pos, window)`` writes this
-    token's K/V into the cache and attends."""
+    """Shared decode of ``W`` consecutive tokens a sequence (``batch
+    ["tokens"]: (B, W)``, rows at ``cache.pos + i``): embed, run the
+    layers, project. ``attend_cached(layer_index, q, k, v, pos, window)``
+    writes the rows' K/V into the cache and attends."""
     x = _embed_tokens(params, cfg, batch["tokens"])
-    b = x.shape[0]
+    b, w = x.shape[:2]
     pos = cache.pos.expand(b) if cache.pos.numel() == 1 else cache.pos
     positions = pos[:, None]
+    if w > 1:
+        positions = positions + torch.arange(w, dtype=pos.dtype,
+                                             device=x.device)[None, :]
     for i, layer in enumerate(params["layers"]):
         window = cfg.window_at(i % cfg.group_size)
 
@@ -418,33 +422,56 @@ def _run_decode(params: dict, cfg: ModelConfig, cache: KVCache, batch: dict,
         x = _layer(layer, x, cfg, attend)
     x = _final(params, cfg, x)
     logits = logits_from_hidden(params, cfg, x)
-    return logits, KVCache(k=cache.k, v=cache.v, pos=pos + 1)
+    return logits, KVCache(k=cache.k, v=cache.v, pos=pos + w)
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: KVCache,
                 batch: dict) -> tuple[torch.Tensor, KVCache]:
-    """One token for every sequence of a dense cache.
-    ``batch["tokens"]: (B, 1)``; positions are per sequence."""
+    """One token for every sequence of a dense cache —
+    ``batch["tokens"]: (B, 1)``; positions are per sequence — or ``W``
+    consecutive ones (:func:`decode_window_step`). Row ``i``'s K/V lands
+    at ``pos + i``; a row past the cache extent (an idle slot drifting, a
+    window running off the end) is dropped, never clamped onto a live
+    row's tail."""
 
     def attend_cached(i, q, k, v, pos, window):
         k_cache, v_cache = _layer_kv(cache, cfg, i)
         b, s = k_cache.shape[:2]
         rows = torch.arange(b, device=q.device)
-        # a position past the cache extent (an idle slot drifting) is
-        # dropped, never clamped onto a live row's tail
-        inside = pos.to(torch.long) < s
-        col = torch.clamp(pos.to(torch.long), max=s - 1)
-        keep = inside[:, None, None]
-        k_cache[rows, col] = torch.where(keep, k[:, 0].to(k_cache.dtype),
-                                         k_cache[rows, col])
-        v_cache[rows, col] = torch.where(keep, v[:, 0].to(v_cache.dtype),
-                                         v_cache[rows, col])
+        base = pos.to(torch.long)
+        # one column a sequence at a time, so a dropped row's write-back
+        # of the old value never races a kept row's write at the same cell
+        for j in range(q.shape[1]):
+            p = base + j if j else base
+            col = torch.clamp(p, max=s - 1)
+            keep = (p < s)[:, None, None]
+            k_cache[rows, col] = torch.where(keep, k[:, j].to(k_cache.dtype),
+                                             k_cache[rows, col])
+            v_cache[rows, col] = torch.where(keep, v[:, j].to(v_cache.dtype),
+                                             v_cache[rows, col])
         return decode_attention(q, k_cache, v_cache, q_position=pos,
                                 window=window,
                                 logit_softcap=cfg.attn_softcap,
                                 sc_bits=_attn_sc_bits(cfg))
 
     return _run_decode(params, cfg, cache, batch, attend_cached)
+
+
+def decode_window_step(params: dict, cfg: ModelConfig, cache: KVCache,
+                       batch: dict) -> tuple[torch.Tensor, KVCache]:
+    """``W`` consecutive tokens for every sequence in one forward: the
+    exact-path verify step of speculative decoding.
+
+    ``batch["tokens"]: (B, W)`` holds each sequence's last sampled token
+    followed by its ``W - 1`` draft proposals; rows enter at positions
+    ``[cache.pos, cache.pos + W)``, their K/V written there in place (the
+    drop rule of :func:`decode_step`). Row ``i`` of the logits ``(B, W,
+    V)`` masks the window's later rows by its own position, and
+    ``layers.decode_attention`` gives it exactly what the one-row step at
+    ``pos + i`` computes — on the card the same paged kernel call — so
+    it equals ``i + 1`` sequential :func:`decode_step` calls on the same
+    prefix. Returns the logits and the cache with ``pos + W``."""
+    return decode_step(params, cfg, cache, batch)
 
 
 def paged_decode_step(params: dict, cfg: ModelConfig, cache: KVCache,

@@ -1,6 +1,5 @@
 """Continuous-batching serving engine (port of ``repro/serving/engine.py``
-without the prefix cache and speculative decoding, which come with later
-slices).
+without the prefix cache, which comes with a later slice).
 
 The engine is a step scheduler: one :meth:`Engine.step` spends a bounded
 budget of prefill-chunk work, admits a completed prefill into the pool, and
@@ -33,6 +32,19 @@ runs one batched decode over every live slot; :meth:`Engine.run` and
   reads the logit rows. On the card it is the decode shape's cached step,
   one CUDA graph replay a decode step (``launch.steps.cached_decode_step``,
   looked up at construction); on the CPU it runs eagerly.
+* *Speculate* (``speculate_k = k > 0``): each decode step is a
+  self-speculative round instead. A draft step proposes ``k`` tokens a
+  slot through the paper's multiplier at ``draft_bits`` (the same
+  weights, packed at that width once), a verify step runs the exact
+  model over the ``k + 1``-row window in one forward and returns the
+  exact argmax after each row, and the host keeps the longest agreeing
+  prefix plus one exact token; a rollback step rewinds each slot to what
+  it kept and zeroes the rest of its window. Every emitted token is an
+  exact argmax over the prefix the sequential baseline sees, so streams
+  are the baseline's; the draft decides only how many come a round. On
+  the card the three steps are graph replays
+  (``launch.steps.cached_draft_loop_step`` and its siblings), with one
+  synchronize a round.
 * *Evict*: a request leaves on EOS or length; its slot and pages free on
   the same step.
 
@@ -52,11 +64,16 @@ from typing import Any, Callable, Iterator, Sequence
 import numpy as np
 import torch
 
+from repro_torch.configs.base import sc_attention_bits_ok
 from repro_torch.errors import (CacheLayoutError, ConfigError,
                                 EngineInvariantError)
 from repro_torch.launch.steps import (DecodeStep, PrefillStep, bucket_for,
                                       cached_chunked_prefill_step,
-                                      cached_decode_step, cached_prefill_step,
+                                      cached_decode_step,
+                                      cached_draft_loop_step,
+                                      cached_prefill_step,
+                                      cached_rollback_step,
+                                      cached_verify_window_step,
                                       prompt_buckets)
 from repro_torch.models import bind, cache_ops
 from repro_torch.models.transformer import pack_sc_weights, params_to
@@ -113,9 +130,16 @@ class Engine:
     requests in it (a staging prefill included). An engine whose step
     another engine has since bound binds it again on its next step, when
     it holds no request. SC attention (``cfg.attn_sc``) is served, in both
-    prefill modes. The prefix cache (``prefix_cache=True``) and
-    speculative decoding (``speculate_k > 0``) come with later slices of
-    the port and are refused here.
+    prefill modes.
+
+    ``speculate_k`` (default ``cfg.speculate_k``) > 0 serves by
+    self-speculative rounds with drafts at ``draft_bits`` (default
+    ``cfg.draft_bits``, 2..8); it needs the paged layout, a dense family
+    and greedy requests (others raise :class:`ConfigError`). Graphed, the
+    draft, verify and rollback steps of the shape hang off the decode
+    step, captured once when an engine first asks for them. The prefix
+    cache (``prefix_cache=True``) comes with a later slice of the port and
+    is refused here.
     """
 
     def __init__(self, cfg, params, *, capacity: int = 4, max_seq: int = 256,
@@ -126,6 +150,7 @@ class Engine:
                  prefill_budget: int | None = None,
                  prefix_cache: bool = False,
                  speculate_k: int | None = None,
+                 draft_bits: int | None = None,
                  graphs: bool | None = None):
         cfg.validate()
         if prefill_mode not in ("chunked", "oneshot"):
@@ -134,11 +159,29 @@ class Engine:
             raise ConfigError("the copy-on-write prefix cache comes with the "
                               "prefix-cache slice of the port; pass "
                               "prefix_cache=False")
-        spec = cfg.speculate_k if speculate_k is None else speculate_k
-        if spec:
-            raise ConfigError("speculative decoding (speculate_k > 0) comes "
-                              "with the speculative-decoding slice of the "
-                              "port")
+        self.speculate_k = cfg.speculate_k if speculate_k is None \
+            else speculate_k
+        self.draft_bits = cfg.draft_bits if draft_bits is None else draft_bits
+        if self.speculate_k < 0:
+            raise ConfigError(f"speculate_k must be >= 0, got "
+                              f"{self.speculate_k}")
+        if self.speculate_k:
+            # the draft's scratch K/V and the rollback live in the page
+            # pool, and only attention state can rewind (recurrent state
+            # advances for good); codebook heads would need an acceptance
+            # per codebook
+            if not paged:
+                raise ConfigError("speculative decoding requires the paged "
+                                  "layout (rollback rewinds page cells)")
+            if cfg.family in ("ssm", "hybrid") or cfg.n_codebooks:
+                raise ConfigError(
+                    f"speculative decoding needs a transformer family "
+                    f"without codebooks (recurrent state cannot roll back), "
+                    f"got family={cfg.family!r} "
+                    f"n_codebooks={cfg.n_codebooks}")
+            if not sc_attention_bits_ok(self.draft_bits):
+                raise ConfigError(f"speculative draft needs 2 <= draft_bits "
+                                  f"<= 8, got {self.draft_bits}")
         self._m = bind(cfg, device)
         self.device = self._m.device
         self.cfg = cfg
@@ -181,6 +224,8 @@ class Engine:
                                       capacity=capacity,
                                       max_blocks=max_blocks, block=block,
                                       fused=self.fused)
+        if self.speculate_k:
+            self._make_spec_steps()
 
         # host staging of the step's inputs: pinned on the card, so their
         # copies to the step's static buffers do not wait on the host
@@ -213,8 +258,44 @@ class Engine:
         self._last_decode_end: float | None = None
         self._max_decode_gap = 0.0
         self._decode_s = 0.0
+        self._n_spec_rounds = 0
+        self._spec_drafted = 0          # draft tokens proposed (live slots)
+        self._spec_draft_accepted = 0   # draft tokens that reached a stream
+        self._spec_emitted = 0          # tokens rounds put on the streams
+        self._spec_draft_s = 0.0
+        self._spec_verify_s = 0.0
         self._backpressure: dict[str, list[dict]] = {"admission": [],
                                                      "decode": []}
+
+    def _make_spec_steps(self) -> None:
+        """The draft, verify and rollback steps over the decode step's
+        pool, kept on the decode step: graphed, the cached entry's
+        (captured now, while the bound pool is empty); eager, the
+        engine's own step's, uncaptured. The draft holds the weights
+        packed at ``draft_bits``. Pinned host buffers take the round's
+        two token grids and its accept counts; on the card, CUDA events
+        time the draft and verify replays."""
+        k, width = self.speculate_k, self.speculate_k + 1
+        d = self._decode
+        self._verify = cached_verify_window_step(d, width=width)
+        self._draft = cached_draft_loop_step(d, k=k,
+                                             draft_bits=self.draft_bits)
+        self._rollback = cached_rollback_step(d, width=width)
+        pin = self.device.type == "cuda"
+        self._window_host, self._exact_host = (
+            torch.zeros((self.capacity, width), dtype=torch.int32,
+                        pin_memory=pin) for _ in range(2))
+        self._accept_host = torch.zeros((self.capacity,), dtype=torch.int32,
+                                        pin_memory=pin)
+        self._spec_events = [torch.cuda.Event(enable_timing=True)
+                             for _ in range(3)] if pin else None
+
+    def spec_steps(self) -> dict[str, Any]:
+        """The draft, verify and rollback steps this engine replays."""
+        if not self.speculate_k:
+            return {}
+        return {"draft": self._draft, "verify": self._verify,
+                "rollback": self._rollback}
 
     # ------------------------------------------------------------ plumbing
 
@@ -229,6 +310,13 @@ class Engine:
             raise ConfigError(f"request {req.uid!r}: codebook prompts come "
                               f"with the audio slice of the port")
         self.pool.check_fits(req)
+        # the acceptance rule compares exact and draft argmaxes: a sampled
+        # stream has no one right token to accept against
+        if self.speculate_k and req.temperature > 0:
+            raise ConfigError(
+                f"request {req.uid!r}: speculative decoding accepts greedy "
+                f"(temperature == 0) requests only, got "
+                f"temperature={req.temperature}")
 
     def _rows(self, logits: torch.Tensor) -> np.ndarray:
         # a copy: the decode step's logits buffer is overwritten each step
@@ -247,7 +335,8 @@ class Engine:
             raise ConfigError("the decode step of this shape serves another "
                               "engine that holds requests; drain it first "
                               "or pass graphs=False")
-        d.load(params)
+        d.load(params, draft_bits=self.draft_bits if self.speculate_k
+               else None)
         d.reset()
         d.owner = weakref.ref(self)
 
@@ -467,15 +556,23 @@ class Engine:
         events.append({"uid": uid, "pages_needed": pages_needed,
                        "pages_free": pages_free})
 
-    def _grow_pages(self) -> None:
-        """Allocate each live slot's next write page, oldest first,
-        preempting youngest-first under pressure."""
+    def _grow_pages(self, width: int = 1) -> None:
+        """Allocate each live slot's next ``width`` write positions' pages,
+        oldest first, preempting youngest-first under pressure. A
+        speculative window (``width > 1``) ensures only the positions a
+        slot can still keep, ``min(width, remaining)``: its overshoot past
+        the request's budget resolves to the trash page and is zeroed by
+        the rollback."""
         for slot in sorted(self.pool.entries,
                            key=lambda s: self.pool.entries[s].admit_index):
             while slot in self.pool.entries:
                 entry = self.pool.entries[slot]
+                n_keep = min(width, entry.request.max_new_tokens
+                             - entry.n_generated)
+                base = entry.next_write_pos
                 try:
-                    self.pool.ensure_page(slot, entry.next_write_pos)
+                    for i in range(n_keep):
+                        self.pool.ensure_page(slot, base + i)
                     break
                 except PoolExhausted as e:
                     self._note_backpressure(e.reason, e.uid,
@@ -484,27 +581,108 @@ class Engine:
                         raise   # run() pre-check makes this unreachable
                     self._preempt_youngest()
 
-    def _decode_once(self) -> np.ndarray:
-        """One batched decode step over every slot; returns the ``(C, V)``
-        last-token logit rows. The inputs go into the step's static
-        buffers and the step advances the pool's positions in place."""
-        t0 = time.perf_counter()
+    def _copy_step_inputs(self, width: int = 1) -> None:
+        """Grow the pages and copy the block table and the last sampled
+        tokens into the decode step's static buffers."""
         d = self._decode
         if self.paged:
-            self._grow_pages()
+            self._grow_pages(width)
             self._tables_host.numpy()[:] = self.pool.tables
             d.tables.copy_(self._tables_host, non_blocking=True)
         d.tokens.copy_(self._tok_host, non_blocking=True)
-        d.replay()
-        self._step += 1
-        rows = self._rows(d.logits)
+
+    def _decode_done(self, t0: float) -> None:
         now = time.perf_counter()
+        self._step += 1
         self._decode_s += now - t0
         if self._last_decode_end is not None:
             self._max_decode_gap = max(self._max_decode_gap,
                                        now - self._last_decode_end)
         self._last_decode_end = now
+
+    def _decode_once(self) -> np.ndarray:
+        """One batched decode step over every slot; returns the ``(C, V)``
+        last-token logit rows. The inputs go into the step's static
+        buffers and the step advances the pool's positions in place."""
+        t0 = time.perf_counter()
+        self._copy_step_inputs()
+        self._decode.replay()
+        rows = self._rows(self._decode.logits)
+        self._decode_done(t0)
         return rows
+
+    def _speculate_once(self) -> None:
+        """One draft → verify → rollback round over every slot, emitting 1
+        to ``k + 1`` exact tokens a live slot.
+
+        A slot at write position ``p`` (its last sampled token τ, whose
+        K/V is not yet written):
+
+        1. *Draft*: ``k`` sub-steps at ``draft_bits`` propose ``d_1..d_k``
+           from τ, writing scratch K/V at ``[p, p + k)``; positions return
+           to ``p``.
+        2. *Verify*: the exact ``k + 1``-row window ``[τ, d_1..d_k]``
+           rewrites ``[p, p + k]`` with exact K/V before any row attends,
+           commits it to the pages and gives the exact argmaxes
+           ``e_0..e_k``. Both grids come to the host in one synchronize.
+        3. *Accept* (host): ``j`` is the longest prefix with ``e_i ==
+           d_{i+1}``; the slot emits ``e_0..e_j``, capped at its remaining
+           budget.
+        4. *Rollback*, before any eviction changes the pool: positions
+           rewind to ``p`` plus what was kept and the rest of the window is
+           zeroed; a free slot rewinds its whole window (written to the
+           trash page).
+        """
+        k = self.speculate_k
+        t0 = time.perf_counter()
+        self._copy_step_inputs(k + 1)
+        ev = self._spec_events
+        td = time.perf_counter()
+        if ev:
+            ev[0].record()
+        self._draft.replay()
+        if ev:
+            ev[1].record()
+        t1 = time.perf_counter()
+        self._verify.replay()
+        if ev:
+            ev[2].record()
+        self._window_host.copy_(self._verify.window, non_blocking=True)
+        self._exact_host.copy_(self._verify.out, non_blocking=True)
+        if ev:
+            torch.cuda.current_stream(self.device).synchronize()
+            self._spec_draft_s += ev[0].elapsed_time(ev[1]) / 1e3
+            self._spec_verify_s += ev[1].elapsed_time(ev[2]) / 1e3
+        else:
+            self._spec_draft_s += t1 - td
+            self._spec_verify_s += time.perf_counter() - t1
+        draft, exact = self._window_host.numpy()[:, 1:], \
+            self._exact_host.numpy()
+        self._n_spec_rounds += 1
+
+        accept = self._accept_host.numpy()
+        accept[:] = 0
+        agreed: dict[int, int] = {}
+        for slot, entry in self.pool.entries.items():
+            j = 0
+            while j < k and exact[slot, j] == draft[slot, j]:
+                j += 1
+            agreed[slot] = j
+            accept[slot] = min(j + 1, entry.request.max_new_tokens
+                               - entry.n_generated)
+            self._spec_drafted += k
+        self._rollback.accept.copy_(self._accept_host, non_blocking=True)
+        self._rollback.replay()
+        for slot in self.pool.active_slots:
+            entry = self.pool.entries[slot]
+            for i in range(accept[slot]):
+                self._emit(slot, entry, exact[slot, i])
+                # what reached the stream: a token past EOS never does
+                self._spec_emitted += 1
+                self._spec_draft_accepted += i < agreed[slot]
+                if slot not in self.pool.entries:
+                    break       # finished: eviction reset its position
+        self._decode_done(t0)
 
     # ------------------------------------------------------ the scheduler
 
@@ -546,6 +724,9 @@ class Engine:
                 raise PoolExhausted(
                     f"request {self.queue.peek().uid!r} cannot be admitted "
                     f"even into an empty pool", uid=self.queue.peek().uid)
+            return self.has_work
+        if self.speculate_k:
+            self._speculate_once()
             return self.has_work
         rows = self._decode_once()
         for slot in self.pool.active_slots:
@@ -607,6 +788,9 @@ class Engine:
         steps0, prefills0 = self._step, self._n_prefills
         chunks0, preempt0 = self._n_prefill_chunks, self._n_preemptions
         decode0, captures0 = self._decode_s, self._prefill_captures()
+        spec0 = (self._n_spec_rounds, self._spec_drafted,
+                 self._spec_draft_accepted, self._spec_emitted,
+                 self._spec_draft_s, self._spec_verify_s)
         self._backpressure = {"admission": [], "decode": []}
         self._last_decode_end = None
         self._max_decode_gap = 0.0
@@ -661,9 +845,26 @@ class Engine:
             "buckets": self.buckets,
             "prefill_shapes": len(self._prefill_shapes),
             "prefix_cache": False,
-            "speculative": False,
+            "speculative": bool(self.speculate_k),
             "attn_sc_bits": self.cfg.sc_bits if self.cfg.attn_sc else None,
         }
+        if self.speculate_k:
+            rounds = self._n_spec_rounds - spec0[0]
+            drafted = self._spec_drafted - spec0[1]
+            accepted = self._spec_draft_accepted - spec0[2]
+            per = 1e6 / max(rounds, 1)
+            self.stats.update({
+                "speculate_k": self.speculate_k,
+                "draft_bits": self.draft_bits,
+                "spec_rounds": rounds,
+                "spec_drafted_tokens": drafted,
+                "spec_accepted_tokens": accepted,
+                "spec_acceptance_rate": accepted / max(drafted, 1),
+                "spec_tokens_per_round": (self._spec_emitted - spec0[3])
+                / max(rounds, 1),
+                "spec_draft_us": (self._spec_draft_s - spec0[4]) * per,
+                "spec_verify_us": (self._spec_verify_s - spec0[5]) * per,
+            })
         if self.paged:
             self.stats.update({
                 "block": self.pool.block,

@@ -198,9 +198,10 @@ def test_paged_kernel_equals_plain(cuda, geom, dtype):
     c, kv, g, d, block, mb, positions, window = geom
     args = _paged(c, kv, g, d, block, mb, positions, sum(positions), dtype,
                   cuda)
-    before = paged_attention.launches
+    before, sc0 = paged_attention.launches, paged_attention.sc.launches
     got = paged_attention(*args, window=window)
     assert paged_attention.launches == before + 1 and got.dtype == dtype
+    assert paged_attention.sc.launches == sc0
     want = paged_attention_torch(*args, window=window)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
@@ -288,9 +289,10 @@ def test_flash_kernel_equals_plain(cuda, geom, dtype, bits):
                                ).to(cuda)
                for shape in ((b, h, sq, d), (b, kv, skv, d), (b, kv, skv, d)))
     kw = dict(causal=causal, q_offset=off, group=group, sc_bits=bits)
-    before = flash_attention.launches
+    before, sc0 = flash_attention.launches, flash_attention.sc.launches
     got = flash_attention(q, k, v, **kw)
     assert flash_attention.launches == before + 1 and got.dtype == dtype
+    assert flash_attention.sc.launches == sc0 + (bits is not None)
     want = flash_attention_torch(q, k, v, **kw)
     torch.cuda.synchronize()
     if bits is None:
@@ -437,9 +439,10 @@ def test_paged_sc_kernel_equals_plain(cuda, geom, dtype, bits):
     c, kv, g, d, block, mb, positions, window = geom
     args = _paged(c, kv, g, d, block, mb, positions, sum(positions) + bits,
                   dtype, cuda)
-    before = paged_attention.launches
+    before, sc0 = paged_attention.launches, paged_attention.sc.launches
     got = paged_attention(*args, window=window, sc_bits=bits)
     assert paged_attention.launches == before + 1 and got.dtype == dtype
+    assert paged_attention.sc.launches == sc0 + 1
     want = paged_attention_torch(*args, window=window, sc_bits=bits)
     torch.cuda.synchronize()
     _sc_close(got, want, args[2], bits, TOL[dtype])
@@ -832,6 +835,8 @@ def test_replays_count_the_launches_their_capture_recorded(cuda, attn_sc):
     step = eng._decode
     want = {"sc_linear": 7 * cfg.n_layers + 1,
             "paged_attention": cfg.n_layers}
+    if attn_sc:
+        want["paged_attention_sc"] = cfg.n_layers
     assert step.launch_counts == want
     s0, p0 = sc_linear.launches, paged_attention.launches
     step.run()
@@ -946,9 +951,11 @@ def test_prefill_replays_bitwise_equal_the_eager_step(cuda, attn_sc, mode):
         graphed = steps.PrefillStep(model, params, **shape)
         steps.capture(graphed)
         graphed.reset()
-        assert graphed.captures == 1 and graphed.launch_counts == {
-            "sc_linear": 7 * cfg.n_layers + 1,
-            "flash_attention": cfg.n_layers}
+        want = {"sc_linear": 7 * cfg.n_layers + 1,
+                "flash_attention": cfg.n_layers}
+        if attn_sc:
+            want["flash_attention_sc"] = cfg.n_layers
+        assert graphed.captures == 1 and graphed.launch_counts == want
         return eager, graphed
 
     if mode == "chunked":
@@ -1044,4 +1051,244 @@ def test_graphed_engine_replays_one_prefill_capture_a_shape(cuda, mode):
     eng.run([dataclasses.replace(r, uid=r.uid + "-again") for r in reqs])
     assert eng.stats["prefill_captures"] == 0
     assert all(s.captures == 1 for s in eng.prefill_steps().values())
+    steps.clear_decode_steps()
+
+
+# ------------------------------------------------ speculative decoding
+
+
+@pytest.mark.parametrize("window", [None, 7], ids=["full", "window7"])
+@pytest.mark.parametrize("bits", [None, 4, 8], ids=["float", "sc4", "sc8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_window_attention_is_the_one_row_kernel_call_bitwise(cuda, dtype,
+                                                             bits, window):
+    """A W = 4 verify window through ``layers.decode_attention`` on the
+    card is one paged-kernel launch whose row ``(b, i)`` equals the
+    one-row call at ``pos_b + i`` bit for bit (ragged positions, one
+    window reaching the cache's end). Rolled-back cells: NaN in K and Inf
+    in V past each row's own position (a draft's scratch past a slot's
+    accepted prefix) change no bit of any row, on the dense view and
+    through the pages of a pool (block 16)."""
+    rng = np.random.default_rng(23)
+    b, s, kv, g, d, w = 4, 80, 5, 3, 64, 4
+    q = torch.as_tensor(rng.standard_normal((b, w, kv * g, d)),
+                        dtype=dtype).to(cuda)
+    k, v = (torch.as_tensor(rng.standard_normal((b, s, kv, d)),
+                            dtype=dtype).to(cuda) for _ in range(2))
+    pos = torch.as_tensor([0, 17, 40, 76], dtype=torch.int32, device=cuda)
+    kw = dict(window=window, sc_bits=bits)
+    before, sc0 = paged_attention.launches, paged_attention.sc.launches
+    got = layers.decode_attention(q, k, v, q_position=pos, **kw)
+    assert paged_attention.launches == before + 1 and got.dtype == dtype
+    assert paged_attention.sc.launches == sc0 + (bits is not None)
+    ones = [layers.decode_attention(q[:, i:i + 1], k, v,
+                                    q_position=pos + i, **kw)
+            for i in range(w)]
+    for i, one in enumerate(ones):
+        assert torch.equal(got[:, i:i + 1], one), f"row {i}"
+    kp, vp = k.clone(), v.clone()
+    for row, p in enumerate(pos.tolist()):
+        kp[row, p + w:] = float("nan")
+        vp[row, p + w:] = float("inf")
+    assert torch.equal(layers.decode_attention(q, kp, vp, q_position=pos,
+                                               **kw), got)
+    # the next round's first row at pos: everything past it poisoned
+    kp, vp = k.clone(), v.clone()
+    for row, p in enumerate(pos.tolist()):
+        kp[row, p + 1:] = float("nan")
+        vp[row, p + 1:] = float("inf")
+    assert torch.equal(layers.decode_attention(q[:, :1], kp, vp,
+                                               q_position=pos, **kw), ones[0])
+    block = 16
+    pages = [t.reshape(b * s // block, block, kv, d) for t in (kp, vp)]
+    pages = [torch.cat([t, t.new_full((1, block, kv, d), float("nan"))])
+             for t in pages]                       # + a poisoned trash page
+    perm = torch.as_tensor(rng.permutation(b * s // block), device=cuda)
+    k_pages, v_pages = (t.clone() for t in pages)
+    k_pages[perm], v_pages[perm] = pages[0][:-1], pages[1][:-1]
+    tables = perm.reshape(b, s // block).to(torch.int32)
+    tables[0, 1:] = -1                             # unallocated: the trash
+    out = paged_attention(q[:, 0].reshape(b, kv, g, d), k_pages, v_pages,
+                          tables, pos, **kw)
+    assert torch.equal(out.reshape(b, 1, kv * g, d), ones[0])
+
+
+def _spec_engine(cfg, params, cuda, graphs, **kw):
+    return _SpecRecording(cfg, params, device=cuda, graphs=graphs,
+                          **{**GRAPH_ENGINE, "speculate_k": 3,
+                             "draft_bits": 4, **kw})
+
+
+class _SpecRecording(Engine):
+    """An engine that keeps every round's live slots and its draft and
+    exact token grids."""
+
+    def _speculate_once(self):
+        live = sorted(self.pool.entries)
+        super()._speculate_once()
+        self.grids = getattr(self, "grids", []) + [
+            (self._window_host.numpy().copy(),
+             self._exact_host.numpy().copy(), live)]
+
+
+@pytest.mark.parametrize("attn_sc,k,bits", [
+    (False, 3, 4), (False, 1, 8), (True, 2, 4)],
+    ids=["float-k3-b4", "float-k1-b8", "sc-k2-b4"])
+def test_graphed_speculative_engine_equals_eager_and_baseline(cuda, attn_sc,
+                                                              k, bits):
+    """Five requests through two slots with speculation on: the graphed
+    engine's rounds give the eager engine's draft and exact grids bit for
+    bit, and both engines' streams equal the sequential baseline."""
+    from repro_torch.launch import steps
+    steps.clear_decode_steps()
+    cfg = _graph_cfg(attn_sc)
+    params = bind(cfg, cuda).init_params(0)
+    reqs = _graph_requests(cfg)
+    runs = {}
+    for graphs in (False, True):
+        eng = _spec_engine(cfg, params, cuda, graphs, speculate_k=k,
+                           draft_bits=bits)
+        runs[graphs] = (eng, eng.run(reqs))
+    (eager, eager_res), (graphed, res) = runs[False], runs[True]
+    assert graphed.graphs and not eager.graphs
+    assert len(graphed.grids) == len(eager.grids) == \
+        graphed.stats["spec_rounds"] > 0
+    for i, ((gd, ge, _), (ed, ee, _)) in enumerate(zip(graphed.grids,
+                                                       eager.grids)):
+        np.testing.assert_array_equal(gd, ed, err_msg=f"draft, round {i}")
+        np.testing.assert_array_equal(ge, ee, err_msg=f"exact, round {i}")
+    for r, e, req in zip(res, eager_res, reqs):
+        np.testing.assert_array_equal(r.tokens, e.tokens)
+        ref = generate(cfg, params, req.prompt[None],
+                       gen_tokens=req.max_new_tokens, device=cuda)
+        np.testing.assert_array_equal(r.tokens, ref[0].cpu().numpy())
+    for step in graphed.spec_steps().values():
+        assert step.captures == 1
+        assert step.replays == graphed.stats["spec_rounds"]
+    assert graphed.stats["spec_draft_us"] > 0
+    steps.clear_decode_steps()
+
+
+def test_an_exact_draft_accepts_every_proposal_on_the_card(cuda):
+    """SC attention and drafts both at 8 bits: the draft is the exact model,
+    so the graphed draft's one-row paged sub-steps must propose exactly the
+    verify window's argmaxes for every live slot in every round (the W-row
+    window bitwise the one-row steps, end to end)."""
+    from repro_torch.launch import steps
+    steps.clear_decode_steps()
+    cfg = _graph_cfg(True)
+    eng = _spec_engine(cfg, bind(cfg, cuda).init_params(0), cuda, True,
+                       draft_bits=8)
+    eng.run(_graph_requests(cfg))
+    assert eng.grids
+    for i, (window, exact, live) in enumerate(eng.grids):
+        np.testing.assert_array_equal(window[live, 1:], exact[live, :3],
+                                      err_msg=f"round {i}")
+    steps.clear_decode_steps()
+
+
+def test_graphed_round_steps_bitwise_equal_the_eager_steps(cuda):
+    """One round driven by hand on a graphed and an eager engine in the
+    same state (two live slots): the draft leaves ``cache.pos`` where it
+    was and its scratch rows, the verify's pool and grid, and the
+    rollback's zeroed cells and positions are bit for bit the eager
+    steps'; after the rollback every cell past a slot's position is
+    zero."""
+    from repro_torch.launch import steps
+    from repro_torch.models import cache_ops
+    steps.clear_decode_steps()
+    cfg = _graph_cfg(False)
+    params = bind(cfg, cuda).init_params(0)
+    engines = [_spec_engine(cfg, params, cuda, graphs) for graphs in
+               (False, True)]
+    for eng in engines:
+        for r in _graph_requests(cfg)[:2]:
+            eng.submit(dataclasses.replace(r, max_new_tokens=20))
+        for _ in range(8):
+            if len(eng.pool.entries) == 2:
+                break
+            eng.step()
+        assert len(eng.pool.entries) == 2
+
+    def pool(eng):
+        return [t.clone() for t in (*eng.pool.cache.k, *eng.pool.cache.v,
+                                    eng.pool.cache.pos)]
+
+    def same(a, b, what):
+        for x, y in zip(a, b, strict=True):
+            assert torch.equal(x, y), what
+
+    states = [pool(e) for e in engines]
+    same(*states, "before the round")
+    for eng in engines:
+        eng._copy_step_inputs(4)
+        pos0 = eng.pool.cache.pos.clone()
+        eng._draft.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(eng.pool.cache.pos, pos0)
+    same(*[pool(e) for e in engines], "after the draft")
+    for eng in engines:
+        eng._verify.replay()
+    torch.cuda.synchronize()
+    same(*[pool(e) for e in engines], "after the verify")
+    assert torch.equal(engines[0]._verify.out, engines[1]._verify.out)
+    assert torch.equal(engines[0]._verify.window, engines[1]._verify.window)
+    for eng in engines:
+        eng._rollback.accept.copy_(torch.as_tensor([1, 3],
+                                                   dtype=torch.int32))
+        eng._rollback.replay()
+    torch.cuda.synchronize()
+    same(*[pool(e) for e in engines], "after the rollback")
+    eng = engines[1]
+    assert torch.equal(eng.pool.cache.pos[:2], pos0[:2] + torch.as_tensor(
+        [1, 3], dtype=torch.int32, device=cuda))
+    tables = torch.as_tensor(eng.pool.tables, device=cuda)
+    dense = cache_ops.paged_gather(eng.pool.cache, tables,
+                                   block=eng.pool.block)
+    for slot in range(2):
+        p = int(eng.pool.cache.pos[slot])
+        for leaf in (*dense.k, *dense.v):
+            assert not leaf[:, slot, p:].any() and leaf[:, slot, p - 1].any()
+    steps.clear_decode_steps()
+
+
+def test_one_capture_per_speculative_shape_and_rebinding(cuda):
+    """Graphed engines of one decode shape share its draft, verify and
+    rollback steps: one capture each per (k, draft_bits) and width, a
+    replay counting k x (7L + 1) SC-GEMM and k x L paged launches, all
+    on the SC path (draft), or 7L + 1 and L float (verify); two engines
+    with different weights used in turn serve their own weights' streams
+    through them (binding packs the draft's weights anew); another k is
+    another set."""
+    from repro_torch.launch import steps
+    steps.clear_decode_steps()
+    cfg = _graph_cfg(False)
+    pa = bind(cfg, cuda).init_params(0)
+    pb = bind(cfg, cuda).init_params(1)
+    reqs = _graph_requests(cfg)
+    a = _spec_engine(cfg, pa, cuda, True)
+    b = _spec_engine(cfg, pb, cuda, True)
+    decode = a._decode
+    assert b._decode is decode and a.spec_steps() == b.spec_steps()
+    n_l = cfg.n_layers
+    want = {"draft": {"sc_linear": 3 * (7 * n_l + 1),
+                      "paged_attention": 3 * n_l,
+                      "paged_attention_sc": 3 * n_l},
+            "verify": {"sc_linear": 7 * n_l + 1, "paged_attention": n_l},
+            "rollback": {}}
+    for name, step in a.spec_steps().items():
+        assert step.captures == 1 and step.launch_counts == want[name]
+    for run, (eng, params) in enumerate(((a, pa), (b, pb), (a, pa))):
+        res = eng.run([dataclasses.replace(r, uid=f"{r.uid}-{run}")
+                       for r in reqs])
+        for r, req in zip(res, reqs):
+            ref = generate(cfg, params, req.prompt[None],
+                           gen_tokens=req.max_new_tokens, device=cuda)
+            np.testing.assert_array_equal(r.tokens, ref[0].cpu().numpy(),
+                                          err_msg=f"run {run} {r.uid}")
+    c = _spec_engine(cfg, pa, cuda, True, speculate_k=1, draft_bits=8)
+    assert c._decode is decode and len(decode.specs) == 6
+    assert all(s.captures == 1 for s in decode.specs.values())
+    assert len(steps.decode_steps()) == 1 and decode.captures == 1
     steps.clear_decode_steps()

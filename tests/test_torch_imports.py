@@ -132,8 +132,8 @@ def test_serve_cli_refuses_out_of_range_attention_bits():
 
 
 def test_later_slices_are_refused():
-    """SC attention is served now (on the CPU here); the prefix cache,
-    speculation and the other families are still refused."""
+    """SC attention and speculation are served now (on the CPU here);
+    the prefix cache and the other families are still refused."""
     from repro_torch.models import bind
     from repro_torch.models.transformer import init_params
     from repro_torch.serving import Engine, Request
@@ -141,8 +141,12 @@ def test_later_slices_are_refused():
     params = init_params(cfg, 0, device="cpu")
     with pytest.raises(ConfigError, match="prefix-cache"):
         Engine(cfg, params, device="cpu", prefix_cache=True)
+    spec = Engine(cfg, params, device="cpu", speculate_k=2, capacity=1,
+                  max_seq=16)
+    out = spec.run([Request(uid="s", prompt=[1, 2, 3], max_new_tokens=3)])
+    assert out[0].n_generated == 3 and spec.stats["spec_rounds"] >= 1
     with pytest.raises(ConfigError, match="speculative"):
-        Engine(cfg, params, device="cpu", speculate_k=2)
+        Engine(cfg, params, device="cpu", speculate_k=2, paged=False)
     sc = Engine(dataclasses.replace(cfg, attn_sc=True), params, device="cpu",
                 capacity=1, max_seq=16)
     out = sc.run([Request(uid="a", prompt=[1, 2, 3], max_new_tokens=2)])
