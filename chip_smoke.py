@@ -190,11 +190,16 @@ def check_close(got, want, *, rtol, atol, v=None, bits=None, what=""):
     return worst
 
 
-def phase_card() -> str:
-    out = subprocess.run(
+def _card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
+
+
+def phase_card() -> str:
+    out = _card_line()
     log(out)
     return out
 
@@ -1091,7 +1096,7 @@ def phase_small_model() -> dict:
     streams = {}
     for dev in ("cpu", "cuda"):
         eng = Engine(cfg, params, device=dev, capacity=2, max_seq=40,
-                     block=32, chunk=16)
+                     block=32, chunk=16, prefix_cache=False)
         streams[dev] = [r.tokens for r in eng.run(reqs)]
     same = all(np.array_equal(a, b) for a, b in zip(streams["cpu"],
                                                     streams["cuda"]))
@@ -1127,7 +1132,7 @@ def _serve_engine(cfg, params, mode, graphs):
 
 
 def _serve_run(cfg, eng, reqs, mode, baseline, *, run: int = 1,
-               captured: int = 0):
+               captured: int = 0, name: str | None = None):
     """One engine run at full width: counters set to 0 just before and read
     just after; streams checked against the sequential baseline. Graphed,
     the engine's decode step must have been captured once, when it was
@@ -1169,8 +1174,9 @@ def _serve_run(cfg, eng, reqs, mode, baseline, *, run: int = 1,
     sc_attn = N_LAYERS if cfg.attn_sc else 0
     reserved = torch.cuda.memory_reserved()
     steps = st["decode_steps"]
-    tag = (f"[{'serve_sc' if cfg.attn_sc else 'serve'}:{mode}"
-           f"{':graphed' if graphs else ':eager'}{':run2' if run > 1 else ''}]")
+    name = name or ("serve_sc" if cfg.attn_sc else "serve")
+    tag = (f"[{name}:{mode}{':graphed' if graphs else ':eager'}"
+           f"{f':run{run}' if run > 1 else ''}]")
     prefill_calls = (st["prefill_chunks"] if mode == "chunked"
                      else st["prefills"])
     prefill_graph = None
@@ -1282,7 +1288,8 @@ def _serve_run(cfg, eng, reqs, mode, baseline, *, run: int = 1,
                              "launch_counts": step.launch_counts}
             if graphs else None,
             "prefill_graph": prefill_graph,
-            "first_stream": results[0].tokens[:16].tolist()}
+            "first_stream": results[0].tokens[:16].tolist(),
+            "streams": [r.tokens.tolist() for r in results]}
 
 
 def _side_by_side(tag, eager, graphed) -> dict:
@@ -1327,7 +1334,8 @@ def _serve_phase(attn_sc: bool, modes) -> dict:
         f"{time.perf_counter() - t0:.1f}s")
     # warm-up: first calls load the kernels and PyTorch's own modules
     Engine(cfg, params, device="cuda", capacity=4, max_seq=256, block=64,
-           chunk=16, graphs=False).run(_workload(cfg, 1, 20, 2, 2, seed=99))
+           chunk=16, prefix_cache=False, graphs=False).run(
+        _workload(cfg, 1, 20, 2, 2, seed=99))
     reqs = _workload(cfg, 8, 64, 16, 64, seed=5)
     t1 = time.perf_counter()
     baseline = [generate(cfg, params, r.prompt[None],
@@ -1530,7 +1538,8 @@ def _serve_spec_run(cfg, eng, reqs, baseline, *, run: int = 1) -> dict:
     return {"stats": {k2: v for k2, v in st.items() if k2 != "backpressure"},
             "launches": launches, "max_memory_allocated": peak,
             "draft_weight_bytes": eng._draft.weight_bytes,
-            "steps": steps_seen if graphs else None, "exact_draft": exact}
+            "steps": steps_seen if graphs else None, "exact_draft": exact,
+            "streams": [r.tokens.tolist() for r in results]}
 
 
 def _spec_cfg(attn_sc: bool):
@@ -1606,6 +1615,203 @@ def phase_serve_sc() -> dict:
     return _serve_phase(True, ("chunked", "oneshot"))
 
 
+#: the ``serve_prefix`` cell's geometry: the ``serve`` cells' engine
+PREFIX_ENGINE = dict(capacity=4, max_seq=256, block=64, chunk=16)
+
+
+def _prefix_workload(cfg):
+    """8 requests: six prompts are one shared 128-token preamble and a
+    distinct suffix of 32 or 64 tokens (160 and 192 tokens); two repeat
+    the first 192-token prompt verbatim (a client retrying), so they match
+    its three full pages and resume at 176, inside the third, which
+    admission copies. New tokens 16-64, prompt + new <= 256."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(21)
+    pre = rng.integers(0, cfg.vocab_size, size=(128,))
+    prompts = [np.concatenate([pre, rng.integers(0, cfg.vocab_size,
+                                                 size=(n,))]).astype(np.int32)
+               for n in (32, 64, 32, 64, 32, 64)]
+    prompts += [prompts[1].copy(), prompts[1].copy()]
+    return [Request(uid=f"req-{i}", prompt=p, max_new_tokens=int(
+                rng.integers(16, min(64, 256 - len(p)) + 1)))
+            for i, p in enumerate(prompts)]
+
+
+def _prefix_plan(reqs, warm: bool) -> dict:
+    """The prefix stats the engine must report, counted here from the
+    prompts alone: requests stage in submission order, each after the one
+    before it was admitted and registered its full pages, so a prompt
+    matches the longest run of full pages it shares with an earlier prompt
+    (with any prompt of the workload once the tree is ``warm``); resume is
+    that span capped at ``len - 1`` tokens, rounded down to a chunk; the
+    page holding a resume inside a matched page is copied."""
+    import numpy as np
+    block, chunk = PREFIX_ENGINE["block"], PREFIX_ENGINE["chunk"]
+    out = {"prefix_hits": 0, "prefix_misses": 0, "prefill_tokens_saved": 0,
+           "cow_copies": 0, "chunks": 0}
+    for i, r in enumerate(reqs):
+        pages = 0
+        for other in (reqs if warm else reqs[:i]):
+            n = min(len(r.prompt), len(other.prompt)) // block
+            same = 0
+            while (same < n and np.array_equal(
+                    r.prompt[same * block:(same + 1) * block],
+                    other.prompt[same * block:(same + 1) * block])):
+                same += 1
+            pages = max(pages, same)
+        resume = min(pages * block, r.prompt_len - 1) // chunk * chunk
+        out["prefix_hits" if resume else "prefix_misses"] += 1
+        out["prefill_tokens_saved"] += resume
+        out["cow_copies"] += bool(resume % block)
+        out["chunks"] += -(-(r.prompt_len - resume) // chunk)
+    return out
+
+
+def _prefix_checks(tag, eng, cell, plan, off) -> None:
+    """What every ``serve_prefix`` run must hold beside ``_serve_run``'s
+    checks: streams equal the cache-off run's; the drained pool holds no
+    live page and leaks none; hits, misses, CoW copies, tokens saved and
+    prefill chunks are the plan's, fewer chunks than the cache off."""
+    st = cell["stats"]
+    pool = eng.pool
+    got = {k: st[k] for k in ("prefix_hits", "prefix_misses",
+                              "prefill_tokens_saved", "cow_copies")}
+    got["chunks"] = st["prefill_chunks"]
+    leaked = [p for p in pool.retained if pool.refcount[p]]
+    log(f"{tag} prefix: {got['prefix_hits']} hits, {got['prefix_misses']} "
+        f"misses, {got['prefill_tokens_saved']} prefill tokens saved, "
+        f"{got['cow_copies']} CoW copies, {got['chunks']} prefill chunks "
+        f"(plan {plan}; cache off {off['stats']['prefill_chunks']}); after "
+        f"the drain {pool.pages_live} pages live, {pool.free_pages} free + "
+        f"{len(pool.retained)} retained of {pool.n_blocks}, "
+        f"{st['prefix_reclaims']} reclaimed")
+    if cell["streams"] != off["streams"]:
+        raise AssertionError(f"{tag} streams differ from the cache-off run's")
+    if (pool.pages_live or leaked
+            or pool.free_pages + len(pool.retained) != pool.n_blocks):
+        raise AssertionError(f"{tag} the drained pool leaks: "
+                             f"{pool.pages_live} live, {leaked} retained "
+                             f"and referenced")
+    if (got != plan or not st["prefix_cache"] or got["cow_copies"] < 1
+            or got["chunks"] >= off["stats"]["prefill_chunks"]):
+        raise AssertionError(f"{tag} prefix stats {got}, want {plan} with "
+                             f"a CoW copy and fewer chunks than "
+                             f"{off['stats']['prefill_chunks']}")
+
+
+def phase_serve_prefix() -> dict:
+    """The reference's default serve, prefix cache on, at smollm-360m's full
+    width (SC-GEMM at 8 bits, float attention) over a shared-preamble
+    workload, against the cache off (graphed, second run): eager; graphed
+    twice on one engine (the second run, over the warm tree, the cell);
+    graphed with speculation (k 3, 4 bits); and a rebind — a cache-off
+    engine of the shape binds the shared entry (zeroing its pool) between
+    two runs of a warm engine, whose tree must go: its next run misses
+    first and its streams stay the baseline's."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import bind
+    from repro_torch.serving import Engine
+    cfg = _spec_cfg(False)
+    params = bind(cfg, "cuda").init_params(0)
+    reqs = _prefix_workload(cfg)
+    t1 = time.perf_counter()
+    baseline = [generate(cfg, params, r.prompt[None],
+                         gen_tokens=r.max_new_tokens,
+                         device="cuda")[0].cpu().numpy() for r in reqs]
+    log(f"[serve_prefix] {len(reqs)} requests (prompts "
+        f"{[r.prompt_len for r in reqs]}, new tokens "
+        f"{[r.max_new_tokens for r in reqs]}); sequential baseline in "
+        f"{time.perf_counter() - t1:.1f}s")
+    cold, warm = _prefix_plan(reqs, False), _prefix_plan(reqs, True)
+
+    def engine(graphs, prefix_cache, **kw):
+        return Engine(cfg, params, device="cuda", prefix_cache=prefix_cache,
+                      graphs=graphs, **PREFIX_ENGINE, **kw)
+
+    def graphed(prefix_cache, tag, **kw):
+        """A graphed engine on an empty step cache, run twice."""
+        steps.clear_decode_steps()
+        eng = engine(True, prefix_cache, **kw)
+        first = _serve_run(cfg, eng, reqs, "chunked", baseline, name=tag,
+                           captured=len(steps.decode_steps()))
+        return eng, first
+
+    out = {}
+    eng, first = graphed(False, "serve_prefix:off")
+    off = _serve_run(cfg, eng, reqs, "chunked", baseline, run=2,
+                     name="serve_prefix:off")
+    off["first_run"] = first
+    out["off"] = off
+    del eng
+
+    steps.clear_decode_steps()
+    eng = engine(False, True)
+    cell = _serve_run(cfg, eng, reqs, "chunked", baseline, name="serve_prefix")
+    _prefix_checks("[serve_prefix:eager]", eng, cell, cold, off)
+    out["eager"] = cell
+    del eng
+
+    eng, first = graphed(True, "serve_prefix")
+    _prefix_checks("[serve_prefix:graphed]", eng, first, cold, off)
+    cell = _serve_run(cfg, eng, reqs, "chunked", baseline, run=2,
+                      name="serve_prefix")
+    _prefix_checks("[serve_prefix:graphed:run2]", eng, cell, warm, off)
+    cell["first_run"] = first
+    out["graphed"] = cell
+    del eng
+
+    steps.clear_decode_steps()
+    eng = engine(True, True, speculate_k=3, draft_bits=4)
+    cell = _serve_spec_run(cfg, eng, reqs, baseline)
+    _prefix_checks("[serve_prefix:spec:k3@4b]", eng, cell, cold, off)
+    out["spec"] = cell
+    del eng
+
+    # the rebind: the cache-off engine binds the warm engine's entry
+    warm_eng, first = graphed(True, "serve_prefix:rebind")
+    other = engine(True, False)
+    if other._decode is not warm_eng._decode:
+        raise AssertionError("[serve_prefix:rebind] the two engines hold "
+                             "different decode entries")
+    bound = _serve_run(cfg, other, reqs, "chunked", baseline, run=3,
+                       name="serve_prefix:rebind:off")
+    del other
+    again = _serve_run(cfg, warm_eng, reqs, "chunked", baseline, run=4,
+                       name="serve_prefix:rebind")
+    _prefix_checks("[serve_prefix:rebind:run4]", warm_eng, again, cold, off)
+    again["first_run"] = first
+    again["bound_between"] = bound
+    out["rebind"] = again
+    del warm_eng
+    steps.clear_decode_steps()
+
+    card = _card_line()
+    rows = (("tokens/s", "tok_per_s", 1.0, "{:.2f}"),
+            ("TTFT p50 ms", "ttft_p50_s", 1e3, "{:.1f}"),
+            ("decode ms/step", "decode_ms_per_step", 1.0, "{:.2f}"),
+            ("prefill chunks", "prefill_chunks", 1, "{}"))
+    on = out["graphed"]
+    log(f"[serve_prefix] {card}: cache off -> on (graphed second runs; on "
+        f"= the warm tree): " + ", ".join(
+            f"{what} {fmt.format(off['stats'][key] * scale)} -> "
+            f"{fmt.format(on['stats'][key] * scale)}"
+            for what, key, scale, fmt in rows)
+        + f", hits/misses {on['stats']['prefix_hits']}/"
+        f"{on['stats']['prefix_misses']}, tokens saved "
+        f"{on['stats']['prefill_tokens_saved']}, CoW copies "
+        f"{on['stats']['cow_copies']}, peak "
+        f"{off['max_memory_allocated'] / 2**30:.3f} -> "
+        f"{on['max_memory_allocated'] / 2**30:.3f} GiB; cold graphed run: "
+        f"tokens/s {on['first_run']['stats']['tok_per_s']:.2f}, TTFT p50 "
+        f"{on['first_run']['stats']['ttft_p50_s'] * 1e3:.1f} ms, "
+        f"{on['first_run']['stats']['prefill_chunks']} chunks (its prefill "
+        f"capture included)")
+    out["card"] = card
+    return out
+
+
 def _profile_engine(cfg, params, graphs: bool) -> dict:
     """``torch.profiler`` over two decode steps of one engine (4 requests
     in 4 slots), against the wall time of two unprofiled steps."""
@@ -1613,7 +1819,7 @@ def _profile_engine(cfg, params, graphs: bool) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import Engine
     eng = Engine(cfg, params, device="cuda", capacity=4, max_seq=256,
-                 block=64, chunk=16, graphs=graphs)
+                 block=64, chunk=16, prefix_cache=False, graphs=graphs)
     for r in _workload(cfg, 4, 16, 12, 12, seed=7):
         eng.submit(r)
     while eng.pool.n_free:             # admit all four (prefill unprofiled)
@@ -1787,7 +1993,7 @@ def _profile_prefill(cfg, params, graphs: bool, n: int = 6) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import Engine
     eng = Engine(cfg, params, device="cuda", capacity=4, max_seq=256,
-                 block=64, chunk=16, graphs=graphs)
+                 block=64, chunk=16, prefix_cache=False, graphs=graphs)
     req = _workload(cfg, 1, 240, 1, 1, seed=11)[0]
     st = eng._start_prefill(req)     # graphed: captures the bucket's step
     step = st.step
@@ -1898,6 +2104,7 @@ def main() -> int:
               ("stream", phase_stream), ("paper", phase_paper),
               ("small_model", phase_small_model), ("serve", phase_serve),
               ("serve_sc", phase_serve_sc), ("serve_spec", phase_serve_spec),
+              ("serve_prefix", phase_serve_prefix),
               ("profile", phase_profile))
     for name, fn in phases:
         if only is None or name in only:
@@ -1980,9 +2187,10 @@ def main() -> int:
 
     def runs(cell):
         """A cell's serving runs, each counted from 0: the cell itself,
-        the graphed first run and the eager run beside it."""
+        the graphed first run, the eager run beside it and (the rebind)
+        the run of the engine that bound its entry in between."""
         yield cell
-        for key in ("first_run", "eager"):
+        for key in ("first_run", "eager", "bound_between"):
             if isinstance(cell.get(key), dict):
                 yield from runs(cell[key])
 
@@ -1990,6 +2198,8 @@ def main() -> int:
     # wrappers counted them (``*_sc``: the SC path's)
     served = [r for cell in (serve, *serve_sc.values(),
                              *(c for c in report["serve_spec"].values()
+                               if isinstance(c, dict)),
+                             *(c for c in report["serve_prefix"].values()
                                if isinstance(c, dict)))
               for r in runs(cell)]
     total = {name: sum(r["launches"][name] for r in served)

@@ -5,11 +5,14 @@ and the sequential per-request :func:`generate` baseline (port of
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
         --sc-gemm [--attn-sc [--attn-sc-bits 8]] \\
         [--speculate-k 3 [--draft-bits 4]] \\
+        [--no-prefix-cache] [--prefix-block-hash 0] \\
         [--requests 8 --prompt-len 64 --gen 64] [--device cpu]
 
-Runs on the card unless ``--device cpu`` is given. ``generate`` is the
-sequential baseline for SC attention and speculative decoding too. The
-JAX CLI's prefix-cache flags come with that slice.
+Runs on the card unless ``--device cpu`` is given. The synthetic workload
+is the reference CLI's: every prompt opens with one shared preamble of
+``prompt_len // 2`` tokens and then diverges, so the prefix cache (on by
+default) has something to share. ``generate`` is the sequential baseline
+for SC attention, speculative decoding and the prefix cache alike.
 """
 from __future__ import annotations
 
@@ -115,6 +118,16 @@ def main(argv=None) -> None:
                     help="prefill chunk length in tokens")
     ap.add_argument("--prefill-budget", type=int, default=None,
                     help="prefill tokens per engine step (default: a chunk)")
+    ap.add_argument("--prefix-cache", dest="prefix_cache",
+                    action=argparse.BooleanOptionalAction, default=True,
+                    help="share block-aligned prompt prefixes across "
+                         "requests through the copy-on-write prefix cache "
+                         "over the paged pool (active for paged + chunked + "
+                         "dense; exact). --no-prefix-cache is the reuse A/B")
+    ap.add_argument("--prefix-block-hash", type=int, default=0,
+                    help="seed keying the radix tree's chained block hash; "
+                         "streams do not depend on it (a match verifies the "
+                         "raw tokens)")
     ap.add_argument("--speculate-k", type=int, default=0,
                     help="self-speculative decoding: draft this many tokens "
                          "a round through the SC popcount path, verify them "
@@ -151,12 +164,19 @@ def main(argv=None) -> None:
     params = m.init_params(args.seed)
 
     rng = np.random.default_rng(1)
+
+    def tokens(n):
+        return rng.integers(0, cfg.vocab_size, size=(n,), dtype=np.int32)
+
+    # real traffic shares long system or tool preambles: every prompt opens
+    # with the same first half, then diverges (the reference CLI's draws)
+    preamble = tokens(args.prompt_len // 2)
     gens = rng.integers(max(args.gen // 4, 1), args.gen + 1,
                         size=args.requests)
     requests = [
         Request(uid=f"req-{i}",
-                prompt=rng.integers(0, cfg.vocab_size, size=(args.prompt_len,),
-                                    dtype=np.int32),
+                prompt=np.concatenate(
+                    [preamble, tokens(args.prompt_len - len(preamble))]),
                 max_new_tokens=int(g), temperature=args.temperature, seed=i)
         for i, g in enumerate(gens)
     ]
@@ -167,6 +187,8 @@ def main(argv=None) -> None:
                     n_blocks=args.pages, fused=not args.no_fused_paged,
                     prefill_mode=args.prefill_mode, chunk=args.chunk,
                     prefill_budget=args.prefill_budget,
+                    prefix_cache=args.prefix_cache,
+                    prefix_hash_seed=args.prefix_block_hash,
                     speculate_k=args.speculate_k,
                     draft_bits=args.draft_bits)
     t0 = time.time()
@@ -186,6 +208,11 @@ def main(argv=None) -> None:
     pages = (f", pages peak {st['peak_pages']}/{st['n_blocks']}"
              f" (block {st['block']}, {st['preemptions']} preemptions)"
              if st["layout"] == "paged" else "")
+    if st["prefix_cache"]:
+        pages += (f", prefix {st['prefix_hits']}/"
+                  f"{st['prefix_hits'] + st['prefix_misses']} hits "
+                  f"({st['prefill_tokens_saved']} prefill tokens saved, "
+                  f"{st['cow_copies']} CoW)")
     if st["speculative"]:
         pages += (f", spec k={st['speculate_k']}@{st['draft_bits']}b: "
                   f"{st['spec_acceptance_rate']:.0%} accepted, "

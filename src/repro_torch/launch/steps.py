@@ -400,6 +400,17 @@ class PrefillStep(_Step):
         masked to an exact zero weight."""
         self.cache.pos.zero_()
 
+    def seed(self, data, pages, *, block: int, resume: int) -> None:
+        """A prefix hit's start, after :meth:`start`: the staging rows
+        below the matched pages' extent take the pool ``data``'s ``pages``
+        and the position becomes ``resume`` (a chunk multiple), written in
+        place into the buffers the captured chunk graph reads
+        (``cache_ops.prefix_seed``). The next replay then runs the chunk at
+        ``resume`` over the seeded rows, the same graph a cold prompt
+        replays there."""
+        cache_ops.prefix_seed(self.cache, data, pages, block=block,
+                              resume=resume)
+
     def reset(self) -> None:
         """Zero tokens at position 0 (a full chunk valid), zero K/V and
         logits: what a capture runs on."""

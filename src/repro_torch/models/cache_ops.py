@@ -20,8 +20,10 @@ the JAX package's pure functions, the writing ops (``slot_insert``,
 ``slot_evict``, ``paged_commit``, ``paged_insert``, ``paged_evict``) update
 the cache in place and return it: the pools are the largest tensors of a
 serving process; so do the speculative window's ``paged_commit_window`` and
-``paged_rollback``. The copy-on-write ops of the prefix cache come with
-that slice.
+``paged_rollback``, and the prefix cache's page-sharing ops
+(``paged_copy_page``, ``paged_zero_pages``, ``prefix_seed``). Page ids are
+host ints (page allocation is host-driven); the ops run eagerly between
+step replays and never read the device.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ from .transformer import KVCache
 __all__ = ["slot_insert", "slot_read", "slot_evict", "slot_positions",
            "truncate_seq", "paged_init", "paged_gather", "paged_token_entry",
            "paged_commit", "paged_commit_window", "paged_rollback",
-           "paged_insert", "paged_evict", "paged_read", "SLOT_AXIS"]
+           "paged_insert", "paged_evict", "paged_read", "paged_copy_page",
+           "paged_zero_pages", "prefix_seed", "SLOT_AXIS"]
 
 #: The slot (batch) dimension of every ``k``/``v`` cache leaf.
 SLOT_AXIS = 1
@@ -104,6 +107,12 @@ def truncate_seq(single: KVCache, length: int) -> KVCache:
 # --------------------------------------------------------------------------
 # Paged block-pool layout
 # --------------------------------------------------------------------------
+
+def _page_ids(data: KVCache, pages) -> torch.Tensor:
+    """Host page ids as an index tensor on the pool's device."""
+    return torch.as_tensor(np.asarray(pages, np.int64).reshape(-1),
+                           device=data.pos.device)
+
 
 def _trash(leaf: torch.Tensor) -> int:
     """Physical index of the leaf's trash page (always the last)."""
@@ -237,27 +246,41 @@ def paged_rollback(data: KVCache, tables: torch.Tensor, *, block: int,
 def paged_insert(data: KVCache, single: KVCache, slot: int, pages, *,
                  block: int, start: int = 0) -> KVCache:
     """Write a single-sequence (B=1) prefill cache into ``pages`` of the
-    pool (host ints, ``ceil(S1 / block)`` of them; the last page's tail is
-    zero-padded) and its position into ``slot`` — in place. ``start > 0``
-    (the prefix-cache overlay) comes with the prefix-cache slice."""
-    if start:
-        raise ConfigError("paged_insert(start > 0) is the prefix-cache "
-                          "admission path, which comes with that slice")
-    ids = torch.as_tensor(np.asarray(pages, np.int64),
-                          device=data.pos.device)
+    pool and its position into ``slot`` — in place.
+
+    With ``start == 0`` (the default), ``pages`` holds ``ceil(S1 / block)``
+    physical page ids (host ints); the last page's tail beyond ``S1`` is
+    zero-padded.
+
+    ``start > 0`` is the prefix-cache admission path: ``pages`` then covers
+    only the token span from ``start``'s page onward — positions
+    ``[(start // block) * block, …)`` — and page cells *below* ``start``
+    keep their pool contents. That overlay makes copy-on-write admission
+    exact: the page copy supplies the shared rows the staging prefill never
+    computed, and ``single`` everything from the divergence point."""
+    ids = _page_ids(data, pages)
     n_pages = int(ids.shape[0])
+    pstart = (start // block) * block
     for pl, sl in zip(_leaves(data), _leaves(single)):
         lead, s1 = sl.shape[0], sl.shape[2]
-        if n_pages * block < s1:
+        if pstart + n_pages * block < s1:
             raise CacheLayoutError(
-                f"{n_pages} pages of {block} tokens cannot hold a "
-                f"{s1}-token prefill cache")
-        x = sl[:, 0]                                      # (lead, S1, ...)
-        pad = n_pages * block - s1
-        if pad:
-            x = torch.cat([x, x.new_zeros((lead, pad, *x.shape[2:]))], dim=1)
-        pl[:, ids] = x.reshape(lead, n_pages, block,
-                               *x.shape[2:]).to(pl.dtype)
+                f"{n_pages} pages of {block} tokens at token offset "
+                f"{pstart} cannot hold a {s1}-token prefill cache")
+        x = sl[:, 0, pstart:].to(pl.dtype)                # (lead, S1', ...)
+        if start > pstart:
+            # overlay: cells below ``start`` keep the pool's contents (the
+            # CoW copy); cells at or after it take ``single``'s
+            cur = pl[:, ids].reshape(lead, n_pages * block, *x.shape[2:])
+            cur[:, start - pstart:x.shape[1]] = x[:, start - pstart:]
+            cur[:, x.shape[1]:] = 0
+            x = cur
+        else:
+            pad = n_pages * block - x.shape[1]
+            if pad:
+                x = torch.cat([x, x.new_zeros((lead, pad, *x.shape[2:]))],
+                              dim=1)
+        pl[:, ids] = x.reshape(lead, n_pages, block, *x.shape[2:])
     data.pos[slot] = single.pos.reshape(-1)[0]
     return data
 
@@ -265,11 +288,7 @@ def paged_insert(data: KVCache, single: KVCache, slot: int, pages, *,
 def paged_evict(data: KVCache, slot: int, pages) -> KVCache:
     """Zero ``pages`` and reset ``slot``'s position (in place), so a reused
     page never carries a previous tenant's K/V."""
-    pages = np.asarray(pages, np.int64)
-    if pages.size:
-        ids = torch.as_tensor(pages, device=data.pos.device)
-        for pl in _leaves(data):
-            pl[:, ids] = 0
+    paged_zero_pages(data, pages)
     data.pos[slot] = 0
     return data
 
@@ -279,3 +298,49 @@ def paged_read(data: KVCache, tables: torch.Tensor, slot: int, *,
     """``slot`` as a single-sequence (B=1) dense cache of extent
     ``max_blocks * block`` (a test/debug surface)."""
     return slot_read(paged_gather(data, tables, block=block), slot)
+
+
+# --------------------------------------------------------------------------
+# Prefix-cache page sharing
+# --------------------------------------------------------------------------
+
+def paged_copy_page(data: KVCache, src: int, dst: int) -> KVCache:
+    """Copy physical page ``src``'s cells into page ``dst`` (in place): the
+    copy-on-write primitive. Before the first write into a shared
+    (refcount > 1 or prefix-retained) page, the pool copies it to a private
+    page and rewrites the slot's block table."""
+    for pl in _leaves(data):
+        pl[:, int(dst)].copy_(pl[:, int(src)])
+    return data
+
+
+def paged_zero_pages(data: KVCache, pages) -> KVCache:
+    """Zero the cells of ``pages`` (no slot's position is touched; in
+    place): the reclaim half of prefix retention, and what eviction does
+    to the pages it frees, so pool contents stay a pure function of the
+    live requests and the retained prefix set."""
+    ids = _page_ids(data, pages)
+    if ids.numel():
+        for pl in _leaves(data):
+            pl[:, ids] = 0
+    return data
+
+
+def prefix_seed(single: KVCache, data: KVCache, pages, *, block: int,
+                resume: int) -> KVCache:
+    """Seed a B=1 staging cache from pool ``pages`` (in place): its rows
+    ``[0, min(len(pages) * block, extent))`` take the pages' cells and its
+    position becomes ``resume``, so the next chunk of a chunked prefill
+    runs at offset ``resume`` over the seeded rows as if the chunks before
+    it had run. Rows at or after ``resume`` are overwritten by the suffix
+    chunks before any query reaches them. The position is set by a fill on
+    the cache's device, in its buffer, so a captured chunk step sees it."""
+    ids = _page_ids(data, pages)
+    n = int(ids.numel())
+    for sl, dl in zip(_leaves(single), _leaves(data)):
+        n_rows = min(n * block, sl.shape[2])
+        if n_rows:
+            flat = dl[:, ids].reshape(dl.shape[0], n * block, *dl.shape[3:])
+            sl[:, 0, :n_rows] = flat[:, :n_rows].to(sl.dtype)
+    single.pos.fill_(resume)
+    return single

@@ -1,5 +1,4 @@
-"""Continuous-batching serving engine (port of ``repro/serving/engine.py``
-without the prefix cache, which comes with a later slice).
+"""Continuous-batching serving engine (port of ``repro/serving/engine.py``).
 
 The engine is a step scheduler: one :meth:`Engine.step` spends a bounded
 budget of prefill-chunk work, admits a completed prefill into the pool, and
@@ -20,8 +19,20 @@ runs one batched decode over every live slot; :meth:`Engine.run` and
   card a step is its shape's captured CUDA graph, captured at first use
   (``launch.steps.cached_chunked_prefill_step`` /
   ``cached_prefill_step``); on the CPU it runs eagerly.
+* *Prefix cache (paged + chunked + dense, on by default)*: before staging
+  a prompt the engine matches it against a token-hash radix tree
+  (``serving.prefix``, DESIGN.md §12) of block-aligned prompt prefixes
+  whose pages are resident in the pool. On a hit the matched pages are
+  pinned, the bucket step's staging cache is seeded with their K/V and its
+  position set to the resume offset (``PrefillStep.seed``), and only the
+  suffix's chunks run — the same chunk graph a cold prompt replays at that
+  offset. Admission attaches the slot's table to the shared pages and
+  copies the page holding the resume point (copy-on-write); every
+  admission registers the prompt's full pages in the tree, which keeps
+  them warm after their last reference drops.
 * *Grow (paged)*: before each decode step every live slot's next write
-  position gets its page (``PagedSlotPool.ensure_page``); exhaustion
+  position gets its page, copied first if it is shared or retained
+  (``PagedSlotPool.ensure_page``); exhaustion
   preempts youngest-first — an in-flight staging prefill included — and
   re-queues the request, whose restarted stream is identical.
 * *Decode*: one paged (or dense) decode step advances all slots a token;
@@ -78,6 +89,7 @@ from repro_torch.launch.steps import (DecodeStep, PrefillStep, bucket_for,
 from repro_torch.models import bind, cache_ops
 from repro_torch.models.transformer import pack_sc_weights, params_to
 
+from .prefix import PrefixCache, PrefixMatch
 from .queue import Request, RequestQueue, RequestResult
 from .slots import PagedSlotPool, PoolExhausted, SlotEntry, SlotPool
 
@@ -94,11 +106,15 @@ TokenCallback = Callable[[str, int, np.ndarray, "str | None"], None]
 class _StagingPrefill:
     """One in-flight chunked prefill: the queue head being committed, chunk
     by chunk, into the B=1 staging cache of its bucket's step. ``rows``
-    holds the final chunk's logit row once complete."""
+    holds the final chunk's logit row once complete. ``match`` is the
+    prefix-cache plan of a hit: its pages stay pinned in the pool until
+    admission or preemption, the staging cache was seeded from them and
+    progress starts at ``match.resume``."""
     entry: SlotEntry
     bucket: int
     step: PrefillStep
     rows: np.ndarray | None = None
+    match: PrefixMatch | None = None
 
     @property
     def done(self) -> bool:
@@ -129,17 +145,23 @@ class Engine:
     and empties the pool, and is refused while another engine holds
     requests in it (a staging prefill included). An engine whose step
     another engine has since bound binds it again on its next step, when
-    it holds no request. SC attention (``cfg.attn_sc``) is served, in both
-    prefill modes.
+    it holds no request; a warm prefix tree does not survive that: the
+    bind zeroed its pages, so the engine drops the tree and its retained
+    pages with it, and its next prompts miss. SC attention
+    (``cfg.attn_sc``) is served, in both prefill modes.
+
+    ``prefix_cache=True`` (the default) shares block-aligned prompt
+    prefixes across requests through the radix tree over the paged pool
+    (DESIGN.md §12), where that is exact: paged layout, chunked prefill,
+    dense family; elsewhere ``self.prefix`` is None. ``prefix_hash_seed``
+    keys the block hash; streams do not depend on it.
 
     ``speculate_k`` (default ``cfg.speculate_k``) > 0 serves by
     self-speculative rounds with drafts at ``draft_bits`` (default
     ``cfg.draft_bits``, 2..8); it needs the paged layout, a dense family
     and greedy requests (others raise :class:`ConfigError`). Graphed, the
     draft, verify and rollback steps of the shape hang off the decode
-    step, captured once when an engine first asks for them. The prefix
-    cache (``prefix_cache=True``) comes with a later slice of the port and
-    is refused here.
+    step, captured once when an engine first asks for them.
     """
 
     def __init__(self, cfg, params, *, capacity: int = 4, max_seq: int = 256,
@@ -148,17 +170,13 @@ class Engine:
                  n_blocks: int | None = None, fused: bool = True,
                  prefill_mode: str = "chunked", chunk: int = 16,
                  prefill_budget: int | None = None,
-                 prefix_cache: bool = False,
+                 prefix_cache: bool = True, prefix_hash_seed: int = 0,
                  speculate_k: int | None = None,
                  draft_bits: int | None = None,
                  graphs: bool | None = None):
         cfg.validate()
         if prefill_mode not in ("chunked", "oneshot"):
             raise ConfigError(f"unknown prefill_mode {prefill_mode!r}")
-        if prefix_cache:
-            raise ConfigError("the copy-on-write prefix cache comes with the "
-                              "prefix-cache slice of the port; pass "
-                              "prefix_cache=False")
         self.speculate_k = cfg.speculate_k if speculate_k is None \
             else speculate_k
         self.draft_bits = cfg.draft_bits if draft_bits is None else draft_bits
@@ -224,6 +242,19 @@ class Engine:
                                       capacity=capacity,
                                       max_blocks=max_blocks, block=block,
                                       fused=self.fused)
+        self.prefix: PrefixCache | None = None
+        self._prefix_hash_seed = prefix_hash_seed
+        if (prefix_cache and paged and prefill_mode == "chunked"
+                and cfg.family == "dense"):
+            # a seeded staging row must be the row a cold prefill computes:
+            # the staging caches and the pool hold K/V in one dtype
+            staging = self._m.init_cache(1, 1).k[0].dtype
+            if staging != self.pool.cache.k[0].dtype:
+                raise EngineInvariantError(
+                    f"prefix sharing needs the staging cache ({staging}) "
+                    f"and the pool ({self.pool.cache.k[0].dtype}) in one "
+                    f"dtype")
+            self._new_prefix()
         if self.speculate_k:
             self._make_spec_steps()
 
@@ -258,6 +289,9 @@ class Engine:
         self._last_decode_end: float | None = None
         self._max_decode_gap = 0.0
         self._decode_s = 0.0
+        self._n_prefix_hits = 0
+        self._n_prefix_misses = 0
+        self._prefill_tokens_saved = 0
         self._n_spec_rounds = 0
         self._spec_drafted = 0          # draft tokens proposed (live slots)
         self._spec_draft_accepted = 0   # draft tokens that reached a stream
@@ -266,6 +300,13 @@ class Engine:
         self._spec_verify_s = 0.0
         self._backpressure: dict[str, list[dict]] = {"admission": [],
                                                      "decode": []}
+
+    def _new_prefix(self) -> None:
+        """An empty radix tree, wired into the pool."""
+        self.prefix = PrefixCache(block=self.pool.block,
+                                  seed=self._prefix_hash_seed,
+                                  align=self.chunk)
+        self.pool.prefix = self.prefix
 
     def _make_spec_steps(self) -> None:
         """The draft, verify and rollback steps over the decode step's
@@ -425,7 +466,12 @@ class Engine:
     def _start_prefill(self, req: Request) -> _StagingPrefill:
         """Pop the queue head into a staging prefill of its bucket, on that
         bucket's step (its staging position back to 0); the entry is
-        created now, so it is the youngest for preemption."""
+        created now, so it is the youngest for preemption.
+
+        With a prefix cache the prompt is matched first: on a hit the
+        matched pages are pinned (the reclaimer cannot take them while the
+        prompt stages), the staging cache is seeded with their K/V and the
+        chunks start at the resume offset."""
         self.pool.check_fits(req)
         bucket = bucket_for(req.prompt_len, self.buckets)
         self._prefill_shapes.add((bucket, self.chunk))
@@ -436,7 +482,20 @@ class Engine:
         entry = SlotEntry(request=req, admitted_at=0.0, admit_step=self._step,
                           admit_index=self._admit_counter)
         self._admit_counter += 1
-        return _StagingPrefill(entry=entry, bucket=bucket, step=step)
+        match = None
+        if self.prefix is not None:
+            plan = self.prefix.match(req.prompt)
+            if plan.hit:
+                match = plan
+                self.pool.pin_pages(plan.pages)
+                step.seed(self.pool.cache, plan.pages, block=self.pool.block,
+                          resume=plan.resume)
+                entry.prefill_offset = plan.resume
+                self._n_prefix_hits += 1
+            else:
+                self._n_prefix_misses += 1
+        return _StagingPrefill(entry=entry, bucket=bucket, step=step,
+                               match=match)
 
     def _prefill_chunk_once(self, st: _StagingPrefill) -> None:
         """Commit one chunk of the staging prompt (the final chunk is
@@ -461,12 +520,14 @@ class Engine:
             return False
         if not self.paged:
             return True
-        return self.pool.can_admit(st.entry.request)
+        return self.pool.can_admit(st.entry.request, match=st.match)
 
     def _admit_staged(self) -> None:
         """Completed staging prefill → pool admission: truncate the bucket
         padding to the prompt, insert, and emit the first token from the
-        held final-chunk logits."""
+        held final-chunk logits. A prefix hit admits through
+        ``admit_prefix`` (attach, copy-on-write) and drops the CoW source's
+        pin; either way the prompt's full pages enter the radix tree."""
         st = self._staging
         self._staging = None
         req = st.entry.request
@@ -475,7 +536,20 @@ class Engine:
         single = cache_ops.truncate_seq(st.step.cache, req.prompt_len)
         st.entry.admitted_at = time.perf_counter()
         st.entry.admit_step = self._step
-        slot = self.pool.admit(st.entry, single)
+        if st.match is not None:
+            slot = self.pool.admit_prefix(st.entry, single, st.match)
+            if st.match.cow_src is not None:
+                self.pool.unpin_pages([st.match.cow_src])
+            # counted at admission: a preempted staging prefill re-stages
+            # and matches again, and must not count its resume twice
+            self._prefill_tokens_saved += st.match.resume
+        else:
+            slot = self.pool.admit(st.entry, single)
+        if self.prefix is not None:
+            full = req.prompt_len // self.pool.block
+            new = self.prefix.insert(req.prompt,
+                                     self.pool.tables[slot, :full].tolist())
+            self.pool.retain_pages(new)
         self._n_prefills += 1
         self._emit(slot, st.entry, self._sample(st.entry, st.rows))
 
@@ -539,6 +613,8 @@ class Engine:
         if victim is None:
             st = self._staging
             self._staging = None
+            if st.match is not None:    # release the staging pins
+                self.pool.unpin_pages(st.match.pages)
             self.queue.requeue(st.entry.request)
         else:
             entry = self.pool.evict(victim)
@@ -695,9 +771,14 @@ class Engine:
         if self.graphs and self._decode.owner() is not self:
             # another engine of this shape bound the step since, and emptied
             # the pool: this one holds no request (that engine's bind
-            # refuses otherwise), so it binds the step back
+            # refuses otherwise), so it binds the step back. Its warm
+            # prefix pages were zeroed by that bind: the tree and its
+            # retained pages go, or the next hit would read zeros
             self._bind_decode(pack_sc_weights(
                 params_to(self._source, self.device), self.cfg))
+            if self.prefix is not None:
+                self.pool.drop_retained()
+                self._new_prefix()
         if self.prefill_mode == "chunked":
             if self.continuous:
                 self._advance_prefill(self.prefill_budget)
@@ -711,8 +792,24 @@ class Engine:
                 if not self.continuous and not self.pool.has_free:
                     break
         if not self.pool.entries:
-            # an empty pool has every slot and page free, so anything still
-            # refused now can never be admitted — fail, don't spin
+            st = self._staging
+            if (st is not None and st.done and st.match is not None
+                    and not self._can_admit_staged(st)):
+                # the sharing plan itself can pin the capacity admission
+                # needs (warm pages and the CoW source are off the free list
+                # while staged): drop it — the staging cache is complete and
+                # its seeded rows are what a cold prefill computes — and
+                # admit privately, as a miss would be. The skipped span still
+                # counts as saved: it was never recomputed.
+                self.pool.unpin_pages(st.match.pages)
+                self._prefill_tokens_saved += st.match.resume
+                st.match = None
+                if self._can_admit_staged(st):
+                    self._admit_staged()
+        if not self.pool.entries:
+            # an empty pool has every slot and page free (or reclaimable),
+            # so anything still refused now can never be admitted — fail,
+            # don't spin
             st = self._staging
             if st is not None and st.done and not self._can_admit_staged(st):
                 self._staging = None
@@ -788,6 +885,10 @@ class Engine:
         steps0, prefills0 = self._step, self._n_prefills
         chunks0, preempt0 = self._n_prefill_chunks, self._n_preemptions
         decode0, captures0 = self._decode_s, self._prefill_captures()
+        hits0, misses0 = self._n_prefix_hits, self._n_prefix_misses
+        saved0 = self._prefill_tokens_saved
+        cow0 = getattr(self.pool, "n_cow", 0)
+        reclaim0 = getattr(self.pool, "n_reclaimed", 0)
         spec0 = (self._n_spec_rounds, self._spec_drafted,
                  self._spec_draft_accepted, self._spec_emitted,
                  self._spec_draft_s, self._spec_verify_s)
@@ -844,7 +945,7 @@ class Engine:
             "chunk": self.chunk,
             "buckets": self.buckets,
             "prefill_shapes": len(self._prefill_shapes),
-            "prefix_cache": False,
+            "prefix_cache": self.prefix is not None,
             "speculative": bool(self.speculate_k),
             "attn_sc_bits": self.cfg.sc_bits if self.cfg.attn_sc else None,
         }
@@ -874,5 +975,18 @@ class Engine:
                 "peak_pages": self.pool.peak_pages,
                 "decode_path": "fused" if self.fused else "gather",
                 "backpressure": self._backpressure,
+            })
+        if self.prefix is not None:
+            hits = self._n_prefix_hits - hits0
+            misses = self._n_prefix_misses - misses0
+            self.stats.update({
+                "prefix_hits": hits,
+                "prefix_misses": misses,
+                "prefix_hit_rate": hits / max(hits + misses, 1),
+                "prefill_tokens_saved":
+                    self._prefill_tokens_saved - saved0,
+                "cow_copies": self.pool.n_cow - cow0,
+                "prefix_reclaims": self.pool.n_reclaimed - reclaim0,
+                "prefix_retained_pages": len(self.pool.retained),
             })
         return out

@@ -123,7 +123,21 @@ def test_paged_insert_refuses_what_it_cannot_hold():
     _, tone = _random_cache(1, 9, seed=0)
     with pytest.raises(CacheLayoutError):
         tops.paged_insert(tdata, tone, 0, [0, 1], block=4)
-    with pytest.raises(ConfigError, match="prefix-cache"):
-        tops.paged_insert(tdata, tone, 0, [0, 1, 2], block=4, start=4)
+    # the prefix-cache overlay: pages from ``start``'s page on, cells below
+    # ``start`` keep the pool's contents, cells from it take the cache's
+    with pytest.raises(CacheLayoutError):
+        tops.paged_insert(tdata, tone, 0, [1], block=4, start=6)
+    gen = torch.Generator().manual_seed(0)
+    for t in (*tdata.k, *tdata.v):
+        t.copy_(torch.randn(t.shape, generator=gen))
+    before = [t.clone() for t in (*tdata.k, *tdata.v)]
+    tops.paged_insert(tdata, tone, 1, [2, 3], block=4, start=6)
+    for was, now, one in zip(before, (*tdata.k, *tdata.v),
+                             (*tone.k, *tone.v)):
+        assert torch.equal(now[:, 2, :2], was[:, 2, :2])
+        assert torch.equal(now[:, 2, 2:], one[:, 0, 6:8])
+        assert torch.equal(now[:, 3, :1], one[:, 0, 8:9])
+        assert not now[:, 3, 1:].any()
+    assert int(tdata.pos[1]) == int(tone.pos[0])
     with pytest.raises(ConfigError):
         tops.paged_init(lambda b, s: None, 0, 4, 4)

@@ -1292,3 +1292,97 @@ def test_one_capture_per_speculative_shape_and_rebinding(cuda):
     assert all(s.captures == 1 for s in decode.specs.values())
     assert len(steps.decode_steps()) == 1 and decode.captures == 1
     steps.clear_decode_steps()
+
+
+# ------------------------------------------------------- prefix cache
+
+#: block 32 over chunks of 16: a verbatim repeat of a 64-token prompt
+#: resumes at 48, inside its second page, which admission copies
+PREFIX_ENGINE = dict(capacity=2, max_seq=96, block=32, chunk=16)
+
+
+def _prefix_requests(cfg, tag="p"):
+    """A shared 32-token preamble with tails of 8, 13, 0 and 32 tokens,
+    then verbatim repeats of the 64-token prompt."""
+    rng = np.random.default_rng(17)
+    pre = rng.integers(0, cfg.vocab_size, size=(32,))
+    prompts = [np.concatenate([pre, rng.integers(0, cfg.vocab_size,
+                                                 size=(n,))]).astype(np.int32)
+               for n in (8, 13, 0, 32)]
+    prompts += [prompts[3].copy(), prompts[3].copy()]
+    gens = (6, 11, 4, 9, 7, 12)
+    return [Request(uid=f"{tag}{i}", prompt=p, max_new_tokens=g)
+            for i, (p, g) in enumerate(zip(prompts, gens))]
+
+
+@pytest.mark.parametrize("attn_sc", [False, True], ids=["float", "sc"])
+def test_prefix_cache_graphed_streams_equal_eager_and_baseline(cuda,
+                                                               attn_sc):
+    """With the prefix cache (the default): the graphed engine's streams
+    equal the eager engine's and the sequential baseline's, cold and over
+    the warm tree, with hits, a copy-on-write admission and fewer prefill
+    chunks than with the cache off."""
+    from repro_torch.launch import steps
+    steps.clear_decode_steps()
+    cfg = _graph_cfg(attn_sc)
+    params = bind(cfg, cuda).init_params(0)
+    reqs = _prefix_requests(cfg)
+    base = [generate(cfg, params, r.prompt[None], gen_tokens=r.max_new_tokens,
+                     device=cuda)[0].cpu().numpy() for r in reqs]
+    off = Engine(cfg, params, device=cuda, graphs=False, prefix_cache=False,
+                 **PREFIX_ENGINE)
+    off.run(reqs)
+    eager = Engine(cfg, params, device=cuda, graphs=False, **PREFIX_ENGINE)
+    graphed = Engine(cfg, params, device=cuda, **PREFIX_ENGINE)
+    assert graphed.graphs and graphed.prefix is not None
+    for run in range(2):
+        again = [dataclasses.replace(r, uid=f"{r.uid}-{run}") for r in reqs]
+        for eng in (eager, graphed):
+            res = eng.run(again)
+            for r, b in zip(res, base):
+                np.testing.assert_array_equal(r.tokens, b, err_msg=r.uid)
+            st = eng.stats
+            assert st["prefix_hits"] >= 4 and st["cow_copies"] >= 1
+            assert st["prefill_chunks"] < off.stats["prefill_chunks"]
+            assert eng.pool.pages_live == 0
+        assert graphed.stats["prefill_chunks"] == eager.stats["prefill_chunks"]
+    assert graphed.stats["prefix_misses"] == 0
+    steps.clear_decode_steps()
+
+
+@pytest.mark.parametrize("attn_sc", [False, True], ids=["float", "sc"])
+def test_a_seeded_staging_cache_gives_the_cold_prefill_bitwise(cuda,
+                                                               attn_sc):
+    """A hit's chunks replay the bucket's captured graph from the resume
+    offset over a staging cache seeded from the pool's pages: its last
+    chunk's logits and every staging K/V row of the prompt equal a cold
+    prefill's of the same prompt bit for bit."""
+    from repro_torch.launch import steps
+    steps.clear_decode_steps()
+    cfg = _graph_cfg(attn_sc)
+    eng = Engine(cfg, bind(cfg, cuda).init_params(0), device=cuda,
+                 **PREFIX_ENGINE)
+    req = _prefix_requests(cfg)[3]                   # 64 tokens
+    eng.run([dataclasses.replace(req, uid="warm")])
+
+    def prefill(uid):
+        st = eng._start_prefill(dataclasses.replace(req, uid=uid))
+        while not st.done:
+            eng._prefill_chunk_once(st)
+        kv = [t[:, :, :req.prompt_len].clone()
+              for t in (*st.step.cache.k, *st.step.cache.v)]
+        return st, st.rows.copy(), kv
+
+    tree, eng.prefix = eng.prefix, None              # a cold start
+    cold, cold_rows, cold_kv = prefill("cold")
+    eng.prefix = tree
+    hit, rows, kv = prefill("hit")
+    assert cold.match is None and hit.match is not None
+    assert hit.match.resume == 48 and hit.match.cow_src is not None
+    assert hit.step is cold.step and hit.step.captures == 1
+    np.testing.assert_array_equal(rows, cold_rows)
+    for a, b in zip(kv, cold_kv):
+        assert torch.equal(a, b)
+    eng.pool.unpin_pages(hit.match.pages)
+    assert eng.pool.pages_live == 0
+    steps.clear_decode_steps()

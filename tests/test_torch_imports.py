@@ -35,6 +35,7 @@ PORT_MODULES = [
     "repro_torch.models.layers", "repro_torch.models.transformer",
     "repro_torch.models.cache_ops", "repro_torch.models.model_zoo",
     "repro_torch.serving", "repro_torch.serving.queue",
+    "repro_torch.serving.prefix",
     "repro_torch.serving.slots", "repro_torch.serving.engine",
     "repro_torch.launch.steps", "repro_torch.launch.serve",
     "repro_torch.launch.paper",
@@ -132,15 +133,22 @@ def test_serve_cli_refuses_out_of_range_attention_bits():
 
 
 def test_later_slices_are_refused():
-    """SC attention and speculation are served now (on the CPU here);
-    the prefix cache and the other families are still refused."""
+    """SC attention, speculation and the prefix cache (on by default) are
+    served now (on the CPU here); the other families are still refused."""
+    import numpy as np
     from repro_torch.models import bind
     from repro_torch.models.transformer import init_params
     from repro_torch.serving import Engine, Request
     cfg = ARCHS["smollm-360m"].reduced(dtype="float32")
     params = init_params(cfg, 0, device="cpu")
-    with pytest.raises(ConfigError, match="prefix-cache"):
-        Engine(cfg, params, device="cpu", prefix_cache=True)
+    shared = Engine(cfg, params, device="cpu", capacity=2, max_seq=24,
+                    block=4, chunk=4)
+    assert shared.prefix is not None
+    prompt = np.arange(1, 11, dtype=np.int32)
+    out = shared.run([Request(uid=f"p{i}", prompt=prompt, max_new_tokens=2)
+                      for i in range(2)])
+    assert [r.n_generated for r in out] == [2, 2]
+    assert shared.stats["prefix_hits"] == 1
     spec = Engine(cfg, params, device="cpu", speculate_k=2, capacity=1,
                   max_seq=16)
     out = spec.run([Request(uid="s", prompt=[1, 2, 3], max_new_tokens=3)])

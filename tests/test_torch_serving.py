@@ -66,7 +66,7 @@ def test_engine_streams_equal_jax_engine_and_sequential_baseline(arch, sc):
     kw = dict(capacity=2, max_seq=max_seq, block=4, chunk=8)
     jax_res = JaxEngine(jcfg, jp, prefix_cache=False, **kw).run(
         _requests(JaxRequest, prompts, GENS))
-    engine = Engine(tcfg, tp, device="cpu", **kw)
+    engine = Engine(tcfg, tp, device="cpu", prefix_cache=False, **kw)
     res = engine.run(_requests(Request, prompts, GENS))
     base = _baseline(tcfg, tp, prompts, GENS)
     for r, j, b in zip(res, jax_res, base):

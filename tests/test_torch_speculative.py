@@ -457,6 +457,43 @@ def test_preemption_mid_speculation_replays_identically():
     assert eng.pool.pages_live == 0
 
 
+@pytest.mark.parametrize("sc", [False, True], ids=["exact", "sc"])
+def test_speculative_prefix_cache_leaks_no_pages(sc):
+    """A shared-prefix workload with speculation and the prefix cache:
+    after the drain no page holds a live reference — a draft or verify
+    write into a shared page (instead of a CoW copy) or a rollback that
+    lost a refcount would leave one. Streams equal the baseline and, with
+    exact projections, the JAX engine's with its prefix stats."""
+    jcfg, jp, tcfg, tp = _setup(sc)
+    rng = np.random.default_rng(7)
+    pre = rng.integers(0, SMALL["vocab_size"], size=(8,)).astype(np.int32)
+    prompts = [np.concatenate([pre, rng.integers(
+        0, SMALL["vocab_size"], size=(4,)).astype(np.int32)])
+        for _ in range(4)]
+    gens = [8, 6, 8, 6]
+    kw = dict(capacity=2, max_seq=24, block=4, chunk=4, speculate_k=3,
+              draft_bits=8, prefix_cache=True)
+    eng = Engine(tcfg, tp, device="cpu", **kw)
+    res = eng.run(_requests(Request, prompts, gens))
+    _assert_baseline(tcfg, tp, res, prompts, gens)
+    if not sc:
+        jeng = JaxEngine(jcfg, jp, **kw)
+        jres = jeng.run(_requests(JaxRequest, prompts, gens))
+        for r, j in zip(res, jres):
+            np.testing.assert_array_equal(r.tokens, j.tokens, err_msg=r.uid)
+        for key in ("prefix_hits", "prefix_misses", "prefill_tokens_saved",
+                    "cow_copies", "prefix_retained_pages"):
+            assert eng.stats[key] == jeng.stats[key], key
+    assert eng.stats["prefix_hits"] >= 1
+    pool = eng.pool
+    assert pool.pages_live == 0
+    assert (pool.refcount >= 0).all()
+    # every page is free or a warm (refcount-0) retained page: no leak
+    assert pool.free_pages + len(pool.retained) == pool.n_blocks
+    for p in pool.retained:
+        assert pool.refcount[p] == 0
+
+
 def test_speculation_gating():
     _, _, tcfg, tp = _setup()
     kw = dict(device="cpu", capacity=2, max_seq=24, block=4)
@@ -473,8 +510,9 @@ def test_speculation_gating():
                              ssm_headdim=16, ssm_chunk=4)).validate()
     with pytest.raises(ConfigError, match="roll back"):
         Engine(ssm, tp, speculate_k=2, **kw)
-    with pytest.raises(ConfigError, match="prefix"):
-        Engine(tcfg, tp, speculate_k=2, prefix_cache=True, **kw)
+    # speculation over the prefix cache is served, as in the reference
+    assert Engine(tcfg, tp, speculate_k=2, prefix_cache=True,
+                  **kw).prefix is not None
     eng = Engine(tcfg, tp, speculate_k=2, **kw)
     hot = Request(uid="hot", prompt=_prompts(1)[0], max_new_tokens=4,
                   temperature=0.7)

@@ -189,6 +189,48 @@ def test_an_idle_engine_binds_its_step_back(cached):
     assert a._decode.captures == 1
 
 
+def test_a_rebind_drops_the_warm_prefix_tree(cached):
+    """Engines of one shape share one entry and its KV pool. A cache-off
+    engine binding it zeroes the pool under an idle cache-on engine's warm
+    prefix tree; when the warm engine binds the entry back it drops the
+    tree and its retained pages, so its next prompts miss and its streams
+    stay the baseline's (a hit would read the zeroed pages)."""
+    cfg = _cfg(True)
+    params = _params(cfg)
+    rng = np.random.default_rng(9)
+    pre = rng.integers(0, 256, size=(8,)).astype(np.int32)
+    prompts = [np.concatenate([pre, rng.integers(0, 256, size=(n,))])
+               .astype(np.int32) for n in (4, 3, 4)]
+    gens = [5, 4, 6]
+    kw = dict(capacity=2, max_seq=24, block=4, chunk=4)
+    base = [generate(cfg, params, p[None], gen_tokens=g, device="cpu")[0]
+            .numpy() for p, g in zip(prompts, gens)]
+
+    def run(eng, tag):
+        res = eng.run([Request(uid=f"{tag}{i}", prompt=p, max_new_tokens=g)
+                       for i, (p, g) in enumerate(zip(prompts, gens))])
+        for r, b in zip(res, base):
+            np.testing.assert_array_equal(r.tokens, b, err_msg=r.uid)
+        return eng.stats
+
+    warm = Engine(cfg, params, device="cpu", graphs=True, **kw)
+    run(warm, "a")
+    assert warm.stats["prefix_retained_pages"] > 0
+    assert run(warm, "b")["prefix_misses"] == 0        # all hit
+    other = Engine(cfg, params, device="cpu", graphs=True,
+                   prefix_cache=False, **kw)
+    assert other._decode is warm._decode
+    assert not warm.pool.cache.k[0].any()              # the bind zeroed it
+    run(other, "c")
+    st = run(warm, "d")
+    assert warm._decode.owner() is warm
+    assert (st["prefix_misses"], st["prefix_hits"]) == (1, 2)
+    assert st["prefill_tokens_saved"] > 0
+    assert warm.pool.pages_live == 0
+    assert warm.pool.free_pages + len(warm.pool.retained) == \
+        warm.pool.n_blocks
+
+
 def test_graphs_on_the_cpu_raise():
     cfg = _cfg(False)
     with pytest.raises(ConfigError, match="need the card"):
