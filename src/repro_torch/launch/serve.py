@@ -7,8 +7,15 @@ and the sequential per-request :func:`generate` baseline (port of
         [--speculate-k 3 [--draft-bits 4]] \\
         [--no-prefix-cache] [--prefix-block-hash 0] \\
         [--requests 8 --prompt-len 64 --gen 64] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
+        --sc-gemm [--prompt-len 128 --prefill-mode oneshot]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+        --sc-gemm --prompt-len 128 --gen 64
 
-Runs on the card unless ``--device cpu`` is given. The synthetic workload
+Runs on the card unless ``--device cpu`` is given. The ssm and hybrid
+families (mamba2-130m, zamba2-7b) round ``--chunk`` up to a multiple of
+``ssm_chunk``; their one-shot prefill takes prompts of a whole number of
+``ssm_chunk`` tokens, as the reference's does. The synthetic workload
 is the reference CLI's: every prompt opens with one shared preamble of
 ``prompt_len // 2`` tokens and then diverges, so the prefix cache (on by
 default) has something to share. ``generate`` is the sequential baseline
@@ -27,8 +34,7 @@ from repro_torch.configs.base import sc_attention_bits_ok
 from repro_torch.configs.registry import ARCHS
 from repro_torch.errors import ConfigError
 from repro_torch.launch.steps import decode_step, prefill_step
-from repro_torch.models import bind
-from repro_torch.models.transformer import pack_sc_weights
+from repro_torch.models import bind, pack_sc_weights
 
 __all__ = ["generate", "main"]
 
@@ -40,7 +46,9 @@ def generate(cfg, params, prompts, *, gen_tokens: int,
     continuations, every sequence decoding ``gen_tokens`` steps in
     lockstep over a dense cache. With B=1 and greedy sampling this is the
     reference stream the serving engine reproduces token for token. With
-    ``cfg.use_sc_gemm`` the weights are packed once, here, for the call."""
+    ``cfg.use_sc_gemm`` the weights are packed once, here, for the call.
+    An ssm or hybrid prompt is a whole number of ``cfg.ssm_chunk`` tokens
+    (:class:`ConfigError` otherwise, from the SSD scan)."""
     m = bind(cfg, device)
     params = pack_sc_weights(params, cfg)
     prompts = torch.as_tensor(np.asarray(prompts), device=m.device)

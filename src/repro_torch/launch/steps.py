@@ -22,20 +22,22 @@ step, prefill chunk, one-shot prefill and draft, verify or rollback of
 the engine is one graph replay. A decode entry owns the weights and the
 KV pool it was captured over, its prefill entries' staging buffers and
 its drafts' weights packed at their width; an engine binding it copies
-its weights in. Every replay runs on the caller's current stream,
+its float weights in and packs them, unless the entry holds them already. Every replay runs on the caller's current stream,
 so the graphs, which share one memory pool, never run at once.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import warnings
+import weakref
 
 import torch
 
 from repro_torch.errors import ConfigError
-from repro_torch.kernels.sc_matmul import PackedWeight, scratch_scope
-from repro_torch.models import bind, cache_ops
-from repro_torch.models.transformer import pack_sc_weights
+from repro_torch.kernels.sc_matmul import (PackedWeight, pack_weight,
+                                           scratch_scope)
+from repro_torch.models import bind, cache_ops, pack_sc_weights
 
 __all__ = ["prompt_buckets", "bucket_for", "prefill_step", "decode_step",
            "chunked_prefill_step", "paged_decode_step", "DecodeStep",
@@ -205,6 +207,60 @@ def _tensors(tree):
         yield tree
 
 
+def _floats(tree):
+    """The parameter tree without its packed weights (every ``"packed"``
+    entry dropped)."""
+    if isinstance(tree, dict):
+        return {k: _floats(v) for k, v in tree.items() if k != "packed"}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_floats(v) for v in tree)
+    return tree
+
+
+def _pairs(have, want):
+    """Each packed weight of ``have`` with what stands at its place in
+    ``want``, a tree of the same structure."""
+    if isinstance(have, PackedWeight):
+        yield have, want
+    elif isinstance(have, dict):
+        for k, v in have.items():
+            yield from _pairs(v, want[k])
+    elif isinstance(have, (list, tuple)):
+        for h, w in zip(have, want, strict=True):
+            yield from _pairs(h, w)
+
+
+@torch.no_grad()
+def repack(params, cfg) -> None:
+    """Pack ``params``' packed weights anew from its own float weights, in
+    place and one weight at a time, so no second packed copy of the tree
+    is ever alive (a packed zamba2-7b is ~12.6 GiB)."""
+    # each pack's place holds the float weight it is made from, as the
+    # projection takes it
+    wanted = pack_sc_weights(params, cfg, pack=lambda w, bits: w)
+    for dst, w in _pairs(params, wanted):
+        fresh = pack_weight(w, dst.bits)
+        dst.plane.copy_(fresh.plane)
+        dst.scale.copy_(fresh.scale)
+
+
+def _fingerprint(params) -> list:
+    """Which tensors ``params``' float weights are, and how many times
+    each has been written in place (its version counter)."""
+    return [(weakref.ref(t), t._version) for t in _tensors(_floats(params))]
+
+
+def _unchanged(fingerprint: list | None, params) -> bool:
+    """``params``' float weights are the tensors of ``fingerprint``, none
+    written since."""
+    if fingerprint is None:
+        return False
+    ts = list(_tensors(_floats(params)))
+    return len(ts) == len(fingerprint) and all(
+        ref() is t and t._version == version
+        for (ref, version), t in zip(fingerprint, ts))
+
+
 def _empty_like(tree):
     """A parameter tree of the same structure with new, uninitialised
     tensors."""
@@ -286,6 +342,10 @@ class DecodeStep(_Step):
         self.prefills: dict[tuple, PrefillStep] = {}
         self.specs: dict[tuple, _Step] = {}
         self.drafts: dict[int, tuple] = {}
+        # the float weights the step holds (:meth:`load`), and the draft
+        # widths packed before they last changed
+        self.loaded: list | None = None
+        self.stale_drafts: set[int] = set()
         self.owner = None       # a weakref to the engine it serves
         self._init_replay()
 
@@ -311,35 +371,40 @@ class DecodeStep(_Step):
         self.cache.pos.copy_(new.pos)
 
     def load(self, params, *, draft_bits: int | None = None) -> None:
-        """Copy ``params`` (a tree of the same structure and shapes) into
-        the step's own weights, and pack the draft weights of width
-        ``draft_bits`` (when there are any) anew from them. Other widths
-        keep the weights they were packed from until an engine drafting
-        at that width binds the step."""
-        pairs = list(zip(_tensors(self.params), _tensors(params),
-                         strict=True))
-        for dst, src in pairs:
-            if dst.shape != src.shape or dst.dtype != src.dtype:
-                raise ConfigError(f"weights {tuple(src.shape)} {src.dtype} "
-                                  f"do not fit the captured step's "
-                                  f"{tuple(dst.shape)} {dst.dtype}")
-        with torch.no_grad():
+        """Copy the float weights of ``params`` (a tree of the same
+        structure and shapes; packed weights in it are ignored) into the
+        step's own and pack the step's weights anew from them, in place
+        (:func:`repack`), unless the step holds them already: they are
+        the tensors it was made or last loaded from, unwritten since.
+        Then pack the draft weights of width ``draft_bits`` (when there
+        are any) anew if the float weights changed after they were
+        packed. Other widths keep the weights they were packed from until
+        an engine drafting at that width binds the step."""
+        if not _unchanged(self.loaded, params):
+            pairs = list(zip(_tensors(_floats(self.params)),
+                             _tensors(_floats(params)), strict=True))
             for dst, src in pairs:
-                dst.copy_(src)
-            if draft_bits in self.drafts:
-                model, packed = self.drafts[draft_bits]
-                fresh = pack_sc_weights(self.params, model.cfg)
-                for dst, src in zip(_packs(packed), _packs(fresh),
-                                    strict=True):
-                    dst.plane.copy_(src.plane)
-                    dst.scale.copy_(src.scale)
+                if dst.shape != src.shape or dst.dtype != src.dtype:
+                    raise ConfigError(
+                        f"weights {tuple(src.shape)} {src.dtype} do not fit "
+                        f"the captured step's {tuple(dst.shape)} "
+                        f"{dst.dtype}")
+            with torch.no_grad():
+                for dst, src in pairs:
+                    dst.copy_(src)
+            repack(self.params, self.model.cfg)
+            self.loaded = _fingerprint(params)
+            self.stale_drafts = set(self.drafts)
+        if draft_bits in self.stale_drafts:
+            model, packed = self.drafts[draft_bits]
+            repack(packed, model.cfg)
+            self.stale_drafts.discard(draft_bits)
 
     def reset(self) -> None:
-        """An empty pool: pages, positions and inputs zeroed, every table
-        entry unallocated."""
+        """An empty pool: pages, states, positions and inputs zeroed,
+        every table entry unallocated."""
         with torch.no_grad():
-            for t in (*self.cache.k, *self.cache.v, self.cache.pos,
-                      self.tokens, self.logits):
+            for t in (*_tensors(self.cache), self.tokens, self.logits):
                 t.zero_()
             if self.tables is not None:
                 self.tables.fill_(-1)
@@ -389,16 +454,19 @@ class PrefillStep(_Step):
         else:
             logits, out = prefill_step(self.model, self.params,
                                        {"tokens": self.tokens})
-            for dst, src in zip((*self.cache.k, *self.cache.v),
-                                (*out.k, *out.v), strict=True):
+            for dst, src in zip(_tensors(self.cache), _tensors(out),
+                                strict=True):
                 dst.copy_(src)
         self.logits.copy_(logits)
 
     def start(self) -> None:
-        """A new prompt: the staging position back to 0. K/V left past it
-        by an earlier prompt stay: every key past a row's position is
-        masked to an exact zero weight."""
+        """A new prompt: the staging position back to 0 and the recurrent
+        state (a Mamba family's conv windows and states) zeroed. K/V left
+        past the position by an earlier prompt stay: every key past a
+        row's position is masked to an exact zero weight."""
         self.cache.pos.zero_()
+        for t in cache_ops.slot_leaves(self.cache):
+            t.zero_()
 
     def seed(self, data, pages, *, block: int, resume: int) -> None:
         """A prefix hit's start, after :meth:`start`: the staging rows
@@ -412,11 +480,10 @@ class PrefillStep(_Step):
                               resume=resume)
 
     def reset(self) -> None:
-        """Zero tokens at position 0 (a full chunk valid), zero K/V and
+        """Zero tokens at position 0 (a full chunk valid), zero caches and
         logits: what a capture runs on."""
         with torch.no_grad():
-            for t in (*self.cache.k, *self.cache.v, self.tokens,
-                      self.logits):
+            for t in (*_tensors(self.cache), self.tokens, self.logits):
                 t.zero_()
             if self.chunk is None:
                 self.cache.pos.fill_(self.extent)
@@ -539,7 +606,8 @@ def capture(step: _Step) -> None:
     warm-up and the capture take their SC-GEMM scratch from the step's
     own table, which the step keeps. The launches the capture recorded
     become ``step.launch_counts``; the counters are put back, since a
-    capture launches nothing. Raises, never falls back."""
+    capture launches nothing. Python's cyclic collector runs just before
+    the capture and not during it. Raises, never falls back."""
     dev = step.cache.pos.device
     if dev.type != "cuda":
         raise ConfigError(f"CUDA graphs need the card, not {dev}; on the "
@@ -566,10 +634,20 @@ def capture(step: _Step) -> None:
                 torch.cuda.set_sync_debug_mode(mode)
         torch.cuda.current_stream(dev).wait_stream(stream)
         before = {name: fn.launches for name, fn in counters.items()}
-        graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.graph(graph, pool=_POOL,
-                                               stream=stream):
-            step.run()
+        # a graph destroyed during the capture (an old entry's, freed when
+        # the collector breaks its reference cycle) invalidates it: dead
+        # cycles go now, and the collector waits till the capture ends
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            graph = torch.cuda.CUDAGraph()
+            with torch.no_grad(), torch.cuda.graph(graph, pool=_POOL,
+                                                   stream=stream):
+                step.run()
+        finally:
+            if collecting:
+                gc.enable()
     step.launch_counts = {name: fn.launches - before[name]
                           for name, fn in counters.items()
                           if fn.launches != before[name]}
@@ -607,8 +685,10 @@ def cached_decode_step(model, params, *, capacity: int, max_seq: int,
     prefill steps.
     Table contents, page churn and positions are inputs: they never cause
     a second capture. A new entry owns new weights (``params``' structure,
-    loaded from ``params``) and a new, empty KV pool; engines bind it
-    through :meth:`DecodeStep.load` and :meth:`DecodeStep.reset`."""
+    loaded from ``params``' float weights and packed from its own copy, so
+    the entry holds the one packed copy it serves from) and a new, empty
+    KV pool; engines bind it through :meth:`DecodeStep.load` and
+    :meth:`DecodeStep.reset`."""
     key = _decode_key(model.cfg, model.device, capacity=capacity,
                       max_seq=max_seq, block=block, n_blocks=n_blocks,
                       max_blocks=max_blocks, fused=fused)
@@ -617,10 +697,15 @@ def cached_decode_step(model, params, *, capacity: int, max_seq: int,
         cache = model.init_cache(capacity, max_seq) if max_blocks is None \
             else cache_ops.paged_init(model.init_cache, capacity, n_blocks,
                                       block)
-        step = DecodeStep(model, _empty_like(params), cache,
+        own = _empty_like(_floats(params))
+        with torch.no_grad():
+            for dst, src in zip(_tensors(own), _tensors(_floats(params)),
+                                strict=True):
+                dst.copy_(src)
+        step = DecodeStep(model, pack_sc_weights(own, model.cfg), cache,
                           capacity=capacity, max_blocks=max_blocks,
                           block=block, fused=fused)
-        step.load(params)
+        step.loaded = _fingerprint(params)
         capture(step)
         step.reset()
         _STEPS[key] = step

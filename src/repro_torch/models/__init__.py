@@ -1,3 +1,3 @@
-"""Model substrate of the port: layers, the dense transformer, cache ops,
-and the family dispatcher."""
-from .model_zoo import bind
+"""Model substrate of the port: layers, the dense transformer, the Mamba-2
+and Zamba2 families, cache ops, and the family dispatcher."""
+from .model_zoo import bind, pack_sc_weights

@@ -43,7 +43,10 @@ from .layers import (PagedKV, apply_rope, decode_attention, flash_attention,
 __all__ = ["init_params", "forward_hidden", "logits_from_hidden",
            "prefill_step", "prefill_chunk_step", "KVCache", "init_kv_cache",
            "decode_step", "decode_window_step", "paged_decode_step",
-           "model_dtype", "params_to", "pack_sc_weights"]
+           "model_dtype", "params_to", "pack_sc_weights", "normal_init",
+           "init_block", "pack_block", "block_forward", "full_attend",
+           "chunk_positions", "chunk_attend", "decode_attend",
+           "dense_decode_attend", "paged_decode_attend"]
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -51,6 +54,21 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 # ----------------------------------------------------------------- params
+
+def normal_init(seed: int, dtype: torch.dtype, device: torch.device):
+    """``normal(shape, scale)``: float32 normal draws from a
+    ``torch.Generator`` on ``device`` seeded with ``seed``, scaled and cast
+    to ``dtype`` — the draw every family's ``init_params`` makes."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def normal(shape, scale):
+        w = torch.randn(shape, generator=gen, device=device,
+                        dtype=torch.float32) * scale
+        return w.to(dtype)
+
+    return normal
+
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device: str | torch.device | None = None) -> dict:
@@ -63,50 +81,51 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     cfg.validate()
     dev = resolve_device(device)
     dtype = model_dtype(cfg)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    normal = normal_init(seed, dtype, dev)
+    d = cfg.d_model
+    params: dict[str, Any] = {
+        "embed": normal((cfg.vocab_size, d), d ** -0.5),
+        "final_norm": torch.ones((d,), dtype=dtype, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((d, cfg.vocab_size), d ** -0.5)
+    params["layers"] = [init_block(cfg, normal, dtype, dev)
+                        for _ in range(cfg.n_layers)]
+    return params
+
+
+def init_block(cfg: ModelConfig, normal, dtype, dev) -> dict:
+    """One attention + MLP block (``ln1``, ``ln2``, ``attn``, ``mlp``, and
+    with ``cfg.post_norms`` the post norms) with the reference's shapes and
+    scales (its ``_init_attn`` / ``_init_mlp``); ``normal(shape, scale)``
+    draws the weights."""
     d, h, kv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
-
-    def normal(shape, scale):
-        w = torch.randn(shape, generator=gen, device=dev,
-                        dtype=torch.float32) * scale
-        return w.to(dtype)
 
     def ones(n):
         return torch.ones((n,), dtype=dtype, device=dev)
 
-    params: dict[str, Any] = {
-        "embed": normal((cfg.vocab_size, d), d ** -0.5),
-        "final_norm": ones(d),
+    attn = {
+        "wq": normal((d, h, hd), d ** -0.5),
+        "wk": normal((d, kv, hd), d ** -0.5),
+        "wv": normal((d, kv, hd), d ** -0.5),
+        "wo": normal((h, hd, d), (h * hd) ** -0.5),
     }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = normal((d, cfg.vocab_size), d ** -0.5)
-    layers = []
-    for _ in range(cfg.n_layers):
-        attn = {
-            "wq": normal((d, h, hd), d ** -0.5),
-            "wk": normal((d, kv, hd), d ** -0.5),
-            "wv": normal((d, kv, hd), d ** -0.5),
-            "wo": normal((h, hd, d), (h * hd) ** -0.5),
-        }
-        if cfg.qkv_bias:
-            attn["bq"] = torch.zeros((h, hd), dtype=dtype, device=dev)
-            attn["bk"] = torch.zeros((kv, hd), dtype=dtype, device=dev)
-            attn["bv"] = torch.zeros((kv, hd), dtype=dtype, device=dev)
-        if cfg.qk_norm:
-            attn["q_norm"] = ones(hd)
-            attn["k_norm"] = ones(hd)
-        layer = {"ln1": ones(d), "ln2": ones(d), "attn": attn,
-                 "mlp": {"w1": normal((d, f), d ** -0.5),
-                         "w3": normal((d, f), d ** -0.5),
-                         "w2": normal((f, d), f ** -0.5)}}
-        if cfg.post_norms:
-            layer["ln1_post"] = ones(d)
-            layer["ln2_post"] = ones(d)
-        layers.append(layer)
-    params["layers"] = layers
-    return params
+    if cfg.qkv_bias:
+        attn["bq"] = torch.zeros((h, hd), dtype=dtype, device=dev)
+        attn["bk"] = torch.zeros((kv, hd), dtype=dtype, device=dev)
+        attn["bv"] = torch.zeros((kv, hd), dtype=dtype, device=dev)
+    if cfg.qk_norm:
+        attn["q_norm"] = ones(hd)
+        attn["k_norm"] = ones(hd)
+    layer = {"ln1": ones(d), "ln2": ones(d), "attn": attn,
+             "mlp": {"w1": normal((d, f), d ** -0.5),
+                     "w3": normal((d, f), d ** -0.5),
+                     "w2": normal((f, d), f ** -0.5)}}
+    if cfg.post_norms:
+        layer["ln1_post"] = ones(d)
+        layer["ln2_post"] = ones(d)
+    return layer
 
 
 def params_to(params, device: str | torch.device):
@@ -124,7 +143,8 @@ def _lm_head(params):
     return params["lm_head"] if "lm_head" in params else params["embed"].T
 
 
-def pack_sc_weights(params: dict, cfg: ModelConfig) -> dict:
+def pack_sc_weights(params: dict, cfg: ModelConfig,
+                    pack=pack_weight) -> dict:
     """The parameter tree with every SC-GEMM weight quantized and packed
     once (``kernels.sc_matmul.pack_weight`` at ``cfg.sc_bits``) beside its
     float weight, as each projection takes it: ``wq``/``wk``/``wv`` as
@@ -134,23 +154,29 @@ def pack_sc_weights(params: dict, cfg: ModelConfig) -> dict:
     in place of the new one. Without ``cfg.use_sc_gemm`` the tree comes
     back as it is. The float weights stay for the exact path, for
     gradients and for a ``cfg.sc_impl`` of ``"ref"`` or ``"mxu_split"``,
-    which ``sc_proj`` runs per call."""
+    which ``sc_proj`` runs per call. ``pack(w, bits)`` makes each pack
+    (``launch.steps.repack`` passes one that returns ``w`` itself, to pair
+    a tree's packs with the float weights they are made from)."""
     if not cfg.use_sc_gemm:
         return params
-    bits, d = cfg.sc_bits, cfg.d_model
     out = dict(params)
-    out["packed"] = {"head": pack_weight(_lm_head(params), bits)}
-    layers = []
-    for layer in params["layers"]:
-        attn, mlp = dict(layer["attn"]), dict(layer["mlp"])
-        attn["packed"] = {name: pack_weight(attn[name].reshape(d, -1), bits)
-                          for name in ("wq", "wk", "wv")}
-        attn["packed"]["wo"] = pack_weight(attn["wo"].reshape(-1, d), bits)
-        mlp["packed"] = {name: pack_weight(mlp[name], bits)
-                         for name in ("w1", "w3", "w2")}
-        layers.append({**layer, "attn": attn, "mlp": mlp})
-    out["layers"] = layers
+    out["packed"] = {"head": pack(_lm_head(params), cfg.sc_bits)}
+    out["layers"] = [pack_block(layer, cfg, pack)
+                     for layer in params["layers"]]
     return out
+
+
+def pack_block(layer: dict, cfg: ModelConfig, pack) -> dict:
+    """One block with its attention and MLP weights packed by ``pack``
+    beside the float weights, as the projections take them."""
+    bits, d = cfg.sc_bits, cfg.d_model
+    attn, mlp = dict(layer["attn"]), dict(layer["mlp"])
+    attn["packed"] = {name: pack(attn[name].reshape(d, -1), bits)
+                      for name in ("wq", "wk", "wv")}
+    attn["packed"]["wo"] = pack(attn["wo"].reshape(-1, d), bits)
+    mlp["packed"] = {name: pack(mlp[name], bits)
+                     for name in ("w1", "w3", "w2")}
+    return {**layer, "attn": attn, "mlp": mlp}
 
 
 # ------------------------------------------------------------------ cache
@@ -225,7 +251,7 @@ def _mlp_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return sc_proj(h, p["w2"], cfg, packed.get("w2"))
 
 
-def _layer(layer: dict, x: torch.Tensor, cfg: ModelConfig, attend):
+def block_forward(layer: dict, x: torch.Tensor, cfg: ModelConfig, attend):
     """One pre-norm block; ``attend(q, k, v)`` is the attention site."""
     attn_in = rms_norm(x, layer["ln1"], eps=cfg.norm_eps,
                        plus_one=cfg.norm_plus_one)
@@ -269,24 +295,34 @@ def _full_sequence(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
-    kvs = []
+    kvs = [] if collect else None
     for i, layer in enumerate(params["layers"]):
-        window = cfg.window_at(i % cfg.group_size)
-
-        def attend(p, h, window=window):
-            q, k, v = _qkv(p, h, cfg, positions)
-            if collect:
-                kvs.append((k, v))
-            return flash_attention(
-                q, k, v, q_positions=positions, kv_positions=positions,
-                causal=True, window=window, logit_softcap=cfg.attn_softcap,
-                q_block=min(cfg.q_block, s), kv_block=min(cfg.kv_block, s),
-                skip_masked_blocks=cfg.skip_masked_blocks,
-                bf16_probs=cfg.bf16_probs, kernel_impl=cfg.attn_kernel,
-                q_offset=0, sc_bits=_attn_sc_bits(cfg))
-
-        x = _layer(layer, x, cfg, attend)
+        attend = full_attend(cfg, positions, cfg.window_at(i % cfg.group_size),
+                             kvs)
+        x = block_forward(layer, x, cfg, attend)
     return _final(params, cfg, x), kvs
+
+
+def full_attend(cfg: ModelConfig, positions: torch.Tensor,
+                window: int | None, kvs: list | None = None):
+    """The attention site of a causal forward over whole sequences at
+    ``positions`` (``0..S-1`` a row): ``attend(p, h)`` projects Q/K/V,
+    appends ``(k, v)`` to ``kvs`` when given, and flash-attends."""
+    s = positions.shape[1]
+
+    def attend(p, h):
+        q, k, v = _qkv(p, h, cfg, positions)
+        if kvs is not None:
+            kvs.append((k, v))
+        return flash_attention(
+            q, k, v, q_positions=positions, kv_positions=positions,
+            causal=True, window=window, logit_softcap=cfg.attn_softcap,
+            q_block=min(cfg.q_block, s), kv_block=min(cfg.kv_block, s),
+            skip_masked_blocks=cfg.skip_masked_blocks,
+            bf16_probs=cfg.bf16_probs, kernel_impl=cfg.attn_kernel,
+            q_offset=0, sc_bits=_attn_sc_bits(cfg))
+
+    return attend
 
 
 def forward_hidden(params: dict, cfg: ModelConfig,
@@ -357,39 +393,14 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, cache: KVCache,
     """
     tokens = batch["tokens"]
     x = _embed_tokens(params, cfg, tokens)
-    b, t, _ = x.shape
     n_valid = torch.as_tensor(batch["n_valid"], dtype=torch.int32,
                               device=x.device).reshape(-1)[:1]
-    pos = cache.pos.expand(b) if cache.pos.numel() == 1 else cache.pos
-    positions = (pos[:, None].to(torch.int32)
-                 + torch.arange(t, dtype=torch.int32, device=x.device)[None])
-    # every row of the chunk sits at the shared staging offset
-    offset = pos[0]
-    cols = positions[0].to(torch.long)
-    e = cache.k[0].shape[2]
-    kv_pos = torch.arange(e, dtype=torch.int32, device=x.device).expand(b, e)
+    positions = chunk_positions(cache.pos, x)
     for i, layer in enumerate(params["layers"]):
         k_cache, v_cache = _layer_kv(cache, cfg, i)
-        window = cfg.window_at(i % cfg.group_size)
-
-        def attend(p, h, k_cache=k_cache, v_cache=v_cache, window=window):
-            q, k, v = _qkv(p, h, cfg, positions)
-            # columns past the filled prefix are causally masked, so bucket
-            # padding and pad-row writes are exact no-ops for valid rows.
-            # q_offset puts the chunk on the flash kernel on the card, so
-            # its rows reduce as a one-shot prefill's do.
-            k_cache.index_copy_(1, cols, k.to(k_cache.dtype))
-            v_cache.index_copy_(1, cols, v.to(v_cache.dtype))
-            return flash_attention(
-                q, k_cache, v_cache, q_positions=positions,
-                kv_positions=kv_pos, causal=True, window=window,
-                logit_softcap=cfg.attn_softcap,
-                q_block=min(cfg.q_block, t), kv_block=min(cfg.kv_block, e),
-                skip_masked_blocks=False, bf16_probs=cfg.bf16_probs,
-                kernel_impl=cfg.attn_kernel, q_offset=offset,
-                sc_bits=_attn_sc_bits(cfg))
-
-        x = _layer(layer, x, cfg, attend)
+        attend = chunk_attend(cfg, k_cache, v_cache, positions,
+                              cfg.window_at(i % cfg.group_size))
+        x = block_forward(layer, x, cfg, attend)
     x = _final(params, cfg, x)
     last = x.index_select(1, (n_valid - 1).to(torch.long))
     logits = logits_from_hidden(params, cfg, last)
@@ -397,14 +408,58 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, cache: KVCache,
     return logits, cache
 
 
+def chunk_positions(pos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The ``(B, T)`` absolute positions of a chunk ``x (B, T, d)`` written
+    at the staging offset ``pos`` (device values, never read here)."""
+    b, t = x.shape[:2]
+    pos = pos.expand(b) if pos.numel() == 1 else pos
+    return (pos[:, None].to(torch.int32)
+            + torch.arange(t, dtype=torch.int32, device=x.device)[None])
+
+
+def chunk_attend(cfg: ModelConfig, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, positions: torch.Tensor,
+                 window: int | None):
+    """The attention site of a prefill chunk at ``positions`` (a
+    :func:`chunk_positions`) over a B=1 staging site ``k_cache``/``v_cache``
+    ``(B, E, KV, hd)``: ``attend(p, h)`` writes the chunk's K/V at its
+    positions, in place, and flash-attends over the staging extent."""
+    b, t = positions.shape
+    e = k_cache.shape[1]
+    # every row of the chunk sits at the shared staging offset
+    offset = positions[0, 0]
+    cols = positions[0].to(torch.long)
+    kv_pos = torch.arange(e, dtype=torch.int32,
+                          device=positions.device).expand(b, e)
+
+    def attend(p, h):
+        q, k, v = _qkv(p, h, cfg, positions)
+        # columns past the filled prefix are causally masked, so bucket
+        # padding and pad-row writes are exact no-ops for valid rows.
+        # q_offset puts the chunk on the flash kernel on the card, so
+        # its rows reduce as a one-shot prefill's do.
+        k_cache.index_copy_(1, cols, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, cols, v.to(v_cache.dtype))
+        return flash_attention(
+            q, k_cache, v_cache, q_positions=positions,
+            kv_positions=kv_pos, causal=True, window=window,
+            logit_softcap=cfg.attn_softcap,
+            q_block=min(cfg.q_block, t), kv_block=min(cfg.kv_block, e),
+            skip_masked_blocks=False, bf16_probs=cfg.bf16_probs,
+            kernel_impl=cfg.attn_kernel, q_offset=offset,
+            sc_bits=_attn_sc_bits(cfg))
+
+    return attend
+
+
 # ------------------------------------------------------------------ decode
 
 def _run_decode(params: dict, cfg: ModelConfig, cache: KVCache, batch: dict,
-                attend_cached) -> tuple[torch.Tensor, KVCache]:
+                site) -> tuple[torch.Tensor, KVCache]:
     """Shared decode of ``W`` consecutive tokens a sequence (``batch
     ["tokens"]: (B, W)``, rows at ``cache.pos + i``): embed, run the
-    layers, project. ``attend_cached(layer_index, q, k, v, pos, window)``
-    writes the rows' K/V into the cache and attends."""
+    layers, project. ``site(layer_index)`` is the layer's attention site
+    (:func:`decode_attend`), where the rows' K/V are written and read."""
     x = _embed_tokens(params, cfg, batch["tokens"])
     b, w = x.shape[:2]
     pos = cache.pos.expand(b) if cache.pos.numel() == 1 else cache.pos
@@ -413,13 +468,9 @@ def _run_decode(params: dict, cfg: ModelConfig, cache: KVCache, batch: dict,
         positions = positions + torch.arange(w, dtype=pos.dtype,
                                              device=x.device)[None, :]
     for i, layer in enumerate(params["layers"]):
-        window = cfg.window_at(i % cfg.group_size)
-
-        def attend(p, h, i=i, window=window):
-            q, k, v = _qkv(p, h, cfg, positions)
-            return attend_cached(i, q, k, v, pos, window)
-
-        x = _layer(layer, x, cfg, attend)
+        x = block_forward(layer, x, cfg, decode_attend(
+            cfg, positions, pos, cfg.window_at(i % cfg.group_size),
+            site(i)))
     x = _final(params, cfg, x)
     logits = logits_from_hidden(params, cfg, x)
     return logits, KVCache(k=cache.k, v=cache.v, pos=pos + w)
@@ -433,28 +484,32 @@ def decode_step(params: dict, cfg: ModelConfig, cache: KVCache,
     at ``pos + i``; a row past the cache extent (an idle slot drifting, a
     window running off the end) is dropped, never clamped onto a live
     row's tail."""
+    return _run_decode(params, cfg, cache, batch,
+                       lambda i: _layer_kv(cache, cfg, i))
 
-    def attend_cached(i, q, k, v, pos, window):
-        k_cache, v_cache = _layer_kv(cache, cfg, i)
-        b, s = k_cache.shape[:2]
-        rows = torch.arange(b, device=q.device)
-        base = pos.to(torch.long)
-        # one column a sequence at a time, so a dropped row's write-back
-        # of the old value never races a kept row's write at the same cell
-        for j in range(q.shape[1]):
-            p = base + j if j else base
-            col = torch.clamp(p, max=s - 1)
-            keep = (p < s)[:, None, None]
-            k_cache[rows, col] = torch.where(keep, k[:, j].to(k_cache.dtype),
-                                             k_cache[rows, col])
-            v_cache[rows, col] = torch.where(keep, v[:, j].to(v_cache.dtype),
-                                             v_cache[rows, col])
-        return decode_attention(q, k_cache, v_cache, q_position=pos,
-                                window=window,
-                                logit_softcap=cfg.attn_softcap,
-                                sc_bits=_attn_sc_bits(cfg))
 
-    return _run_decode(params, cfg, cache, batch, attend_cached)
+def dense_decode_attend(cfg: ModelConfig, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, q, k, v, pos: torch.Tensor,
+                        window: int | None) -> torch.Tensor:
+    """A decode site over a dense cache ``(B, S, KV, hd)``: the ``W`` rows'
+    K/V written in place at ``pos + i`` (a row past the extent dropped),
+    then decode attention."""
+    b, s = k_cache.shape[:2]
+    rows = torch.arange(b, device=q.device)
+    base = pos.to(torch.long)
+    # one column a sequence at a time, so a dropped row's write-back
+    # of the old value never races a kept row's write at the same cell
+    for j in range(q.shape[1]):
+        p = base + j if j else base
+        col = torch.clamp(p, max=s - 1)
+        keep = (p < s)[:, None, None]
+        k_cache[rows, col] = torch.where(keep, k[:, j].to(k_cache.dtype),
+                                         k_cache[rows, col])
+        v_cache[rows, col] = torch.where(keep, v[:, j].to(v_cache.dtype),
+                                         v_cache[rows, col])
+    return decode_attention(q, k_cache, v_cache, q_position=pos,
+                            window=window, logit_softcap=cfg.attn_softcap,
+                            sc_bits=_attn_sc_bits(cfg))
 
 
 def decode_window_step(params: dict, cfg: ModelConfig, cache: KVCache,
@@ -485,19 +540,39 @@ def paged_decode_step(params: dict, cfg: ModelConfig, cache: KVCache,
     into its page — ``(tables[slot, pos // block], pos % block)``, a free
     slot's −1 entry landing in the trash page — and attends through the
     table (``layers.paged_decode_attention``)."""
+    return _run_decode(params, cfg, cache, batch,
+                       lambda i: PagedKV(*_layer_kv(cache, cfg, i), tables))
+
+
+def decode_attend(cfg: ModelConfig, positions: torch.Tensor,
+                  pos: torch.Tensor, window: int | None, site):
+    """The attention site of a decode step at ``positions`` (rows from
+    ``pos``): ``attend(p, h)`` projects Q/K/V and attends through ``site``
+    — a dense ``(k_cache, v_cache)`` pair (:func:`dense_decode_attend`) or
+    a :class:`~.layers.PagedKV` (:func:`paged_decode_attend`)."""
+
+    def attend(p, h):
+        q, k, v = _qkv(p, h, cfg, positions)
+        if isinstance(site, PagedKV):
+            return paged_decode_attend(cfg, site, q, k, v, pos, window)
+        return dense_decode_attend(cfg, *site, q, k, v, pos, window)
+
+    return attend
+
+
+def paged_decode_attend(cfg: ModelConfig, paged: PagedKV, q, k, v,
+                        pos: torch.Tensor,
+                        window: int | None) -> torch.Tensor:
+    """A decode site on the page pool: each slot's token scattered into its
+    page — ``(tables[slot, pos // block], pos % block)``, a free slot's −1
+    entry landing in the trash page — then attention through the table."""
     from .cache_ops import paged_token_entry
-
-    def attend_cached(i, q, k, v, pos, window):
-        k_pages, v_pages = _layer_kv(cache, cfg, i)
-        paged = PagedKV(k_pages, v_pages, tables)
-        entry, off = paged_token_entry(tables, pos, block=paged.block)
-        bid = torch.where(entry < 0, paged.trash, entry).to(torch.long)
-        off = off.to(torch.long)
-        k_pages[bid, off] = k[:, 0].to(k_pages.dtype)
-        v_pages[bid, off] = v[:, 0].to(v_pages.dtype)
-        return paged_decode_attention(q, paged, q_position=pos, window=window,
-                                      logit_softcap=cfg.attn_softcap,
-                                      kernel_impl=cfg.paged_attn_kernel,
-                                      sc_bits=_attn_sc_bits(cfg))
-
-    return _run_decode(params, cfg, cache, batch, attend_cached)
+    entry, off = paged_token_entry(paged.tables, pos, block=paged.block)
+    bid = torch.where(entry < 0, paged.trash, entry).to(torch.long)
+    off = off.to(torch.long)
+    paged.k[bid, off] = k[:, 0].to(paged.k.dtype)
+    paged.v[bid, off] = v[:, 0].to(paged.v.dtype)
+    return paged_decode_attention(q, paged, q_position=pos, window=window,
+                                  logit_softcap=cfg.attn_softcap,
+                                  kernel_impl=cfg.paged_attn_kernel,
+                                  sc_bits=_attn_sc_bits(cfg))

@@ -86,8 +86,8 @@ from repro_torch.launch.steps import (DecodeStep, PrefillStep, bucket_for,
                                       cached_rollback_step,
                                       cached_verify_window_step,
                                       prompt_buckets)
-from repro_torch.models import bind, cache_ops
-from repro_torch.models.transformer import pack_sc_weights, params_to
+from repro_torch.models import bind, cache_ops, pack_sc_weights
+from repro_torch.models.transformer import params_to
 
 from .prefix import PrefixCache, PrefixMatch
 from .queue import Request, RequestQueue, RequestResult
@@ -141,8 +141,9 @@ class Engine:
     ``graphs=True`` on the CPU raises :class:`ConfigError`. A graphed
     engine serves from its decode shape's cached step, which holds the
     weights, the KV pool and the prefill steps' staging buffers its graphs
-    were captured over: binding it copies this engine's packed weights in
-    and empties the pool, and is refused while another engine holds
+    were captured over: binding it copies this engine's float weights in
+    and packs them (unless the entry holds them already, unwritten since
+    it was made or last bound) and empties the pool, and is refused while another engine holds
     requests in it (a staging prefill included). An engine whose step
     another engine has since bound binds it again on its next step, when
     it holds no request; a warm prefix tree does not survive that: the
@@ -209,6 +210,10 @@ class Engine:
         self.paged = paged
         self.fused = fused and paged
         self.prefill_mode = prefill_mode
+        if cfg.family in ("ssm", "hybrid"):
+            # a chunk boundary must be an SSD chunk boundary, or the
+            # recurrence would split where a one-shot prefill does not
+            chunk = -(-chunk // cfg.ssm_chunk) * cfg.ssm_chunk
         self.chunk = chunk
         self.prefill_budget = chunk if prefill_budget is None \
             else prefill_budget
@@ -216,8 +221,11 @@ class Engine:
         self.graphs = self.device.type == "cuda" if graphs is None \
             else graphs
         self._source = params
-        # SC-GEMM weights are quantized and packed here, once per engine
-        self._params = pack_sc_weights(params_to(params, self.device), cfg)
+        self._params = params_to(params, self.device)
+        if not self.graphs:
+            # SC-GEMM weights are quantized and packed here, once per
+            # engine; a graphed engine serves from its entry's one copy
+            self._params = pack_sc_weights(self._params, cfg)
 
         max_blocks = None
         if paged:
@@ -350,6 +358,16 @@ class Engine:
         if req.prompt.ndim != 1:
             raise ConfigError(f"request {req.uid!r}: codebook prompts come "
                               f"with the audio slice of the port")
+        if (self.prefill_mode == "oneshot"
+                and self.cfg.family in ("ssm", "hybrid")
+                and req.prompt_len % self.cfg.ssm_chunk):
+            # the one-shot SSD scan takes whole chunks, as the reference's
+            # does; chunked prefill pads a final chunk itself
+            raise ConfigError(
+                f"request {req.uid!r}: one-shot prefill of the "
+                f"{self.cfg.family} family needs a prompt length that is a "
+                f"multiple of ssm_chunk={self.cfg.ssm_chunk}, got "
+                f"{req.prompt_len}")
         self.pool.check_fits(req)
         # the acceptance rule compares exact and draft argmaxes: a sampled
         # stream has no one right token to accept against
@@ -774,8 +792,7 @@ class Engine:
             # refuses otherwise), so it binds the step back. Its warm
             # prefix pages were zeroed by that bind: the tree and its
             # retained pages go, or the next hit would read zeros
-            self._bind_decode(pack_sc_weights(
-                params_to(self._source, self.device), self.cfg))
+            self._bind_decode(params_to(self._source, self.device))
             if self.prefix is not None:
                 self.pool.drop_retained()
                 self._new_prefix()

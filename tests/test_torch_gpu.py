@@ -1294,6 +1294,40 @@ def test_one_capture_per_speculative_shape_and_rebinding(cuda):
     steps.clear_decode_steps()
 
 
+def test_a_capture_survives_old_graphs_in_reference_cycles(cuda):
+    """A dropped speculative entry's steps hold each other (decode and
+    draft), so its graphs wait for the cyclic collector, and a graph
+    destroyed during a capture invalidates that capture. With the
+    collector set to run at nearly every allocation, a new entry of the
+    same shape still captures every step (the collector runs before each
+    capture, not during it) and serves the baseline's streams."""
+    import gc
+    from repro_torch.launch import steps
+    steps.clear_decode_steps()
+    cfg = _graph_cfg(False)
+    params = bind(cfg, cuda).init_params(0)
+    reqs = _graph_requests(cfg)
+    old = _spec_engine(cfg, params, cuda, True)
+    old_steps = [old._decode, *old.spec_steps().values()]
+    assert all(s.captures == 1 for s in old_steps)
+    del old, old_steps
+    steps.clear_decode_steps()
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        eng = _spec_engine(cfg, params, cuda, True)
+        res = eng.run(reqs)
+    finally:
+        gc.set_threshold(*threshold)
+    assert all(s.captures == 1 for s in eng.spec_steps().values())
+    for r, req in zip(res, reqs):
+        ref = generate(cfg, params, req.prompt[None],
+                       gen_tokens=req.max_new_tokens, device=cuda)
+        np.testing.assert_array_equal(r.tokens, ref[0].cpu().numpy(),
+                                      err_msg=r.uid)
+    steps.clear_decode_steps()
+
+
 # ------------------------------------------------------- prefix cache
 
 #: block 32 over chunks of 16: a verbatim repeat of a 64-token prompt
@@ -1386,3 +1420,191 @@ def test_a_seeded_staging_cache_gives_the_cold_prefill_bitwise(cuda,
     eng.pool.unpin_pages(hit.match.pages)
     assert eng.pool.pages_live == 0
     steps.clear_decode_steps()
+
+
+# ------------------------------------------------- the ssm and hybrid slice
+#
+# zamba2-7b's attention is 32 heads over 32 KV heads (group 1) of D 112,
+# and its MLP's down projection reduces over K = 14,336; mamba2-130m and a
+# 6-layer zamba2-7b (two shared-block sites) at full width serve below.
+
+@pytest.mark.parametrize("bits", [None, 4, 8], ids=["float", "sc4", "sc8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_kernel_at_the_hybrid_layout_equals_plain(cuda, dtype, bits):
+    args = _paged(4, 32, 1, 112, 64, 6, [300, 17, 383, 128], 112, dtype,
+                  cuda)
+    got = paged_attention(*args, sc_bits=bits)
+    want = paged_attention_torch(*args, sc_bits=bits)
+    torch.cuda.synchronize()
+    if bits is None:
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    else:
+        _sc_close(got, want, args[2], bits, TOL[dtype])
+    # a slot alone gives its rows of the batch bit for bit
+    q, k, v, tables, pos = args
+    for i in range(4):
+        one = paged_attention(q[i:i + 1], k, v, tables[i:i + 1],
+                              pos[i:i + 1], sc_bits=bits)
+        assert torch.equal(one, got[i:i + 1]), i
+
+
+@pytest.mark.parametrize("bits", [None, 4, 8], ids=["float", "sc4", "sc8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_at_the_hybrid_layout_equals_plain(cuda, dtype, bits):
+    """A 256-token prompt one-shot, and its two 128-row chunks over the
+    384-position bucket (NaN past each chunk), against the plain version;
+    the chunks' rows equal the one-shot rows bit for bit."""
+    rng = np.random.default_rng(112)
+    h, d, s, e = 32, 112, 256, 384
+    q = torch.as_tensor(rng.standard_normal((1, s, h, d)), dtype=dtype
+                        ).to(cuda).transpose(1, 2)
+    k, v = (torch.as_tensor(rng.standard_normal((1, h, e, d)), dtype=dtype
+                            ).to(cuda) for _ in range(2))
+    one = flash_attention(q, k[:, :, :s], v[:, :, :s], q_offset=0, group=s,
+                          sc_bits=bits)
+    want = flash_attention_torch(q, k[:, :, :s], v[:, :, :s], q_offset=0,
+                                 group=s, sc_bits=bits)
+    torch.cuda.synchronize()
+    if bits is None:
+        torch.testing.assert_close(one.float(), want.float(), **TOL[dtype])
+    else:
+        _sc_close(one, want, v, bits, TOL[dtype])
+    for off in (0, 128):
+        kx, vx = (torch.full_like(t, math.nan) for t in (k, v))
+        kx[:, :, :off + 128], vx[:, :, :off + 128] = (k[:, :, :off + 128],
+                                                      v[:, :, :off + 128])
+        dev_off = torch.tensor(off, dtype=torch.int32, device=cuda)
+        got = flash_attention(q[:, :, off:off + 128], kx, vx,
+                              q_offset=dev_off, group=e, sc_bits=bits)
+        torch.cuda.synchronize()
+        assert torch.equal(got, one[:, :, off:off + 128]), off
+
+
+@pytest.mark.parametrize("m", [1, 4, 128])
+@pytest.mark.parametrize("k,n", [(14336, 3584), (7168, 3584)])
+def test_fused_kernel_at_the_hybrid_k_equals_plain(cuda, m, k, n):
+    """K = 14,336 (zamba2's w2) splits past ``K_BLOCK_MAX`` into several
+    K blocks; the counts stay exact (14,336 x 255 < 2**24)."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=gen, device=cuda)
+         * k ** -0.5).to(torch.bfloat16)
+    pw = pack_weight(w, 8)
+    assert plan(m, n, k, torch.cuda.get_device_properties(
+        0).multi_processor_count)[2] > 1
+    got = sc_linear(x, pw)
+    want = sc_linear_torch(x, pw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if m > 1:
+        assert torch.equal(sc_linear(x[1:2], pw), got[1:2])
+
+
+def _family_cfg(arch: str):
+    cfg = dataclasses.replace(ARCHS[arch], use_sc_gemm=True, sc_bits=8)
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, n_layers=2 * cfg.shared_attn_every)
+    return cfg.validate()
+
+
+def _family_requests(cfg, lens=(128, 256, 128, 256, 128),
+                     gens=(6, 11, 4, 9, 7)):
+    rng = np.random.default_rng(22)
+    return [Request(uid=f"r{i}",
+                    prompt=rng.integers(0, cfg.vocab_size,
+                                        size=(n,)).astype(np.int32),
+                    max_new_tokens=g)
+            for i, (n, g) in enumerate(zip(lens, gens))]
+
+
+FAMILY_ENGINE = dict(max_seq=384, block=64, chunk=128)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b"])
+def test_family_streams_one_slot_equal_four_and_chunked_one_shot(cuda, arch):
+    """Full width (zamba2-7b cut to 6 layers, two sites): the streams of
+    one slot, of four slots (graphed), of one-shot prefill and of the
+    sequential baseline are the same tokens, so every reduction a row
+    meets is fixed by the row alone."""
+    from repro_torch.launch import steps
+    steps.clear_decode_steps()
+    cfg = _family_cfg(arch)
+    params = bind(cfg, cuda).init_params(0)
+    reqs = _family_requests(cfg)
+    runs = {}
+    for name, kw in (("one slot", dict(capacity=1)),
+                     ("four slots", dict(capacity=4)),
+                     ("one-shot", dict(capacity=4, prefill_mode="oneshot")),
+                     ("eager", dict(capacity=4, graphs=False))):
+        eng = Engine(cfg, params, device=cuda, **FAMILY_ENGINE, **kw)
+        runs[name] = [r.tokens for r in eng.run(reqs)]
+        steps.clear_decode_steps()
+    base = [generate(cfg, params, r.prompt[None], gen_tokens=r.max_new_tokens,
+                     device=cuda)[0].cpu().numpy() for r in reqs]
+    for name, streams in runs.items():
+        for r, got, want in zip(reqs, streams, base):
+            np.testing.assert_array_equal(got, want,
+                                          err_msg=f"{name} {r.uid}")
+
+
+@pytest.mark.parametrize("mode", ["chunked", "oneshot"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b"])
+def test_family_graph_replays_equal_the_eager_steps(cuda, arch, mode):
+    """Every decode step's logit rows of the graphed engine equal the
+    eager engine's bit for bit; a captured prefill step's replays give
+    the eager step's logits and every staging leaf (Mamba conv windows and
+    states, the sites' K/V) bit for bit, two prompts through one staging
+    buffer."""
+    from repro_torch.launch import steps
+    from repro_torch.models import pack_sc_weights
+    steps.clear_decode_steps()
+    cfg = _family_cfg(arch)
+    model = bind(cfg, cuda)
+    params = model.init_params(0)
+    reqs = _family_requests(cfg)
+    rows = {}
+    for graphs in (False, True):
+        eng = _Recording(cfg, params, device=cuda, graphs=graphs,
+                         capacity=2, prefill_mode=mode, **FAMILY_ENGINE)
+        eng.run(reqs)
+        rows[graphs] = eng.rows
+    assert len(rows[True]) == len(rows[False]) >= 10
+    for i, (g, e) in enumerate(zip(rows[True], rows[False])):
+        np.testing.assert_array_equal(g, e, err_msg=f"decode step {i}")
+    steps.clear_decode_steps()
+    packed = pack_sc_weights(params, cfg)
+    prompts = [r.prompt for r in reqs[:2]][::-1]       # 256, then 128
+
+    def run(step, prompt):
+        out = []
+        if step.chunk is None:
+            step.tokens.copy_(torch.as_tensor(prompt, device=cuda)[None])
+            step.replay()
+            out.append(step.logits.clone())
+        else:
+            step.start()
+            for off in range(0, len(prompt), step.chunk):
+                step.tokens.copy_(torch.as_tensor(
+                    prompt[off:off + step.chunk], device=cuda)[None])
+                step.n_valid.fill_(step.chunk)
+                step.replay()
+                out.append(step.logits.clone())
+        return out + [t.clone() for t in steps._tensors(step.cache)]
+
+    def pair(**shape):
+        eager = steps.PrefillStep(model, packed, **shape)
+        graphed = steps.PrefillStep(model, packed, **shape)
+        steps.capture(graphed)
+        graphed.reset()
+        assert graphed.captures == 1
+        return eager, graphed
+
+    if mode == "chunked":
+        pairs = [pair(extent=256, chunk=128)] * len(prompts)
+    else:
+        pairs = [pair(extent=len(p)) for p in prompts]
+    for prompt, (eager, graphed) in zip(prompts, pairs):
+        for a, b in zip(run(eager, prompt), run(graphed, prompt)):
+            assert torch.equal(a, b)

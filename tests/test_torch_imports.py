@@ -33,6 +33,8 @@ PORT_MODULES = [
     "repro_torch.kernels.paged_attention", "repro_torch.kernels.sc_attention",
     "repro_torch.kernels.flash_attention", "repro_torch.models",
     "repro_torch.models.layers", "repro_torch.models.transformer",
+    "repro_torch.models.mamba2", "repro_torch.models.ssm_lm",
+    "repro_torch.models.zamba2",
     "repro_torch.models.cache_ops", "repro_torch.models.model_zoo",
     "repro_torch.serving", "repro_torch.serving.queue",
     "repro_torch.serving.prefix",
@@ -134,7 +136,8 @@ def test_serve_cli_refuses_out_of_range_attention_bits():
 
 def test_later_slices_are_refused():
     """SC attention, speculation and the prefix cache (on by default) are
-    served now (on the CPU here); the other families are still refused."""
+    served now (on the CPU here), and so are the ssm and hybrid families,
+    without speculation; moe, vlm and audio are still refused."""
     import numpy as np
     from repro_torch.models import bind
     from repro_torch.models.transformer import init_params
@@ -159,8 +162,18 @@ def test_later_slices_are_refused():
                 capacity=1, max_seq=16)
     out = sc.run([Request(uid="a", prompt=[1, 2, 3], max_new_tokens=2)])
     assert out[0].n_generated == 2 and sc.stats["attn_sc_bits"] == 8
-    with pytest.raises(ConfigError, match="slice"):
-        bind(ARCHS["mamba2-130m"].reduced(), "cpu")
+    for arch in ("mamba2-130m", "zamba2-7b"):
+        fam = ARCHS[arch].reduced(dtype="float32")
+        fam_params = bind(fam, "cpu").init_params(0)
+        with pytest.raises(ConfigError, match="speculative"):
+            Engine(fam, fam_params, device="cpu", speculate_k=2)
+        out = Engine(fam, fam_params, device="cpu", capacity=1, max_seq=24,
+                     block=4).run([Request(uid="f", prompt=[1, 2, 3],
+                                           max_new_tokens=2)])
+        assert out[0].n_generated == 2
+    for arch in ("qwen3-moe-235b-a22b", "qwen2-vl-2b", "musicgen-large"):
+        with pytest.raises(ConfigError, match="slice"):
+            bind(ARCHS[arch].reduced(), "cpu")
 
 
 @pytest.mark.parametrize("arch", sorted(JAX_ARCHS))

@@ -40,7 +40,7 @@ from repro.serving import Request as JaxRequest
 from repro.serving import SlotEntry as JaxSlotEntry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import from_jax_params
-from repro_torch.errors import (CacheLayoutError, ConfigError,
+from repro_torch.errors import (CacheLayoutError,
                                 PrefixCacheInvariantError)
 from repro_torch.launch.serve import generate
 from repro_torch.models import bind
@@ -482,7 +482,7 @@ def _serve(sc, prompts, gens, *, reruns=0, **kw):
 
 def test_prefix_cache_gating():
     """The cache engages only where sharing is exact: paged + chunked +
-    dense, as the JAX engine gates it; the other families stay refused."""
+    dense, as the JAX engine gates it; an ssm engine builds without it."""
     jcfg, jp, tcfg, tp = _setup(False)
     for kw in (dict(), dict(prefix_cache=False), dict(prefill_mode="oneshot"),
                dict(paged=False)):
@@ -497,8 +497,10 @@ def test_prefix_cache_gating():
     ssm = ModelConfig(**dict(SMALL, name="pg-ssm", family="ssm",
                              n_kv_heads=1, d_ff=0, ssm_state=16,
                              ssm_headdim=16, ssm_chunk=4)).validate()
-    with pytest.raises(ConfigError):
-        Engine(ssm, tp, device="cpu", capacity=2, max_seq=16)
+    ssm_params = bind(ssm, "cpu").init_params(0)
+    eng = Engine(ssm, ssm_params, device="cpu", capacity=2, max_seq=16,
+                 block=4, chunk=4)
+    assert eng.prefix is None and eng.pool.prefix is None
 
 
 @pytest.mark.parametrize("sc", [False, True], ids=["exact", "sc"])

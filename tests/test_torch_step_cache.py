@@ -189,6 +189,62 @@ def test_an_idle_engine_binds_its_step_back(cached):
     assert a._decode.captures == 1
 
 
+def test_an_entry_packs_its_weights_once_and_again_only_on_a_change(
+        cached, monkeypatch):
+    """A new entry packs its own copy of the weights once. An engine
+    binding it with the weights it holds (the same tensors, unwritten
+    since) packs nothing; other weights, or the same ones written in
+    place, are packed anew. A draft width packed before the weights
+    changed is packed anew when an engine drafting at it binds the
+    entry. Every engine's streams are its eager twin's."""
+    cfg = _cfg(True)
+    kw = dict(capacity=2, max_seq=24, block=4)
+    made, repacked = [], []
+    real_pack, real_repack = steps.pack_sc_weights, steps.repack
+
+    def pack(params, c, **k):
+        if not k:
+            made.append(c.sc_bits)
+        return real_pack(params, c, **k)
+
+    def repack(params, c):
+        repacked.append(c.sc_bits)
+        real_repack(params, c)
+
+    monkeypatch.setattr(steps, "pack_sc_weights", pack)
+    monkeypatch.setattr(steps, "repack", repack)
+    prompts = _prompts()
+
+    def serve(params, tag, **spec):
+        eng = Engine(cfg, params, device="cpu", graphs=True, **kw, **spec)
+        want = Engine(cfg, params, device="cpu", **kw).run(
+            _requests(Request, prompts, f"{tag}-eager-"))
+        for r, w in zip(eng.run(_requests(Request, prompts, tag)), want):
+            np.testing.assert_array_equal(r.tokens, w.tokens, err_msg=r.uid)
+        return eng
+
+    pa, pb = _params(cfg, 0), _params(cfg, 1)
+    a = serve(pa, "a")
+    assert (made, repacked) == ([cfg.sc_bits], [])
+    serve(pa, "a2")
+    serve(pb, "b")
+    assert repacked == [cfg.sc_bits]
+    with torch.no_grad():
+        pb["layers"][0]["mlp"]["w1"].mul_(0.5)
+    serve(pb, "b2")
+    assert repacked == [cfg.sc_bits] * 2
+    serve(pb, "spec", speculate_k=2, draft_bits=4)
+    assert made[-1] == 4 and repacked == [cfg.sc_bits] * 2
+    serve(pa, "a3")
+    serve(pa, "spec2", speculate_k=2, draft_bits=4)
+    assert repacked == [cfg.sc_bits] * 3 + [4]
+    fresh = real_pack(pa, steps.draft_config(cfg, 4))
+    for got, want in zip(steps._packs(a._decode.drafts[4][1]),
+                         steps._packs(fresh), strict=True):
+        assert torch.equal(got.plane, want.plane)
+        assert torch.equal(got.scale, want.scale)
+
+
 def test_a_rebind_drops_the_warm_prefix_tree(cached):
     """Engines of one shape share one entry and its KV pool. A cache-off
     engine binding it zeroes the pool under an idle cache-on engine's warm
