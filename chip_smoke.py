@@ -8,7 +8,7 @@ full width — float attention, then SC attention — and at mamba2-130m's
 and zamba2-7b's (the ssm and hybrid families), and checks the streams
 against the sequential baseline.
 
-    python3 chip_smoke.py            # one CUDA card; ~8 minutes
+    python3 chip_smoke.py            # one CUDA card; ~10 minutes
     python3 chip_smoke.py --only build,flash   # a subset, for debugging
 
 Phases (each raises on failure, so any failure exits non-zero):
@@ -16,7 +16,19 @@ Phases (each raises on failure, so any failure exits non-zero):
 1. the card's name and power limit, as ``nvidia-smi`` prints them;
 2. build the four kernels (one ``nvcc`` per source, started together;
    each library keyed by its source and the shared header);
-3. SC-GEMM: the counts entry exactly equal to its plain version at the
+3. tune: the autotuner (``kernels/autotune.py``) on a fresh cache file
+   (``chiprun_out/autotune.json``, ``$REPRO_TORCH_AUTOTUNE_CACHE``) sweeps
+   SC-GEMM over ``sc_gemm_problems`` of smollm-360m (a 4-slot decode step,
+   a 16-row chunk) and zamba2-7b (a 4-slot decode step, a 128-row chunk;
+   K up to 14,336, N up to 32,000), flash at the serve chunk and
+   zamba2-7b's 128-row chunk (float and SC 8-bit), paged at the serve
+   layout and the stream kernel at B = 12; per key the winner, its device
+   ms, the default plan's and the grid's size; every candidate bit-equal
+   to the default plan; a second lookup of every key sweeps nothing. The
+   later phases run on the tuned plans (``"auto"`` on the card is
+   tuned), and every graphed serve run must show no sweep in a warm-up
+   or a capture;
+4. SC-GEMM: the counts entry exactly equal to its plain version at the
    main path's shapes, ragged shapes and other plane widths; the fused
    projection (rows quantized in the kernel, a weight packed once, output
    dequantized) bit-equal to its plain version and to the unfused chain
@@ -29,7 +41,7 @@ Phases (each raises on failure, so any failure exits non-zero):
    32,000) at M = 1, 4, 128 and 256, bit-equal to the plain version, and
    at M = 4 and 128 timed and summed to a decode step and a prefill chunk
    of each;
-4. paged decode-attention kernel vs its plain version at smollm's layout,
+5. paged decode-attention kernel vs its plain version at smollm's layout,
    f32 and bf16, float and SC at 4 and 8 bits, fragmented tables, windows,
    a single-KV-head layout (SC), zamba2-7b's layout (KV 32, G 1, D 112;
    float and SC); kernel ms, device ms, plain and bound ms
@@ -37,7 +49,7 @@ Phases (each raises on failure, so any failure exits non-zero):
    to 4,096 keys); then bitwise paging invariance (block 16, 32, 48, 64,
    256 and the dense view) and batch invariance (a slot alone against
    four together), any difference failing the phase;
-5. flash-attention kernel vs its plain version: f32 and bf16, float and SC
+6. flash-attention kernel vs its plain version: f32 and bf16, float and SC
    at 4 and 8 bits, D 64, 112 and 128, G 3, 2 and 1, ragged Sq/Skv,
    smollm's and zamba2-7b's one-shot and chunked shapes (a 128-row chunk
    over the 384-position bucket timed), and the long prompts L1-L3 (2,048 tokens:
@@ -50,7 +62,7 @@ Phases (each raises on failure, so any failure exits non-zero):
    must equal one-shot rows bit for bit through the kernel, with garbage
    or NaN in the staging cache past the chunk (smollm's 16-row chunks and
    zamba2-7b's 128-row ones);
-6. the bit-parallel stream kernel through ``ops.sc_stream_mul`` on every
+7. the bit-parallel stream kernel through ``ops.sc_stream_mul`` on every
    operand pair at B = 5, 6, 7, 8, 10 and 12 (16,777,216 pairs), counter
    set to 0 just before: counts exactly equal to the plain version and
    the closed form (and the bit-level oracle at B <= 8); seeded samples
@@ -58,12 +70,12 @@ Phases (each raises on failure, so any failure exits non-zero):
    shapes, a view at storage offset 1, empty operands, block widths
    1/4/8; kernel (back to back and device), plain and bound ms at B = 8,
    10 and 12;
-7. ``launch.paper``'s Table II and Fig. 1(b) rows on the card, each equal
+8. ``launch.paper``'s Table II and Fig. 1(b) rows on the card, each equal
    to the same row computed on the CPU;
-8. a reduced smollm-360m (float32) cross-check: prefill logits on the
+9. a reduced smollm-360m (float32) cross-check: prefill logits on the
    card agree with the CPU's, and the engine's streams on both are
    compared;
-9. serve 8 requests at full width (smollm-360m, bf16, SC-GEMM on, random
+10. serve 8 requests at full width (smollm-360m, bf16, SC-GEMM on, random
    weights from seed 0) through ``Engine(capacity=4, max_seq=256, block=64,
    chunk=16)``, first with ``graphs=False`` (every step dispatched
    operator by operator), then graphed (the default on the card: each
@@ -73,15 +85,16 @@ Phases (each raises on failure, so any failure exits non-zero):
    on one engine, the first run capturing its prefill shape and the
    second none; for each run, the launch counters, set to 0 just before,
    must show the kernels on every decode step and prefill chunk (and a
-   capture's warm-up runs), exactly one fused SC-GEMM launch per
-   projection, one capture a prefill shape, one replay a prefill call and
+   capture's tuning pass and warm-up runs), exactly one fused SC-GEMM
+   launch per projection, one capture a prefill shape, one replay a
+   prefill call and
    225 SC-GEMM and 32 flash launches a prefill replay; streams must equal
    the sequential ``generate`` baseline on the card; decode ms/step,
    tokens/s, TTFT p50 and peak memory side by side (eager against the
    graphed second run);
-10. the same with SC attention at 8 bits, chunked and then one-shot
+11. the same with SC attention at 8 bits, chunked and then one-shot
     prefill, each against the sequential baseline;
-11. ``serve_spec``: the ``serve`` cell's model, requests and baseline
+12. ``serve_spec``: the ``serve`` cell's model, requests and baseline
     served by self-speculative rounds, ``(k, draft_bits)`` = (3, 4) with
     ``graphs=False``, then (1, 4), (3, 4) and (3, 8) graphed, and the
     ``serve_sc`` cell (SC attention at 8 bits) drafting at 8 bits, graphed
@@ -97,17 +110,17 @@ Phases (each raises on failure, so any failure exits non-zero):
     draft's and the verify's device µs a round (CUDA events), acceptance,
     tokens a round, peak memory and the draft's packed weights, beside
     the non-speculative cells' graphed tokens/s;
-12. ``serve_prefix``: the reference's default serve, prefix cache on, over
+13. ``serve_prefix``: the reference's default serve, prefix cache on, over
     one shared 128-token preamble (cache off, eager, graphed cold and
     warm, speculative, a rebind), its stats held to the script's plan;
-13. a ``torch.profiler`` pass over two full-width decode steps, eager and
+14. a ``torch.profiler`` pass over two full-width decode steps, eager and
     then graphed, and over two chunks of a 240-token prompt's chunked
     prefill, eager and then graphed: device time by kernel, host time by
     operator, kernel launches, host API calls and synchronizations per
     step or chunk, the device's busy share, the graphed step's and
     chunk's wall split, and the kernel records of the graphed steps and
     chunks against the launches their capture recorded;
-14. ``serve_ssm`` and ``serve_hybrid``: mamba2-130m and zamba2-7b as
+15. ``serve_ssm`` and ``serve_hybrid``: mamba2-130m and zamba2-7b as
     registered, whole (zamba2-7b's 81 layers and 27 shared-block sites;
     nothing cut), SC-GEMM at 8 bits, float attention, random weights
     from seed 0: 8 requests of 128- and 256-token prompts (whole
@@ -123,9 +136,9 @@ Phases (each raises on failure, so any failure exits non-zero):
     launches), taken before the serving runs.
 
 The line before the last is a JSON object with one entry per kernel,
-its ``launches`` the sum over every serving run of phases 9-12 and 14 (the
+its ``launches`` the sum over every serving run of phases 10-13 and 15 (the
 attention kernels' float and SC entries split as their wrappers counted
-them); the last line is ``{"ok": true, "device": {...}}``. Details go to
+them), its ``tuned`` the tune phase's keys of the kernel; the last line is ``{"ok": true, "device": {...}}``. Details go to
 ``build/chip_smoke.json`` (``$CHIP_SMOKE_OUT`` names another directory).
 Nothing of JAX or of the JAX package is imported.
 """
@@ -329,11 +342,14 @@ def phase_sc_gemm() -> dict:
     chain; rows holding a NaN or an Inf must come out NaN in both. Times
     at M = 4, 16 and 64 with the weight cycled from HBM: fused, the old
     chain (quantize both operands, pack, count, dequantize, cast), the
-    plain version, and the bound; then a decode step's device time with
-    the K split aimed at 1, 2 and 4 blocks per SM."""
+    plain version, the bound, and the device time at the autotuner's plan
+    for the key beside the default plan's; then a decode step's device
+    time with the K split aimed at 1, 2 and 4 blocks per SM."""
+    import dataclasses
     import torch
     from repro_torch.core.sc_numerics import quantize_sign_magnitude
     from repro_torch.core.tcu import stream_length
+    from repro_torch.kernels import autotune
     from repro_torch.kernels import sc_matmul as skm
     from repro_torch.kernels.sc_matmul import (pack_signed, pack_weight,
                                                plan, sc_linear,
@@ -451,10 +467,15 @@ def phase_sc_gemm() -> dict:
             row.update(mr=mr, kc=kc, splits=splits,
                        blocks=-(-n // 64) * -(-m // mr) * splits)
 
-            def call():
-                return sc_linear(x, pws[next(it) % len(pws)])
+            def call(config=None):
+                return sc_linear(x, pws[next(it) % len(pws)], config=config)
             row["ms"] = cuda_ms(call, iters=50)
             row["device_ms"] = device_ms(call, "sc_gemm_kernel")
+            # the autotuner's plan for the key (M = 4 at its bucket's)
+            tuned = autotune.get_or_tune(x, pws[0])
+            row["tuned"] = dataclasses.asdict(tuned)
+            row["tuned_device_ms"] = device_ms(lambda: call(tuned),
+                                               "sc_gemm_kernel")
             row["chain_ms"] = cuda_ms(lambda: chain(
                 x, ws[next(it) % len(ws)], 8), iters=10)
             row["plain_ms"] = cuda_ms(lambda: sc_linear_torch(x, pws[0]),
@@ -464,7 +485,8 @@ def phase_sc_gemm() -> dict:
             timing.append(row)
             log(f"[sc_gemm] M={m:2d} K={k:4d} N={n:5d} ({row['blocks']} "
                 f"blocks, {splits} K splits): fused {row['ms']:.4f} ms a "
-                f"call, device {_ms(row['device_ms'])}, old chain "
+                f"call, device {_ms(row['device_ms'])} (tuned {row['tuned']}: "
+                f"{_ms(row['tuned_device_ms'])}), old chain "
                 f"{row['chain_ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
                 f"bound {bound:.4f} ms ({by})")
 
@@ -476,18 +498,22 @@ def phase_sc_gemm() -> dict:
                    zip((r for r in timing if r["M"] == m), vals))
 
     step = {key: per_step(4, key) for key in
-            ("ms", "device_ms", "chain_ms", "plain_ms", "bound_ms")}
+            ("ms", "device_ms", "tuned_device_ms", "chain_ms", "plain_ms",
+             "bound_ms")}
     log(f"[sc_gemm] one decode step (M=4, {sum(SC_SHAPES.values())} fused "
         f"calls): {step['ms']:.3f} ms of calls, device "
-        f"{_ms(step['device_ms'])}; old chain {step['chain_ms']:.3f} ms, "
+        f"{_ms(step['device_ms'])} (tuned plans "
+        f"{_ms(step['tuned_device_ms'])}); old chain {step['chain_ms']:.3f} ms, "
         f"plain {step['plain_ms']:.1f} ms, bound {step['bound_ms']:.4f} ms")
     prefill = {}
     for m in (16, 64):
         prefill[m] = {key: per_step(m, key) for key in
-                      ("ms", "device_ms", "chain_ms", "bound_ms")}
+                      ("ms", "device_ms", "tuned_device_ms", "chain_ms",
+                       "bound_ms")}
         p = prefill[m]
         log(f"[sc_gemm] one prefill pass at M={m} (225 calls): "
-            f"{p['ms']:.3f} ms of calls, device {_ms(p['device_ms'])}; old "
+            f"{p['ms']:.3f} ms of calls, device {_ms(p['device_ms'])} "
+            f"(tuned plans {_ms(p['tuned_device_ms'])}); old "
             f"chain {p['chain_ms']:.3f} ms, bound {p['bound_ms']:.4f} ms")
 
     # the K split's aim (kernels/sc_matmul.py BLOCKS_PER_SM): a decode
@@ -527,9 +553,12 @@ def _sc_gemm_families(gen, dev, sms) -> dict:
     (a one-shot prefill of a 256-token prompt) — bit-equal to its plain
     version (zamba2's w2 runs K = 14,336, four K blocks past
     ``K_BLOCK_MAX``); then at M = 4 and 128, per shape, the fused call's
-    ms and device ms, the plain version's and the bound, weights cycled
-    from HBM, summed to a decode step and a chunk of each model."""
+    ms and device ms (at the default plan and at the autotuner's), the
+    plain version's and the bound, weights cycled from HBM, summed to a
+    decode step and a chunk of each model."""
+    import dataclasses
     import torch
+    from repro_torch.kernels import autotune
     from repro_torch.kernels.sc_matmul import (pack_weight, plan, sc_linear,
                                                sc_linear_torch)
     out = {}
@@ -560,12 +589,17 @@ def _sc_gemm_families(gen, dev, sms) -> dict:
                 it = iter(range(1 << 30))
                 mr, kc, splits = plan(m, n, k, sms)
 
-                def call():
-                    return sc_linear(x, pws[next(it) % len(pws)])
+                def call(config=None):
+                    return sc_linear(x, pws[next(it) % len(pws)],
+                                     config=config)
+                tuned = autotune.get_or_tune(x, pws[0])
                 row = {"M": m, "K": k, "N": n, "calls_per_step": calls,
                        "splits": splits, "ms": cuda_ms(call, iters=20),
                        "device_ms": device_ms(call, "sc_gemm_kernel",
                                               iters=10),
+                       "tuned": dataclasses.asdict(tuned),
+                       "tuned_device_ms": device_ms(
+                           lambda: call(tuned), "sc_gemm_kernel", iters=10),
                        "plain_ms": cuda_ms(lambda: sc_linear_torch(
                            x, pws[0]), iters=1, warmup=0)}
                 bound, by, nbytes, ops = _sc_bound(m, k, n, 2)
@@ -575,7 +609,9 @@ def _sc_gemm_families(gen, dev, sms) -> dict:
                 log(f"[sc_gemm] {arch} M={m:3d} K={k:5d} N={n:5d} ({splits} "
                     f"K splits): bit-equal to the plain version; fused "
                     f"{row['ms']:.4f} ms a call, device "
-                    f"{_ms(row['device_ms'])}, plain {row['plain_ms']:.3f} "
+                    f"{_ms(row['device_ms'])} (tuned {row['tuned']}: "
+                    f"{_ms(row['tuned_device_ms'])}), plain "
+                    f"{row['plain_ms']:.3f} "
                     f"ms, bound {bound:.4f} ms ({by})")
         sums = {}
         for m, what in ((4, "decode_step"), (128, "prefill_chunk")):
@@ -583,14 +619,242 @@ def _sc_gemm_families(gen, dev, sms) -> dict:
             sums[what] = {key: (None if any(r[key] is None for r in sel) else
                                 sum(r["calls_per_step"] * r[key]
                                     for r in sel))
-                          for key in ("ms", "device_ms", "plain_ms",
-                                      "bound_ms")}
+                          for key in ("ms", "device_ms", "tuned_device_ms",
+                                      "plain_ms", "bound_ms")}
             t = sums[what]
             log(f"[sc_gemm] {arch} one {what.replace('_', ' ')} (M={m}, "
                 f"{sum(shapes.values())} fused calls): {t['ms']:.3f} ms of "
-                f"calls, device {_ms(t['device_ms'])}, plain "
+                f"calls, device {_ms(t['device_ms'])} (tuned plans "
+                f"{_ms(t['tuned_device_ms'])}), plain "
                 f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.4f} ms")
         out[arch] = {"timing": rows, **sums}
+    return out
+
+
+#: The autotuner's cache of a run: a fresh file, so every run sweeps from
+#: scratch and no earlier tree's winners serve this one.
+TUNE_CACHE = ROOT / "chiprun_out" / "autotune.json"
+#: The tune phase's SC-GEMM problems: (arch, rows, kind) as
+#: ``configs.shapes.Shape``s give them to ``sc_gemm_problems`` — a decode
+#: step of 4 slots, a 16-row chunk (smollm-360m's serve cells) and a
+#: 128-row chunk (zamba2-7b's).
+TUNE_GEMM = (("smollm-360m", 1, 4, "decode"), ("smollm-360m", 16, 1, "prefill"),
+             ("zamba2-7b", 1, 4, "decode"), ("zamba2-7b", 128, 1, "prefill"))
+#: The tune phase's flash problems (name, H, KV, D, chunk rows, bucket
+#: extent = the SC group, as the chunk step passes it): the serve cells'
+#: 16-row chunk of a 64-token bucket, zamba2-7b's 128-row chunk of its
+#: 256-token bucket; the offset held on the card, float and SC 8-bit.
+TUNE_FLASH = (("serve_chunk", 15, 5, 64, 16, 64),
+              ("zamba2_chunk", 32, 32, 112, 128, 256))
+
+
+def _tune_log(tag: str, cache, key: str, n_cands: int) -> dict:
+    """Log a swept key: its winner, the winner's and the default plan's ms
+    and the grid's size, each candidate having been held bit-equal to the
+    default plan."""
+    ent = cache.entry(key)
+    fields = {k: v for k, v in ent.items()
+              if k not in ("tuned_at", "us_per_call", "default_us",
+                           "candidates")}
+    row = {"key": key, "winner": fields, "ms": ent["us_per_call"] / 1e3,
+           "default_ms": ent["default_us"] / 1e3, "candidates": n_cands}
+    log(f"[tune] {tag}: winner {fields} {row['ms']:.4f} ms, default "
+        f"{row['default_ms']:.4f} ms, {n_cands} candidates, all "
+        f"bit-equal to the default plan")
+    if ent["candidates"] != n_cands:
+        raise AssertionError(f"[tune] {key}: swept {ent['candidates']} "
+                             f"candidates, the grid has {n_cands}")
+    return row
+
+
+def phase_tune() -> dict:
+    """The autotuner on the card, on the run's fresh cache: sweep the
+    SC-GEMM problems of ``TUNE_GEMM`` (``configs.shapes.sc_gemm_problems``;
+    zamba2-7b at full width, K up to 14,336, N up to 32,000), the flash
+    problems of ``TUNE_FLASH`` (float and SC 8-bit), the paged kernel at
+    the serve layout (float and SC) and the stream kernel at B = 12; log
+    each key's winner, its device ms (CUDA events), the default plan's
+    and the grid's size. Every candidate's output must equal the default
+    plan's bit for bit (on seeded operands of the key's shape), and a
+    second lookup of every key must sweep nothing. The serve phases then
+    run on these plans."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.configs.shapes import Shape, sc_gemm_problems
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     m_tile_count)
+    from repro_torch.kernels.sc_bitops import sc_stream_mul_cuda
+    from repro_torch.kernels.sc_matmul import (PackedWeight, pack_weight,
+                                               sc_linear)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cache = autotune._default_cache()
+    if cache.path != TUNE_CACHE or len(cache):
+        raise AssertionError(f"[tune] the cache is {cache.path} with "
+                             f"{len(cache)} entries, not a fresh "
+                             f"{TUNE_CACHE}")
+    t0 = time.perf_counter()
+    sweeps0 = autotune.sweeps
+    lookups = []            # (what, lookup) to repeat after the sweeps
+    out = {"sc_gemm": [], "flash": [], "paged": [], "stream": []}
+
+    for arch, rows, batch, kind in TUNE_GEMM:
+        cfg = ARCHS[arch]
+        dt = getattr(torch, cfg.dtype)
+        for m, k, n in sc_gemm_problems(cfg, Shape("tune", rows, batch,
+                                                   kind)):
+            key = cache.key(m, k, n, 8, dtype=dt, device=dev)
+            if key in cache.keys():     # a head's row shares a decode key
+                continue
+            x = torch.randn((m, k), generator=gen, device=dev).to(dt)
+            stub = PackedWeight(torch.empty(0, device=dev),
+                                torch.ones((), device=dev), 8, (k, n))
+
+            def lookup(x=x, stub=stub):
+                return autotune.get_or_tune(x, stub)
+            win = lookup()
+            lookups.append((f"sc_gemm {arch} ({m},{k},{n})", lookup))
+            cands = autotune.candidate_configs(autotune.bucket_m(m), k, n,
+                                               sms=sms)
+            if win not in cands:
+                raise AssertionError(f"[tune] {key}: winner {win} is not "
+                                     f"in the grid")
+            pw = pack_weight(torch.randn((k, n), generator=gen, device=dev),
+                             8)
+            want = sc_linear(x, pw)
+            for c in cands:
+                if not torch.equal(sc_linear(x, pw, config=c), want):
+                    raise AssertionError(f"[tune] {key}: candidate {c} "
+                                         f"differs from the default plan")
+            row = _tune_log(f"sc_gemm {arch} M={m} K={k} N={n}", cache, key,
+                            len(cands))
+            out["sc_gemm"].append(row | {"arch": arch, "M": m, "K": k,
+                                         "N": n})
+            del pw, want
+    torch.cuda.empty_cache()
+
+    for name, h, kv, d, sq, skv in TUNE_FLASH:
+        for bits in (None, 8):
+            q = torch.randn((1, h, sq, d), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            kk, vv = (torch.randn((1, kv, skv, d), generator=gen, device=dev
+                                  ).to(torch.bfloat16) for _ in range(2))
+            off = torch.tensor(skv - sq, dtype=torch.int32, device=dev)
+
+            def lookup(q=q, kk=kk, vv=vv, off=off, skv=skv, bits=bits):
+                return autotune.get_or_tune_flash(q, kk, vv, q_offset=off,
+                                                  group=skv, sc_bits=bits)
+            win = lookup()
+            lookups.append((f"flash {name} sc{bits or 0}", lookup))
+            cands = autotune.candidate_flash_configs(
+                1, h, kv, sq, d, group=skv, q_offset=off, sc_bits=bits,
+                esz=2, sms=sms)
+            key = cache.flash_key(1, h, kv, sq, m_tile_count(sq, off), skv,
+                                  d, True, group=skv, dtype=torch.bfloat16,
+                                  sc_bits=bits, device=dev)
+            want = flash_attention(q, kk, vv, q_offset=off, group=skv,
+                                   sc_bits=bits)
+            for c in cands:
+                got = flash_attention(q, kk, vv, q_offset=off, group=skv,
+                                      sc_bits=bits, config=c)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"[tune] {key}: candidate {c} "
+                                         f"differs from the default plan")
+            if win not in cands:
+                raise AssertionError(f"[tune] {key}: winner {win} is not "
+                                     f"in the grid")
+            out["flash"].append(_tune_log(
+                f"flash {name} sc{bits or 0}", cache, key, len(cands))
+                | {"shape": name, "sc_bits": bits})
+
+    # the serve cells' paged layout: 4 slots of 5 KV heads x 3 x 64, pages
+    # of 64 keys, 4 a table row (max_seq 256)
+    c, kv, g, d, block, mb = 4, 5, 3, 64, 64, 4
+    for bits in (None, 8):
+        q = torch.randn((c, kv, g, d), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        pages = c * mb + 1
+        kp, vp = (torch.randn((pages, block, kv, d), generator=gen,
+                              device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        tables = torch.arange(c * mb, dtype=torch.int32,
+                              device=dev).reshape(c, mb)
+        pos = torch.tensor([5, 77, 150, 255], dtype=torch.int32, device=dev)
+
+        def lookup(q=q, kp=kp, vp=vp, tables=tables, pos=pos, bits=bits):
+            return autotune.get_or_tune_paged(q, kp, vp, tables, pos,
+                                              sc_bits=bits)
+        lookup()
+        lookups.append((f"paged serve sc{bits or 0}", lookup))
+        # a one-point grid: its candidate is the default plan
+        key = cache.paged_key(c, kv, g, d, block, mb, None,
+                              dtype=torch.bfloat16, sc_bits=bits, device=dev)
+        out["paged"].append(_tune_log(f"paged serve sc{bits or 0}", cache,
+                                      key, 1) | {"sc_bits": bits})
+
+    size, bits = 1 << 24, 12
+    x = torch.randint(0, 1 << bits, (size,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    y = torch.randint(0, 1 << bits, (size,), generator=gen, device=dev,
+                      dtype=torch.int32)
+
+    def lookup(x=x, y=y):
+        return autotune.get_or_tune_stream(x, y, bits=bits)
+    lookup()
+    lookups.append(("stream B=12", lookup))
+    cands = autotune.candidate_stream_configs(size)
+    want = sc_stream_mul_cuda(x, y, bits=bits)
+    for cf in cands:
+        if not torch.equal(sc_stream_mul_cuda(x, y, bits=bits,
+                                              block_rows=cf.block_rows),
+                           want):
+            raise AssertionError(f"[tune] stream: block_rows "
+                                 f"{cf.block_rows} differs from 8")
+    out["stream"].append(_tune_log(
+        "stream B=12", cache, cache.stream_key(size, bits, device=dev),
+        len(cands)) | {"size": size, "bits": bits})
+    del want
+
+    # a decode step's and a chunk's SC-GEMM at the tuned plans and at the
+    # default ones: each key's ms times its calls a pass
+    calls = {"smollm-360m": SC_SHAPES, **FAMILY_SC_SHAPES}
+    out["passes"] = []
+    for arch, rows, batch, kind in TUNE_GEMM:
+        dt = getattr(torch, ARCHS[arch].dtype)
+        probs = {(k, n): m for m, k, n in sc_gemm_problems(
+            ARCHS[arch], Shape("tune", rows, batch, kind))}
+        ents = {kn: cache.entry(cache.key(probs[kn], *kn, 8, dtype=dt,
+                                          device=dev))
+                for kn in calls[arch]}
+        row = {"arch": arch, "pass": "decode step" if kind == "decode"
+               else f"{rows}-row chunk",
+               "calls": sum(calls[arch].values()),
+               "tuned_ms": sum(c * ents[kn]["us_per_call"] / 1e3
+                               for kn, c in calls[arch].items()),
+               "default_ms": sum(c * ents[kn]["default_us"] / 1e3
+                                 for kn, c in calls[arch].items())}
+        out["passes"].append(row)
+        log(f"[tune] {arch} {row['pass']}: {row['calls']} SC-GEMM calls, "
+            f"{row['tuned_ms']:.3f} ms at the tuned plans against "
+            f"{row['default_ms']:.3f} ms at the default ones (the sweeps' "
+            f"times, L2 flushed before each call)")
+
+    swept = autotune.sweeps - sweeps0
+    if swept != len(lookups) or len(cache) != len(lookups):
+        raise AssertionError(f"[tune] {swept} sweeps and {len(cache)} keys "
+                             f"for {len(lookups)} problems")
+    with autotune.lookup_only():
+        for what, lookup in lookups:
+            lookup()
+    if autotune.sweeps - sweeps0 != swept:
+        raise AssertionError("[tune] a second lookup swept")
+    out["keys"], out["sweeps"] = len(cache), swept
+    out["seconds"] = time.perf_counter() - t0
+    out["cache"] = str(cache.path)
+    log(f"[tune] {swept} keys swept in {out['seconds']:.1f}s (the bit "
+        f"checks included); a second lookup of each swept nothing")
     return out
 
 
@@ -1308,12 +1572,15 @@ def _serve_run(cfg, eng, reqs, mode, baseline, *, run: int = 1,
     one-shot) must be captured once, at first use in run 1 and never in
     run 2, with one SC-GEMM launch a projection and one flash launch an
     attention site a replay, and one replay a prefill chunk or prefill
-    (``_path_counts``: 225 and 32 at smollm-360m)."""
+    (``_path_counts``: 225 and 32 at smollm-360m). The autotuner's sweeps
+    in the run are counted; graphed, every capture must have swept in
+    its tuning pass only, none in its warm-up or capture."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.launch import steps as step_cache
-    from repro_torch.launch.steps import WARMUP_RUNS, bucket_for
+    from repro_torch.kernels import autotune
+    from repro_torch.launch.steps import EAGER_RUNS, bucket_for
     graphs = eng.graphs
     n_proj, sites = _path_counts(cfg)
     shapes = {(bucket_for(r.prompt_len, eng.buckets), eng.chunk)
@@ -1336,9 +1603,11 @@ def _serve_run(cfg, eng, reqs, mode, baseline, *, run: int = 1,
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
+    sweeps0 = autotune.sweeps
     results = eng.run(reqs)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
+    sweeps = autotune.sweeps - sweeps0
     st = eng.stats
     peak = torch.cuda.max_memory_allocated()
     sc_attn = sites if cfg.attn_sc else 0
@@ -1386,6 +1655,17 @@ def _serve_run(cfg, eng, reqs, mode, baseline, *, run: int = 1,
             f"{st['prefill_captures']} new in this run, replayed "
             f"{list(replays.values())} times for {prefill_calls} prefill "
             f"calls; a replay counts {prefill_graph['launch_counts']}")
+        # the tuner swept only in the captures' tuning passes, never in a
+        # warm-up or a capture (lookup-only there)
+        prefill_graph["capture_sweeps"] = [s.capture_sweeps
+                                           for s in entries.values()]
+        prefill_graph["tuning_sweeps"] = [s.tuning_sweeps
+                                          for s in entries.values()]
+        if step.capture_sweeps or any(prefill_graph["capture_sweeps"]):
+            raise AssertionError(f"{tag} the tuner swept during a warm-up or "
+                                 f"a capture: decode "
+                                 f"{step.capture_sweeps}, prefill "
+                                 f"{prefill_graph['capture_sweeps']}")
         if (len(entries) != len(shapes)
                 or any(s.captures != 1 for s in entries.values())
                 or st["prefill_captures"] != (len(shapes) if run == 1
@@ -1397,6 +1677,10 @@ def _serve_run(cfg, eng, reqs, mode, baseline, *, run: int = 1,
                                  f"for {prefill_calls} prefill calls (want "
                                  f"shapes {sorted(shapes)}, each captured "
                                  f"once, in run 1, counting {want_p})")
+    log(f"{tag} autotuner: {sweeps} sweeps in this run"
+        + (f" (captures' tuning passes: decode {step.tuning_sweeps}, prefill "
+           f"{prefill_graph['tuning_sweeps']}; warm-ups and captures: 0)"
+           if graphs else ""))
     log(f"{tag} {st['requests']} requests, {st['generated_tokens']} tokens "
         f"in {st['wall_s']:.2f}s: {st['tok_per_s']:.2f} tok/s, TTFT p50 "
         f"{st['ttft_p50_s'] * 1e3:.1f} ms, decode {st['decode_ms_per_step']:.2f}"
@@ -1416,9 +1700,10 @@ def _serve_run(cfg, eng, reqs, mode, baseline, *, run: int = 1,
     # one fused launch per projection (``_path_counts``), on every
     # decode step and every prefill call; no weight is quantized on
     # the way (the counts entry, which takes planes quantized per call, is
-    # never reached). A prefill capture in this run adds its warm-up's
-    # eager runs (launch.steps.WARMUP_RUNS), which launch the kernels too.
-    warm = WARMUP_RUNS * st.get("prefill_captures", 0) if graphs else 0
+    # never reached). A prefill capture in this run adds its tuning pass
+    # and warm-up (launch.steps.EAGER_RUNS eager runs), which launch the
+    # kernels too; the tuner's sweeps put the counters back.
+    warm = EAGER_RUNS * st.get("prefill_captures", 0) if graphs else 0
     projections = n_proj * (steps + prefill_calls + warm)
     if launches["sc_linear"] != projections or launches["sc_matmul_counts"]:
         raise AssertionError(f"SC-GEMM: {launches['sc_linear']} fused and "
@@ -1456,11 +1741,13 @@ def _serve_run(cfg, eng, reqs, mode, baseline, *, run: int = 1,
         raise AssertionError(f"{tag} engine streams differ from the "
                              f"sequential baseline: " + "; ".join(mismatched))
     return {"stats": {k: v for k, v in st.items() if k != "backpressure"},
-            "launches": launches, "max_memory_allocated": peak,
-            "memory_reserved": reserved,
+            "launches": launches, "sweeps": sweeps,
+            "max_memory_allocated": peak, "memory_reserved": reserved,
             "decode_graph": {"captures": step.captures,
                              "replays": step.replays,
-                             "launch_counts": step.launch_counts}
+                             "launch_counts": step.launch_counts,
+                             "tuning_sweeps": step.tuning_sweeps,
+                             "capture_sweeps": step.capture_sweeps}
             if graphs else None,
             "prefill_graph": prefill_graph,
             "first_stream": results[0].tokens[:16].tolist(),
@@ -1756,7 +2043,8 @@ def _serve_spec_run(cfg, eng, reqs, baseline, *, run: int = 1) -> dict:
     import dataclasses
     import numpy as np
     import torch
-    from repro_torch.launch.steps import WARMUP_RUNS
+    from repro_torch.kernels import autotune
+    from repro_torch.launch.steps import EAGER_RUNS
     k, bits, graphs = eng.speculate_k, eng.draft_bits, eng.graphs
     exact_draft = cfg.attn_sc and bits == cfg.sc_bits
     tag = (f"[serve_spec:k{k}@{bits}b{':sc' if cfg.attn_sc else ''}:"
@@ -1774,16 +2062,18 @@ def _serve_spec_run(cfg, eng, reqs, baseline, *, run: int = 1) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
+    sweeps0 = autotune.sweeps
     results = eng.run(reqs)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
+    sweeps = autotune.sweeps - sweeps0
     if grids is not None:
         del eng._speculate_once
     st = eng.stats
     peak = torch.cuda.max_memory_allocated()
     rounds = st["spec_rounds"]
     prefill_calls = st["prefill_chunks"]
-    warm = WARMUP_RUNS * st["prefill_captures"] if graphs else 0
+    warm = EAGER_RUNS * st["prefill_captures"] if graphs else 0
     per_step = 7 * N_LAYERS + 1
     sc_verify = N_LAYERS if cfg.attn_sc else 0
     flash = N_LAYERS * (prefill_calls + warm)
@@ -1798,6 +2088,13 @@ def _serve_spec_run(cfg, eng, reqs, baseline, *, run: int = 1) -> dict:
                          "replays": s.replays - replays0[name],
                          "launch_counts": s.launch_counts}
                   for name, s in spec.items()}
+    capture_sweeps = {name: s.capture_sweeps for name, s in
+                      (*spec.items(), *eng.prefill_steps().items())}
+    log(f"{tag} autotuner: {sweeps} sweeps in this run, none in a warm-up "
+        f"or a capture ({capture_sweeps})")
+    if any(capture_sweeps.values()):
+        raise AssertionError(f"{tag} the tuner swept during a warm-up or a "
+                             f"capture: {capture_sweeps}")
     log(f"{tag} {st['requests']} requests, {st['generated_tokens']} tokens "
         f"in {st['wall_s']:.2f}s: {st['tok_per_s']:.2f} tok/s, TTFT p50 "
         f"{st['ttft_p50_s'] * 1e3:.1f} ms; {rounds} rounds at "
@@ -1871,7 +2168,8 @@ def _serve_spec_run(cfg, eng, reqs, baseline, *, run: int = 1) -> dict:
         raise AssertionError(f"{tag} speculative streams differ from the "
                              f"sequential baseline: " + "; ".join(mismatched))
     return {"stats": {k2: v for k2, v in st.items() if k2 != "backpressure"},
-            "launches": launches, "max_memory_allocated": peak,
+            "launches": launches, "sweeps": sweeps,
+            "max_memory_allocated": peak,
             "draft_weight_bytes": eng._draft.weight_bytes,
             "steps": steps_seen if graphs else None, "exact_draft": exact,
             "streams": [r.tokens.tolist() for r in results]}
@@ -2450,6 +2748,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.device import exact_float32
     exact_float32()   # float32 products in full float32, TF32 off
+    # the autotuner's cache: a fresh file of this run's
+    TUNE_CACHE.parent.mkdir(parents=True, exist_ok=True)
+    TUNE_CACHE.unlink(missing_ok=True)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(TUNE_CACHE)
 
     only = None
     if len(sys.argv) > 2 and sys.argv[1] == "--only":
@@ -2458,7 +2760,8 @@ def main() -> int:
     card = phase_card()
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
-    phases = (("build", phase_build), ("sc_gemm", phase_sc_gemm),
+    phases = (("build", phase_build), ("tune", phase_tune),
+              ("sc_gemm", phase_sc_gemm),
               ("paged", phase_paged), ("flash", phase_flash),
               ("stream", phase_stream), ("paper", phase_paper),
               ("small_model", phase_small_model), ("serve", phase_serve),
@@ -2482,6 +2785,16 @@ def main() -> int:
         return 0
 
     src = "src/repro_torch/kernels/csrc"
+    tune = report["tune"]
+
+    def tuned(family, bits="any"):
+        """The tune phase's keys of a family (of one SC variant): each
+        winner, its device ms, the default plan's, the grid's size."""
+        return [{k2: r[k2] for k2 in ("key", "winner", "ms", "default_ms",
+                                      "candidates")}
+                for r in tune[family]
+                if bits == "any" or r.get("sc_bits") == bits]
+
     step = report["sc_gemm"]["decode_step"]
     paged = report["paged"]["cases"]
     serve, serve_sc = report["serve"], report["serve_sc"]
@@ -2498,7 +2811,7 @@ def main() -> int:
         return {"name": name, "route": "cuda",
                 "source": f"{src}/paged_attention.cu",
                 "replaces": "src/repro/kernels/paged_attention.py:194",
-                "launches": launches,
+                "launches": launches, "tuned": tuned("paged", bits),
                 "max_abs_err": max(r["max_abs_err"] for r in paged
                                    if r["sc_bits"] == bits),
                 "ms": N_LAYERS * row["ms"],
@@ -2528,7 +2841,7 @@ def main() -> int:
         return {"name": name, "route": "cuda",
                 "source": f"{src}/flash_attention.cu",
                 "replaces": "src/repro/kernels/flash_attention.py:91",
-                "launches": launches,
+                "launches": launches, "tuned": tuned("flash", bits),
                 "max_abs_err": max([r["max_abs_err"] for r in
                                     report["flash"]["cases"]
                                     if r["sc_bits"] in ((None,) if bits is None
@@ -2581,7 +2894,7 @@ def main() -> int:
         {"name": "sc_gemm", "route": "cuda",
          "source": f"{src}/sc_matmul.cu",
          "replaces": "src/repro/kernels/sc_matmul.py:89",
-         "launches": total["sc_linear"],
+         "launches": total["sc_linear"], "tuned": tuned("sc_gemm"),
          "max_abs_err": 0.0,
          "ms": step["ms"], "plain_ms": step["plain_ms"],
          "bound_ms": step["bound_ms"],
@@ -2589,6 +2902,7 @@ def main() -> int:
                                      report["sc_gemm"]["timing"]
                                      if r["M"] == 4) else "operations"),
          "library_ms": None, "device_ms": step["device_ms"],
+         "tuned_device_ms": step["tuned_device_ms"],
          "chain_ms": step["chain_ms"],
          "unit": "one smollm-360m decode step at M=4: 225 fused calls "
                  "(32 layers x 7 projections + the LM head), bf16 rows",
@@ -2607,6 +2921,7 @@ def main() -> int:
          "source": f"{src}/sc_bitops.cu",
          "replaces": "src/repro/kernels/sc_bitops.py:84",
          "launches": report["stream"]["launches"],
+         "tuned": tuned("stream"),
          "max_abs_err": report["stream"]["max_abs_err"],
          "ms": stream["ms"], "plain_ms": stream["plain_ms"],
          "bound_ms": stream["bound_ms"], "bound_by": stream["bound_by"],

@@ -14,14 +14,18 @@ packed once (``kernels.sc_matmul.pack_weight``, made for a whole parameter
 tree by ``models.transformer.pack_sc_weights``) and runs the projection as
 one fused kernel launch on the card (``kernels.sc_matmul.sc_linear``)
 whenever the config's ``sc_impl`` (or ``$REPRO_SC_IMPL``) names the
-kernel path. Gradients and the plain formulations (``"ref"``,
-``"mxu_split"``) keep the per-call path through :func:`sc_dense`.
+kernel path: at the autotuner's plan for the shape
+(``kernels/autotune.py``) under ``"pallas_tuned"`` and, on the card,
+``"auto"``; at ``sc_matmul.plan``'s under ``"pallas"``. Gradients and the
+plain formulations (``"ref"``, ``"mxu_split"``) keep the per-call path
+through :func:`sc_dense`.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.errors import ConfigError
+from repro_torch.kernels.autotune import get_or_tune
 from repro_torch.kernels.sc_matmul import sc_linear
 
 from .sc_matmul import resolve_impl, sc_matmul
@@ -85,11 +89,14 @@ def sc_proj(x: torch.Tensor, w: torch.Tensor, cfg,
     SC-GEMM at ``cfg.sc_bits``: through ``packed`` (``w`` packed once) when
     given, ``cfg.sc_impl`` resolves to one of :data:`PACKED_IMPLS` and no
     gradient is asked for (one kernel launch on the card, output in
-    ``x``'s dtype), else :func:`sc_dense` with the config's ``sc_impl``.
-    Both give the same bits."""
+    ``x``'s dtype; the launch plan is the autotuner's for ``(bucket_m(M),
+    K, N, bits)`` under ``"pallas_tuned"`` and, on the card, ``"auto"``),
+    else :func:`sc_dense` with the config's ``sc_impl``. All give the same
+    bits."""
     if not cfg.use_sc_gemm:
         return x @ w
-    if (packed is not None and resolve_impl(cfg.sc_impl) in PACKED_IMPLS
+    impl = resolve_impl(cfg.sc_impl)
+    if (packed is not None and impl in PACKED_IMPLS
             and not (torch.is_grad_enabled()
                      and (x.requires_grad or w.requires_grad))):
         if packed.bits != cfg.sc_bits or packed.shape != tuple(w.shape):
@@ -97,6 +104,9 @@ def sc_proj(x: torch.Tensor, w: torch.Tensor, cfg,
                 f"packed weight {packed.shape} at {packed.bits} bits does "
                 f"not match the weight {tuple(w.shape)} at sc_bits="
                 f"{cfg.sc_bits}: pack the parameters again")
-        out = sc_linear(x.reshape(-1, x.shape[-1]), packed)
+        x2 = x.reshape(-1, x.shape[-1])
+        tuned = impl == "pallas_tuned" or (impl == "auto" and x2.is_cuda)
+        out = sc_linear(x2, packed,
+                        config=get_or_tune(x2, packed) if tuned else None)
         return out.reshape(*x.shape[:-1], packed.shape[1])
     return sc_dense(x, w, cfg.sc_bits, cfg.sc_impl)

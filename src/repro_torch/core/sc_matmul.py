@@ -20,8 +20,11 @@ Implementations, all count-identical:
   Pallas.
 * ``"pallas"``/``"pallas_tuned"`` — :func:`repro_torch.kernels.ops.sc_matmul`,
   which launches the hand-written CUDA kernel for tensors on the card and
-  takes the kernel's plain version for tensors on the CPU. The names are
-  kept so a config means the same thing in both packages.
+  takes the kernel's plain version for tensors on the CPU: ``"pallas"`` at
+  ``kernels.sc_matmul.plan``'s launch plan, ``"pallas_tuned"`` at the
+  autotuner's for the shape (``kernels/autotune.py``; on the CPU it still
+  keys and times the plain version). The names are kept so a config means
+  the same thing in both packages.
 """
 from __future__ import annotations
 
@@ -165,21 +168,25 @@ def sc_matmul(a: torch.Tensor, b: torch.Tensor, *, bits: int = 8,
               impl: str = "mxu_split", row_quant: bool = False) -> torch.Tensor:
     """Dispatching entry point. ``a: (M, K)``, ``b: (K, N)`` float32.
 
-    ``"auto"`` resolves to the kernel path on the card and to
-    ``"mxu_split"`` on the CPU (the JAX package's off-TPU choice);
-    ``"pallas"``/``"pallas_tuned"`` take the kernel path on any device (its
-    wrapper runs the plain version only for CPU tensors); ``"ref"`` and
+    ``"auto"`` resolves through ``autotune.choose_impl``: the kernel at its
+    tuned plan (``"pallas_tuned"``) on the card, ``"mxu_split"`` on the CPU
+    (the JAX package's off-TPU choice); ``"pallas"``/``"pallas_tuned"``
+    take the kernel path on any device (its wrapper runs the plain version
+    only for CPU tensors) at the default or the tuned plan; ``"ref"`` and
     ``"mxu_split"`` are always the plain formulations. All are
     count-identical.
     """
     impl = resolve_impl(impl)
     if impl == "auto":
-        impl = "pallas" if a.is_cuda else "mxu_split"
+        from repro_torch.kernels.autotune import choose_impl
+        impl = choose_impl(a.shape[0], a.shape[1], b.shape[1], bits=bits,
+                           device=a.device)
     if impl in ("ref", "reference"):
         return sc_matmul_reference(a, b, bits=bits, row_quant=row_quant)
     if impl == "mxu_split":
         return sc_matmul_mxu_split(a, b, bits=bits, row_quant=row_quant)
     if impl in ("pallas", "pallas_tuned"):
         from repro_torch.kernels.ops import sc_matmul as kernel_sc_matmul
-        return kernel_sc_matmul(a, b, bits=bits, row_quant=row_quant)
+        return kernel_sc_matmul(a, b, bits=bits, row_quant=row_quant,
+                                tune=impl == "pallas_tuned")
     raise ValueError(f"unknown impl {impl!r}")

@@ -25,7 +25,7 @@ from pathlib import Path
 from repro_torch.errors import KernelLaunchError
 
 __all__ = ["SOURCES", "build", "load", "check", "library_path", "ptxas_log",
-           "build_root"]
+           "build_root", "source_hash"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: Every kernel source of the port, by library name.
@@ -57,12 +57,19 @@ def _nvcc() -> str:
         "and $PATH): the CUDA kernels are built from source at first use")
 
 
-def library_path(name: str) -> Path:
+def source_hash(name: str) -> str:
+    """The kernel's version: a hash of its source, every shared header
+    and the flags, which names its library (and keys the autotuner's
+    entries for it)."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return build_root() / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return build_root() / f"lib{name}-{source_hash(name)}.so"
 
 
 def ptxas_log(name: str) -> str:

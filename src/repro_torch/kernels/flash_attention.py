@@ -156,7 +156,8 @@ def m_tile_count(sq: int, q_offset: int | torch.Tensor = 0) -> int:
 
 def plan(b: int, h: int, kv: int, sq: int, d: int, group: int,
          q_offset: int | torch.Tensor = 0, sc_bits: int | None = None, *,
-         esz: int = 2, sms: int | None = None) -> Plan:
+         esz: int = 2, sms: int | None = None, heads: int | None = None,
+         m_tiles: int | None = None) -> Plan:
     """The launch for ``B`` batch rows of ``H`` query heads over ``KV`` KV
     heads, ``Sq`` rows at ``q_offset``, head dim ``d``, elements of
     ``esz`` bytes. A tensor ``q_offset`` (read on the card) plans for
@@ -167,27 +168,30 @@ def plan(b: int, h: int, kv: int, sq: int, d: int, group: int,
     the group's counts and :data:`SC_ITEMS` outputs a thread — fewer when
     the grid would hold fewer blocks than the card's ``sms`` (a 16-row
     chunk: one m-tile a KV head), trading repeated K/V quantization for
-    blocks that run in parallel. No result depends on the plan."""
+    blocks that run in parallel. ``heads`` and ``m_tiles``, where given (a
+    tuned ``autotune.FlashConfig``), replace those choices. No result
+    depends on the plan."""
     g = h // kv
     tiles = m_tile_count(sq, q_offset)
     if sc_bits is not None:
-        path, threads, m_tiles = "sc", SC_THREADS, 1
-        row_sets = SC_THREADS // -(-d // 4)
-        heads = max([n for n in range(1, g + 1)
-                     if smem_bytes("sc", n, 1, d, group, esz) <= SMEM_MAX
-                     and BLOCK_Q * n <= SC_ITEMS * row_sets] or [1])
-        while sms and heads > 1 and \
-                b * tiles * kv * -(-g // heads) < sms:
-            heads -= 1
+        path, threads, hb, mt = "sc", SC_THREADS, heads, m_tiles or 1
+        if hb is None:
+            row_sets = SC_THREADS // -(-d // 4)
+            hb = max([n for n in range(1, g + 1)
+                      if smem_bytes("sc", n, 1, d, group, esz) <= SMEM_MAX
+                      and BLOCK_Q * n <= SC_ITEMS * row_sets] or [1])
+            while sms and hb > 1 and b * tiles * kv * -(-g // hb) < sms:
+                hb -= 1
     elif esz == 2:
-        path, heads = "mma", min(g, MMA_MAX_WARPS)
-        m_tiles = max(1, min(-(-4 // heads), tiles))
-        threads = 32 * heads * m_tiles
+        path, hb = "mma", heads or min(g, MMA_MAX_WARPS)
+        mt = m_tiles or max(1, min(-(-4 // hb), tiles))
+        threads = 32 * hb * mt
     else:
-        path, heads, m_tiles, threads = "f32", min(g, 4), 1, THREADS
-    grid = (-(-tiles // m_tiles), kv * -(-g // heads), b)
-    return Plan(path, heads, m_tiles, threads, grid,
-                smem_bytes(path, heads, m_tiles, d, group, esz))
+        path, hb, mt, threads = "f32", heads or min(g, 4), m_tiles or 1, \
+            THREADS
+    grid = (-(-tiles // mt), kv * -(-g // hb), b)
+    return Plan(path, hb, mt, threads, grid,
+                smem_bytes(path, hb, mt, d, group, esz))
 
 
 _PTR, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -274,11 +278,13 @@ def _check_offset(q_offset, q: torch.Tensor) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int | torch.Tensor = 0,
-                    group: int = 64,
-                    sc_bits: int | None = None) -> torch.Tensor:
+                    group: int = 64, sc_bits: int | None = None,
+                    config=None) -> torch.Tensor:
     """Fused flash forward: the CUDA kernel for tensors on the card, the
     plain version for tensors on the CPU. ``q_offset`` is an int, or a
-    one-element int32 tensor on the query's device (read by the kernel)."""
+    one-element int32 tensor on the query's device (read by the kernel).
+    ``config`` (a tuned ``autotune.FlashConfig``) sets the heads and
+    m-tiles a block; the bits do not depend on it."""
     check_sc_bits(sc_bits)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ConfigError(f"flash kernel layout: q (B, H, Sq, D), k/v "
@@ -313,8 +319,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.numel() == 0 or skv == 0:
         return out.zero_()
     esz = q.element_size()
-    p = plan(b, h, kv, sq, d, group, q_offset, sc_bits, esz=esz,
-             sms=_sm_count(q.device))
+    if config is None:
+        p = plan(b, h, kv, sq, d, group, q_offset, sc_bits, esz=esz,
+                 sms=_sm_count(q.device))
+    else:
+        p = plan(b, h, kv, sq, d, group, q_offset, sc_bits, esz=esz,
+                 heads=config.heads, m_tiles=config.m_tiles)
+        if not (config.is_valid() and config.fits(p.path, d, group, esz)):
+            raise ConfigError(f"flash plan {config} is not one the kernel "
+                              f"takes on its {p.path} path at D={d}, "
+                              f"group={group}")
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     # 16-byte copies: every row and base address 16-byte aligned
     vec = int(d * esz % 16 == 0

@@ -17,7 +17,9 @@ operators around it. It has two entries:
 Each takes its plain PyTorch version (:func:`sc_linear_torch`,
 :func:`sc_matmul_counts_signed_torch`) for tensors on the CPU and launches
 the kernel for tensors on the card — never on a failure. :func:`plan` picks
-the kernel's row tile and K split from the shape; the source note says why.
+the kernel's row tile and K split from the shape (the source note says
+why); a tuned plan (``autotune.KernelConfig``) replaces it where the caller
+passes one.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ __all__ = ["sc_matmul_counts", "sc_matmul_counts_torch",
            "sc_matmul_counts_signed", "sc_matmul_counts_signed_torch",
            "pack_signed", "plane_dtype", "check_exact", "PackedWeight",
            "pack_weight", "sc_linear", "sc_linear_torch", "plan",
-           "scratch_scope"]
+           "row_tile", "scratch_scope"]
 
 #: Largest |count| a float32 holds exactly.
 EXACT_LIMIT = 1 << 24
@@ -116,15 +118,21 @@ def pack_weight(w: torch.Tensor, bits: int) -> PackedWeight:
     return PackedWeight(plane.contiguous(), q.scale, bits, (k, n))
 
 
-def plan(m: int, n: int, k: int, sms: int) -> tuple[int, int, int]:
-    """``(mr, kc, splits)`` of a launch: rows a block (1, 2, 4, 8 or 16,
-    the smallest covering M up to 16), the K range a block (a multiple of
-    :data:`K_STAGE`, capped so its quantized rows fit shared memory), and
-    the number of K ranges, chosen so the grid gives ``BLOCKS_PER_SM``
-    blocks per SM where K allows."""
+def row_tile(m: int) -> int:
+    """Rows a block: the smallest of 1, 2, 4, 8 and 16 covering M up to
+    16."""
     mr = 1
     while mr < min(max(m, 1), 16):
         mr *= 2
+    return mr
+
+
+def plan(m: int, n: int, k: int, sms: int) -> tuple[int, int, int]:
+    """``(mr, kc, splits)`` of a launch: rows a block (:func:`row_tile`),
+    the K range a block (a multiple of :data:`K_STAGE`, capped so its
+    quantized rows fit shared memory), and the number of K ranges, chosen
+    so the grid gives ``BLOCKS_PER_SM`` blocks per SM where K allows."""
+    mr = row_tile(m)
     tiles = -(-n // TILE_N) * -(-max(m, 1) // mr)
     kc_max = max(K_STAGE, min(K_BLOCK_MAX,
                               A_SMEM_ENTRIES // mr // K_STAGE * K_STAGE))
@@ -195,15 +203,26 @@ def _kernel():
     return _FN
 
 
-def _launch(a, plane, w_scale, out, *, m, n, k, bits):
+def _launch(a, plane, w_scale, out, *, m, n, k, bits, config=None):
     """One launch of the kernel: ``a`` f32/bf16 (fused) or a signed plane
-    (counts), ``plane (K, ldb)``."""
+    (counts), ``plane (K, ldb)``; the plan is ``config``'s (a tuned
+    ``autotune.KernelConfig``) or :func:`plan`'s. A tuned row tile past
+    :func:`row_tile` of the call's rows (a skinny key's winner, swept at
+    its bucket's M, serving fewer rows) is cut to it: the same grid and K
+    split, no masked rows."""
     dev = a.device
-    sms = _SMS.get(dev.index)
-    if sms is None:
-        sms = _SMS[dev.index] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    mr, kc, splits = plan(m, n, k, sms)
+    if config is None:
+        sms = _SMS.get(dev.index)
+        if sms is None:
+            sms = _SMS[dev.index] = torch.cuda.get_device_properties(
+                dev).multi_processor_count
+        mr, kc, splits = plan(m, n, k, sms)
+    else:
+        if not (config.is_valid() and config.fits()):
+            raise ConfigError(f"SC-GEMM plan {config} is not one the kernel "
+                              f"takes")
+        mr, kc, splits = (min(config.mr, row_tile(m)), config.kc,
+                          config.splits(k))
     stream = torch.cuda.current_stream(dev).cuda_stream
     ws = counters = 0
     if splits > 1:
@@ -242,10 +261,11 @@ def _check_cuda(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
 
 
 def sc_matmul_counts_signed(a: torch.Tensor, b: torch.Tensor, *,
-                            bits: int) -> torch.Tensor:
+                            bits: int, config=None) -> torch.Tensor:
     """Signed SC-GEMM counts of signed planes ``a (M, K)`` and ``b (K, N)``
-    as float32 ``(M, N)`` exact integers: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    as float32 ``(M, N)`` exact integers: the CUDA kernel for CUDA tensors
+    (at ``config``'s launch plan, an ``autotune.KernelConfig``, or
+    :func:`plan`'s), the plain version for CPU tensors."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ConfigError(f"SC-GEMM planes must be (M, K) x (K, N), got "
                           f"{tuple(a.shape)} x {tuple(b.shape)}")
@@ -264,7 +284,8 @@ def sc_matmul_counts_signed(a: torch.Tensor, b: torch.Tensor, *,
     ldb = -(-n // 8) * 8
     b = F.pad(b, (0, ldb - n)) if ldb != n else b.contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    _launch(a.contiguous(), b, None, out, m=m, n=n, k=k, bits=bits)
+    _launch(a.contiguous(), b, None, out, m=m, n=n, k=k, bits=bits,
+            config=config)
     sc_matmul_counts_signed.launches += 1
     return out
 
@@ -294,10 +315,13 @@ def sc_linear_torch(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def sc_linear(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
+def sc_linear(x: torch.Tensor, pw: PackedWeight, *,
+              config=None) -> torch.Tensor:
     """SC-GEMM ``x @ w`` of float rows ``x (M, K)`` (f32 or bf16) and a
     packed weight, per-row activation scales, in ``x``'s dtype: one kernel
-    launch for CUDA tensors, the plain version for CPU tensors. A row
+    launch for CUDA tensors, at ``config``'s launch plan (a tuned
+    ``autotune.KernelConfig``) or :func:`plan`'s, whose bits are the same;
+    the plain version for CPU tensors. A row
     holding a NaN comes out NaN, and so does a row holding an Inf (on the
     CPU only at bits <= 15: there a NaN magnitude converts to int32's
     minimum, which an int16 plane truncates to 0)."""
@@ -316,7 +340,7 @@ def sc_linear(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
         raise ConfigError(f"SC-GEMM shape ({m}, {n}) exceeds the kernel grid")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     _launch(x.contiguous(), pw.plane, pw.scale, out, m=m, n=n, k=k,
-            bits=pw.bits)
+            bits=pw.bits, config=config)
     sc_linear.launches += 1
     return out
 

@@ -35,6 +35,8 @@ import weakref
 import torch
 
 from repro_torch.errors import ConfigError
+from repro_torch.kernels import autotune
+from repro_torch.kernels.ops import launch_counters
 from repro_torch.kernels.sc_matmul import (PackedWeight, pack_weight,
                                            scratch_scope)
 from repro_torch.models import bind, cache_ops, pack_sc_weights
@@ -43,7 +45,7 @@ __all__ = ["prompt_buckets", "bucket_for", "prefill_step", "decode_step",
            "chunked_prefill_step", "paged_decode_step", "DecodeStep",
            "PrefillStep", "cached_decode_step", "cached_chunked_prefill_step",
            "cached_prefill_step", "capture", "decode_steps",
-           "clear_decode_steps", "launch_counters", "draft_config",
+           "clear_decode_steps", "launch_counters", "draft_config", "tune",
            "draft_loop_step", "verify_window_step", "rollback_step",
            "DraftStep", "VerifyStep", "RollbackStep",
            "cached_draft_loop_step", "cached_verify_window_step",
@@ -53,6 +55,9 @@ __all__ = ["prompt_buckets", "bucket_for", "prefill_step", "decode_step",
 #: from the step's reset state: they allocate the step's SC-GEMM scratch
 #: and make the kernels' one-time attribute calls outside the capture.
 WARMUP_RUNS = 3
+#: Eager runs a capture makes in all: its tuning pass (:func:`tune`) and
+#: the warm-up; each launches the step's kernels.
+EAGER_RUNS = 1 + WARMUP_RUNS
 
 
 def prompt_buckets(max_seq: int, chunk: int) -> tuple[int, ...]:
@@ -172,26 +177,6 @@ def rollback_step(cache, tables: torch.Tensor, accept: torch.Tensor, *,
 # ------------------------------------------------------- graphed steps
 
 
-def launch_counters() -> dict:
-    """The launch counters of the kernel wrappers (``.launches``), by
-    name: a replayed graph launches their kernels without calling them,
-    so a step's ``replay`` adds what its capture recorded. The attention
-    wrappers count all their launches and, under ``*_sc``, their SC
-    path's alone."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.paged_attention import paged_attention
-    from repro_torch.kernels.sc_bitops import sc_stream_mul_cuda
-    from repro_torch.kernels.sc_matmul import (sc_linear,
-                                               sc_matmul_counts_signed)
-    return {"sc_linear": sc_linear,
-            "sc_matmul_counts": sc_matmul_counts_signed,
-            "paged_attention": paged_attention,
-            "paged_attention_sc": paged_attention.sc,
-            "flash_attention": flash_attention,
-            "flash_attention_sc": flash_attention.sc,
-            "sc_stream_mul": sc_stream_mul_cuda}
-
-
 def _tensors(tree):
     """The tensors of a parameter tree, in a fixed order."""
     if isinstance(tree, dict):
@@ -285,11 +270,15 @@ class _Step:
     kernel launches one captured step makes; each replay adds them to the
     wrappers' counters. ``scratch`` is the SC-GEMM scratch the graph was
     captured over (``kernels.sc_matmul.scratch_scope``), kept as long as
-    the step."""
+    the step. ``tuning_sweeps`` counts the autotuner's sweeps in the
+    step's tuning passes, ``capture_sweeps`` those in its last warm-up and
+    capture (lookup-only, so 0)."""
 
     def _init_replay(self) -> None:
         self.captures = 0
         self.replays = 0
+        self.tuning_sweeps = 0
+        self.capture_sweeps = 0
         self.launch_counts: dict[str, int] = {}
         self.scratch: dict = {}
         self._graph = None
@@ -596,18 +585,40 @@ class RollbackStep(_Step):
         self.accept.zero_()
 
 
+def tune(step: _Step) -> int:
+    """A capture's tuning pass: one eager ``step.run()`` on the caller's
+    stream from ``step.reset()``, with the autotuner's sweeps allowed, so
+    every kernel launch plan the step needs is in the cache before the
+    lookup-only warm-up and capture; then ``step.reset()`` again. It runs
+    outside the step's SC-GEMM scratch scope (a sweep's K splits grow the
+    shared scratch, never the step's) and outside sync debug mode (a sweep
+    synchronizes). Returns the sweeps it ran (``step.tuning_sweeps`` adds
+    them up)."""
+    before = autotune.sweeps
+    with torch.no_grad():
+        step.reset()
+        step.run()
+        step.reset()
+    swept = autotune.sweeps - before
+    step.tuning_sweeps += swept
+    return swept
+
+
 def capture(step: _Step) -> None:
     """Capture ``step.run`` (any of the steps above) into a CUDA graph and
-    make its replay the step's ``replay``, PyTorch's way:
-    :data:`WARMUP_RUNS` eager runs on a side stream, each from
-    ``step.reset()`` (with synchronizing calls made errors), then the
-    capture on that stream from the reset state under
-    ``torch.no_grad()``, into the memory pool every graph shares. The
-    warm-up and the capture take their SC-GEMM scratch from the step's
-    own table, which the step keeps. The launches the capture recorded
-    become ``step.launch_counts``; the counters are put back, since a
-    capture launches nothing. Python's cyclic collector runs just before
-    the capture and not during it. Raises, never falls back."""
+    make its replay the step's ``replay``, PyTorch's way: first the tuning
+    pass (:func:`tune`), then :data:`WARMUP_RUNS` eager runs on a side
+    stream, each from ``step.reset()`` (with synchronizing calls made
+    errors), then the capture on that stream from the reset state under
+    ``torch.no_grad()``, into the memory pool every graph shares. From
+    the warm-up on the autotuner is lookup-only (a miss raises), and
+    ``step.capture_sweeps`` records the sweeps there: 0. The warm-up and
+    the capture take their SC-GEMM scratch from the step's own table,
+    which the step keeps, sized for the tuned plans. The launches the
+    capture recorded become ``step.launch_counts``; the counters are put
+    back, since a capture launches nothing. Python's cyclic collector runs
+    just before the capture and not during it. Raises, never falls
+    back."""
     dev = step.cache.pos.device
     if dev.type != "cuda":
         raise ConfigError(f"CUDA graphs need the card, not {dev}; on the "
@@ -616,11 +627,13 @@ def capture(step: _Step) -> None:
     global _POOL
     if _POOL is None:
         _POOL = torch.cuda.graph_pool_handle()
+    tune(step)
     stream = torch.cuda.Stream(dev)
     stream.wait_stream(torch.cuda.current_stream(dev))
     mode = torch.cuda.get_sync_debug_mode()
     counters = launch_counters()
-    with scratch_scope(step.scratch):
+    swept = autotune.sweeps
+    with autotune.lookup_only(), scratch_scope(step.scratch):
         with warnings.catch_warnings():
             warnings.filterwarnings("ignore", "Synchronization debug mode")
             torch.cuda.set_sync_debug_mode("error")
@@ -653,6 +666,7 @@ def capture(step: _Step) -> None:
                           if fn.launches != before[name]}
     for name, fn in counters.items():
         fn.launches = before[name]
+    step.capture_sweeps = autotune.sweeps - swept
     step._graph = graph
     step.captures += 1
 

@@ -204,8 +204,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     docstring):
     ``kernel_impl="auto"`` runs it for tensors on the card, "pallas_tuned"
     goes through its wrapper on every eligible call (the plain version on
-    the CPU), "jnp" forces the plain formulation. The kernel quantizes SC
-    probabilities over the same ``kv_block`` groups of keys.
+    the CPU), "jnp" forces the plain formulation; both kernel routes take
+    the autotuner's heads and m-tiles a block (``ops.flash_attention_tuned``).
+    The kernel quantizes SC probabilities over the same ``kv_block`` groups
+    of keys.
     """
     if kernel_impl not in ("auto", "jnp", "pallas_tuned"):
         raise ValueError(f"unknown attention kernel_impl {kernel_impl!r}")
@@ -357,10 +359,13 @@ def _paged_kernel_eligible(g: int, kv: int, logit_softcap: float | None,
     stay on the gathered path, as in the JAX package's dispatch, and so
     does float single-KV-head full-MHA (``KV == 1``, ``G == 1``). The SC
     path widens the envelope to every head layout, as the reference's
-    does: its contraction is an integer popcount sum."""
+    does: its contraction is an integer popcount sum. The layout gate is
+    the autotuner's grid (``autotune.candidate_paged_configs``), empty for
+    what the kernel does not serve, as in the JAX package."""
+    from repro_torch.kernels.autotune import candidate_paged_configs
     if logit_softcap is not None or not sc_attention_bits_ok(sc_bits):
         return False
-    return sc_bits is not None or not (g == 1 and kv == 1)
+    return bool(candidate_paged_configs(kv, g, sc=sc_bits is not None))
 
 
 def paged_decode_attention(q: torch.Tensor, paged: PagedKV, *,
@@ -374,9 +379,11 @@ def paged_decode_attention(q: torch.Tensor, paged: PagedKV, *,
     ``q: (C, 1, H, D)``; ``paged`` holds this site's pools and block table;
     ``q_position: (C,)``. ``"auto"`` and ``"pallas_tuned"`` go through the
     paged kernel's wrapper on every eligible layout (the CUDA kernel on the
-    card, its plain version on the CPU); ``"jnp"`` and ineligible layouts
-    gather the pages and run :func:`decode_attention`'s plain formulation.
-    ``sc_bits`` selects the SC score and PV path.
+    card, its plain version on the CPU), looked up through the autotuner
+    under ``"pallas_tuned"`` and, on the card, ``"auto"``
+    (``ops.paged_decode_attention_tuned``); ``"jnp"`` and ineligible
+    layouts gather the pages and run :func:`decode_attention`'s plain
+    formulation. ``sc_bits`` selects the SC score and PV path.
     """
     if kernel_impl not in ("auto", "jnp", "pallas_tuned"):
         raise ValueError(f"unknown paged attention kernel_impl "
@@ -386,10 +393,15 @@ def paged_decode_attention(q: torch.Tensor, paged: PagedKV, *,
     g = h // kv
     if kernel_impl != "jnp" and _paged_kernel_eligible(g, kv, logit_softcap,
                                                        sc_bits):
-        from repro_torch.kernels.paged_attention import paged_attention
-        out = paged_attention(q[:, 0].reshape(c, kv, g, d), paged.k, paged.v,
-                              paged.tables, q_position, window=window,
-                              sc_bits=sc_bits)
+        if kernel_impl == "pallas_tuned" or q.is_cuda:
+            from repro_torch.kernels.ops import (
+                paged_decode_attention_tuned as kernel)
+        else:
+            from repro_torch.kernels.paged_attention import (
+                paged_attention as kernel)
+        out = kernel(q[:, 0].reshape(c, kv, g, d), paged.k, paged.v,
+                     paged.tables, q_position, window=window,
+                     sc_bits=sc_bits)
         return out.reshape(c, 1, h, d)
     return _decode_attention_plain(q, _gather_pages(paged.k, paged.tables),
                                    _gather_pages(paged.v, paged.tables),
@@ -459,6 +471,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     position. It is the same kernel, and so the same order of summation,
     as the engine's paged decode: the sequential baseline, the engine and
     a speculative verify window stay token-identical, float and SC alike.
+    Its plan is looked up through the autotuner, as the paged decode's.
     Everything else (the CPU, softcap layers) is the plain formulation,
     whose rows are W-invariant too.
     """
@@ -467,7 +480,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     g = h // kv
     if (q.is_cuda and k_cache.is_contiguous() and v_cache.is_contiguous()
             and _paged_kernel_eligible(g, kv, logit_softcap, sc_bits)):
-        from repro_torch.kernels.paged_attention import paged_attention
+        from repro_torch.kernels.ops import paged_decode_attention_tuned
         tables = torch.arange(b, dtype=torch.int32, device=q.device)[:, None]
         rows = q_position
         if w > 1:
@@ -475,8 +488,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             rows = (q_position.to(torch.int32)[:, None]
                     + torch.arange(w, dtype=torch.int32,
                                    device=q.device)[None, :]).reshape(b * w)
-        out = paged_attention(q.reshape(b * w, kv, g, d), k_cache, v_cache,
-                              tables, rows, window=window, sc_bits=sc_bits)
+        out = paged_decode_attention_tuned(
+            q.reshape(b * w, kv, g, d), k_cache, v_cache, tables, rows,
+            window=window, sc_bits=sc_bits)
         return out.reshape(b, w, h, d)
     return _decode_attention_plain(q, k_cache, v_cache, q_position=q_position,
                                    window=window, logit_softcap=logit_softcap,

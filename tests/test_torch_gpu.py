@@ -46,6 +46,14 @@ pytestmark = pytest.mark.gpu
 torch.set_num_threads(2)
 
 
+@pytest.fixture(autouse=True)
+def _tuner_cache(tmp_path, monkeypatch):
+    """The autotuner's cache ("auto" on the card sweeps and writes it) in
+    the test's own directory: every test sweeps afresh."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -241,11 +249,11 @@ def test_engine_streams_equal_sequential_baseline_on_the_card(cuda, block):
     st = engine.stats
     # one fused launch a projection; no weight quantized per call. A
     # prefill shape's capture (at its first use in the run) launches too,
-    # in its warm-up runs
-    from repro_torch.launch.steps import WARMUP_RUNS
+    # in its tuning pass and warm-up runs
+    from repro_torch.launch.steps import EAGER_RUNS
     assert sc_linear.launches - fused0 == (7 * cfg.n_layers + 1) * (
         st["decode_steps"] + st["prefill_chunks"]
-        + WARMUP_RUNS * st["prefill_captures"])
+        + EAGER_RUNS * st["prefill_captures"])
     assert sc_matmul_counts_signed.launches == counts0
     for r, p, g in zip(res, prompts, gens):
         ref = generate(cfg, params, p[None], gen_tokens=g, device=cuda)
@@ -1608,3 +1616,131 @@ def test_family_graph_replays_equal_the_eager_steps(cuda, arch, mode):
     for prompt, (eager, graphed) in zip(prompts, pairs):
         for a, b in zip(run(eager, prompt), run(graphed, prompt)):
             assert torch.equal(a, b)
+
+
+# ----------------------------------------------------- tuned launch plans
+
+
+def _smollm_problems(rows: int, kind: str):
+    from repro_torch.configs.shapes import Shape, sc_gemm_problems
+    shape = Shape("probe", rows, 4, "decode") if kind == "decode" else \
+        Shape("probe", rows, 1, "prefill")
+    return sc_gemm_problems(ARCHS["smollm-360m"], shape)
+
+
+@pytest.mark.parametrize("m,k,n", [
+    *_smollm_problems(1, "decode"), *_smollm_problems(16, "prefill"),
+    (128, 14336, 3584), (128, 3584, 14576), (4, 14336, 3584)])
+def test_every_sc_gemm_candidate_equals_the_default_plan(cuda, m, k, n):
+    """smollm-360m's decode (M = 4) and 16-row chunk problems, zamba2-7b's
+    widest K at a 128-row chunk and a decode step: every candidate of the
+    key's grid (at ``bucket_m(M)``), launched at M rows, gives the default
+    plan's bits, bf16 and f32 rows."""
+    from repro_torch.kernels import autotune
+    rng = np.random.default_rng(m + k + n)
+    pw = pack_weight(torch.as_tensor(rng.standard_normal((k, n)),
+                                     dtype=torch.float32).to(cuda), 8)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    cands = autotune.candidate_configs(autotune.bucket_m(m), k, n, sms=sms)
+    assert len(cands) >= 3
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.as_tensor(rng.standard_normal((m, k)),
+                            dtype=torch.float32).to(cuda, dtype)
+        want = sc_linear(x, pw)
+        for cfg in cands:
+            assert torch.equal(sc_linear(x, pw, config=cfg), want), cfg
+    a, b = _planes(m, min(k, 960), n, 8, seed=k)
+    a, b = a.to(cuda), b.to(cuda)
+    want = sc_matmul_counts_signed(a, b, bits=8)
+    for cfg in autotune.candidate_configs(autotune.bucket_m(m), min(k, 960),
+                                          n, sms=sms):
+        assert torch.equal(sc_matmul_counts_signed(a, b, bits=8,
+                                                   config=cfg), want), cfg
+
+
+@pytest.mark.parametrize("bits", [None, 8], ids=["float", "sc8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("geom", [
+    (15, 5, 64, 16, 64, 48), (15, 5, 64, 64, 64, 0),
+    (32, 32, 112, 128, 384, 256), (28, 4, 128, 96, 256, 100)],
+    ids=["smollm-chunk", "smollm-oneshot", "zamba2-chunk", "qwen2-7b"])
+def test_every_flash_candidate_equals_the_default_plan(cuda, geom, dtype,
+                                                       bits):
+    """The serve chunk (offset on the card), a one-shot prefill, zamba2-7b's
+    128-row chunk over its 384-key bucket and a G = 7 layout: every
+    (heads, m-tiles) of the grid gives the default plan's bits."""
+    from repro_torch.kernels import autotune
+    h, kv, d, sq, skv, off = geom
+    rng = np.random.default_rng(h * sq + d)
+
+    def t(shape):
+        return torch.as_tensor(rng.standard_normal(shape),
+                               dtype=torch.float32).to(cuda, dtype)
+
+    q, k, v = t((1, h, sq, d)), t((1, kv, max(skv, sq), d)), \
+        t((1, kv, max(skv, sq), d))
+    q_offset = torch.tensor(off, dtype=torch.int32, device=cuda) \
+        if geom[3] in (16, 128) else off
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    cands = autotune.candidate_flash_configs(
+        1, h, kv, sq, d, group=64, q_offset=q_offset, sc_bits=bits,
+        esz=q.element_size(), sms=sms)
+    want = flash_attention(q, k, v, q_offset=q_offset, group=64,
+                           sc_bits=bits)
+    for cfg in cands:
+        got = flash_attention(q, k, v, q_offset=q_offset, group=64,
+                              sc_bits=bits, config=cfg)
+        assert torch.equal(got, want), cfg
+
+
+def test_every_stream_candidate_equals_the_default_plan(cuda):
+    from repro_torch.kernels import autotune
+    rng = np.random.default_rng(12)
+    n = 1 << 20
+    x = torch.as_tensor(rng.integers(0, 4096, n), dtype=torch.int32).to(cuda)
+    y = torch.as_tensor(rng.integers(0, 4096, n), dtype=torch.int32).to(cuda)
+    want = sc_stream_mul_cuda(x, y, bits=12)
+    cands = autotune.candidate_stream_configs(n)
+    assert [c.block_rows for c in cands] == [8, 1, 2, 4]
+    for cfg in cands:
+        assert torch.equal(sc_stream_mul_cuda(x, y, bits=12,
+                                              block_rows=cfg.block_rows),
+                           want)
+    got = ops.sc_stream_mul(x, y, bits=12, tune=True)
+    assert torch.equal(got, want)
+
+
+def test_a_tuned_capture_sweeps_only_in_its_tuning_pass(cuda):
+    """On a fresh cache: every graphed step's sweeps happen in its tuning
+    pass, none in its warm-up or capture; the replayed decode steps'
+    logit rows equal the eager engine's (the same tuned plans) bit for
+    bit; a second graphed engine of the shape sweeps nothing."""
+    from repro_torch.kernels import autotune
+    from repro_torch.launch import steps
+    steps.clear_decode_steps()
+    cfg = _graph_cfg(False)
+    params = bind(cfg, cuda).init_params(0)
+    sweeps0 = autotune.sweeps
+    graphed = _Recording(cfg, params, device=cuda, graphs=True,
+                         **GRAPH_ENGINE)
+    res = graphed.run(_graph_requests(cfg))
+    entries = [graphed._decode, *graphed.prefill_steps().values()]
+    assert all(s.captures == 1 and s.capture_sweeps == 0 for s in entries)
+    assert graphed._decode.tuning_sweeps > 0
+    assert sum(s.tuning_sweeps for s in entries) == autotune.sweeps - sweeps0
+    swept = autotune.sweeps
+    eager = _Recording(cfg, params, device=cuda, graphs=False,
+                       **GRAPH_ENGINE)
+    eager_res = eager.run(_graph_requests(cfg))
+    assert autotune.sweeps == swept
+    assert len(graphed.rows) == len(eager.rows) >= 12
+    for i, (g, e) in enumerate(zip(graphed.rows, eager.rows)):
+        np.testing.assert_array_equal(g, e, err_msg=f"decode step {i}")
+    for r, e in zip(res, eager_res):
+        np.testing.assert_array_equal(r.tokens, e.tokens)
+    steps.clear_decode_steps()
+    again = Engine(cfg, params, device=cuda, graphs=True, **GRAPH_ENGINE)
+    again.run(_graph_requests(cfg))
+    assert autotune.sweeps == swept and again._decode.tuning_sweeps == 0
+    steps.clear_decode_steps()

@@ -23,11 +23,13 @@ PORT_MODULES = [
     "repro_torch", "repro_torch.errors", "repro_torch.device",
     "repro_torch.convert",
     "repro_torch.configs.base", "repro_torch.configs.registry",
+    "repro_torch.configs.shapes",
     "repro_torch.core.tcu", "repro_torch.core.sc_numerics",
     "repro_torch.core.sc_matmul", "repro_torch.core.sc_layers",
     "repro_torch.core.multipliers", "repro_torch.core.error_analysis",
     "repro_torch.core.hardware_model",
     "repro_torch.kernels.build", "repro_torch.kernels.sc_matmul",
+    "repro_torch.kernels.autotune",
     "repro_torch.kernels.sc_bitops",
     "repro_torch.kernels.ops", "repro_torch.kernels.ref",
     "repro_torch.kernels.paged_attention", "repro_torch.kernels.sc_attention",

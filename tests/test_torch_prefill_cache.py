@@ -43,6 +43,16 @@ from repro_torch.serving import Engine, Request
 # several pytest workers share the machine: a few threads each
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _tuner_cache(tmp_path, monkeypatch):
+    """Both packages' autotuner caches in the test's own directory
+    (``pallas_tuned`` and ``tune=True`` sweep and write them), never the
+    default paths."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "jax.json"))
+
 EXACT = dict(rtol=1e-5, atol=1e-5)
 #: the tight-budget workload of tests/test_torch_step_cache.py: 8 pages of 2
 #: tokens for 2 slots, so a slot (or the staging prefill) is preempted

@@ -35,6 +35,16 @@ from repro_torch.models import layers as tl
 # several pytest workers share the machine: a few threads each
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _tuner_cache(tmp_path, monkeypatch):
+    """Both packages' autotuner caches in the test's own directory
+    (``pallas_tuned`` and ``tune=True`` sweep and write them), never the
+    default paths."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "jax.json"))
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 ALL_BITS = range(2, 9)
 

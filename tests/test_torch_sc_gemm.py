@@ -29,6 +29,16 @@ from repro_torch.kernels.sc_matmul import (pack_signed, sc_matmul_counts,
 # several pytest workers share the machine: a few threads each
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _tuner_cache(tmp_path, monkeypatch):
+    """Both packages' autotuner caches in the test's own directory
+    (``pallas_tuned`` and ``tune=True`` sweep and write them), never the
+    default paths."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "jax.json"))
+
 # (M, K, N): decode-shaped M=4, ragged extents, a K past one Pallas block
 SHAPES = [(4, 96, 40), (5, 33, 17), (16, 130, 72), (1, 64, 128),
           (9, 600, 20)]

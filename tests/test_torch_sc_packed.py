@@ -41,6 +41,16 @@ from repro_torch.serving import Engine, Request
 # several pytest workers share the machine: a few threads each
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _tuner_cache(tmp_path, monkeypatch):
+    """Both packages' autotuner caches in the test's own directory
+    (``pallas_tuned`` and ``tune=True`` sweep and write them), never the
+    default paths."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "jax.json"))
+
 # (M, K, N): M on both sides of the 16-row tile, ragged N and K
 SHAPES = [(1, 64, 40), (4, 96, 24), (16, 130, 72), (17, 33, 17),
           (64, 48, 9)]
@@ -186,7 +196,8 @@ def test_sc_proj_takes_the_packed_weight_only_for_the_kernel_path(
     xt, wt = torch.as_tensor(x), torch.as_tensor(w)
     calls = []
     monkeypatch.setattr(sc_layers, "sc_linear",
-                        lambda x, pw: calls.append(1) or sc_linear(x, pw))
+                        lambda x, pw, **kw: calls.append(1)
+                        or sc_linear(x, pw, **kw))
     got = sc_proj(xt, wt, cfg, pack_weight(wt, cfg.sc_bits))
     assert bool(calls) == packed_path
     assert torch.equal(got, sc_dense(xt, wt, 8, "mxu_split"))
