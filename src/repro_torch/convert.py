@@ -7,7 +7,9 @@ window/MoE group positions, each leaf shaped ``(ngroups, ...)``
 layer, so layer ``l`` is group ``l // group_size`` of position
 ``l % group_size``. Leaf shapes are otherwise unchanged: ``wq``/``wk``/``wv``
 stay ``(d, heads, hd)`` and are flattened to ``(d, heads·hd)`` at use, as
-the JAX model does.
+the JAX model does. The vlm and audio families are transformers: their
+qkv biases, and the audio family's ``(K, V, d)`` embed and ``(d, K·V)``
+head, come across as they are.
 
 The ssm and hybrid families stack their Mamba layers over ``n_layers``
 (``jax.vmap`` in ``ssm_lm.init_params`` / ``zamba2.init_params``): layer
@@ -49,7 +51,7 @@ def from_jax_params(tree: dict, cfg: ModelConfig, *,
     """The port's parameter dict from a JAX ``init_params`` pytree of numpy
     leaves, cast to the config's dtype on ``device`` (the Mamba float32
     leaves stay float32)."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "vlm", "audio", "ssm", "hybrid"):
         raise ConfigError(f"conversion of family {cfg.family!r} comes with "
                           f"its slice of the port")
     dev = resolve_device(device)
@@ -63,7 +65,7 @@ def from_jax_params(tree: dict, cfg: ModelConfig, *,
                        torch.float32 if name in F32_LEAVES else dtype, dev)
 
     out = {k: conv(v) for k, v in tree.items() if k != "layers"}
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm", "audio"):
         gsz = cfg.group_size
         out["layers"] = [conv(tree["layers"][l % gsz], l // gsz)
                          for l in range(cfg.n_layers)]

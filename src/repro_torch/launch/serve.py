@@ -11,11 +11,17 @@ and the sequential per-request :func:`generate` baseline (port of
         --sc-gemm [--prompt-len 128 --prefill-mode oneshot]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
         --sc-gemm --prompt-len 128 --gen 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-2b \\
+        --sc-gemm --prompt-len 64 [--speculate-k 1]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large \\
+        --sc-gemm --prompt-len 64
 
 Runs on the card unless ``--device cpu`` is given. The ssm and hybrid
 families (mamba2-130m, zamba2-7b) round ``--chunk`` up to a multiple of
 ``ssm_chunk``; their one-shot prefill takes prompts of a whole number of
-``ssm_chunk`` tokens, as the reference's does. The synthetic workload
+``ssm_chunk`` tokens, as the reference's does. qwen2-vl-2b serves text
+prompts (M-RoPE at the text positions); musicgen-large's prompts are
+``(S, 4)`` codebook frames and its streams ``(n, 4)``. The synthetic workload
 is the reference CLI's: every prompt opens with one shared preamble of
 ``prompt_len // 2`` tokens and then diverges, so the prefix cache (on by
 default) has something to share. ``generate`` is the sequential baseline
@@ -44,11 +50,13 @@ def generate(cfg, params, prompts, *, gen_tokens: int,
              device: str | torch.device | None = None) -> torch.Tensor:
     """``prompts: (B, S)`` int token ids → ``(B, gen_tokens)`` sampled
     continuations, every sequence decoding ``gen_tokens`` steps in
-    lockstep over a dense cache. With B=1 and greedy sampling this is the
-    reference stream the serving engine reproduces token for token. With
-    ``cfg.use_sc_gemm`` the weights are packed once, here, for the call.
-    An ssm or hybrid prompt is a whole number of ``cfg.ssm_chunk`` tokens
-    (:class:`ConfigError` otherwise, from the SSD scan)."""
+    lockstep over a dense cache; with codebooks ``(B, S, K)`` →
+    ``(B, gen_tokens, K)``, a token per codebook a step. With B=1 and
+    greedy sampling this is the reference stream the serving engine
+    reproduces token for token. With ``cfg.use_sc_gemm`` the weights are
+    packed once, here, for the call. An ssm or hybrid prompt is a whole
+    number of ``cfg.ssm_chunk`` tokens (:class:`ConfigError` otherwise,
+    from the SSD scan)."""
     m = bind(cfg, device)
     params = pack_sc_weights(params, cfg)
     prompts = torch.as_tensor(np.asarray(prompts), device=m.device)
@@ -60,17 +68,24 @@ def generate(cfg, params, prompts, *, gen_tokens: int,
     gen = torch.Generator().manual_seed(seed)
     out = []
     for _ in range(gen_tokens):
+        # (B, V), or (B, K, V) with codebooks
         step_logits = logits[:, -1].to(torch.float32)
         if temperature > 0:
             probs = torch.softmax(step_logits.cpu().double() / temperature,
                                   dim=-1)
-            tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
+            if cfg.n_codebooks:
+                # a sequence's K draws in codebook order, as the engine's
+                tok = torch.stack([torch.multinomial(p, 1, generator=gen)[:, 0]
+                                   for p in probs])
+            else:
+                tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
         else:
             tok = torch.argmax(step_logits, dim=-1)
         tok = tok.to(device=m.device, dtype=torch.int32)
         out.append(tok)
         logits, cache = decode_step(m, params, cache,
-                                    {"tokens": tok.reshape(b, 1)})
+                                    {"tokens": tok.reshape(b, 1,
+                                                           *tok.shape[1:])})
     return torch.stack(out, dim=1)
 
 
@@ -174,7 +189,8 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(1)
 
     def tokens(n):
-        return rng.integers(0, cfg.vocab_size, size=(n,), dtype=np.int32)
+        shape = (n, cfg.n_codebooks) if cfg.n_codebooks else (n,)
+        return rng.integers(0, cfg.vocab_size, size=shape, dtype=np.int32)
 
     # real traffic shares long system or tool preambles: every prompt opens
     # with the same first half, then diverges (the reference CLI's draws)

@@ -246,6 +246,12 @@ def _unchanged(fingerprint: list | None, params) -> bool:
         for (ref, version), t in zip(fingerprint, ts))
 
 
+def _codebooks(cfg) -> tuple[int, ...]:
+    """The trailing codebook axis of a step's token and logits buffers:
+    ``(K,)`` with ``cfg.n_codebooks``, else none."""
+    return (cfg.n_codebooks,) if cfg.n_codebooks else ()
+
+
 def _empty_like(tree):
     """A parameter tree of the same structure with new, uninitialised
     tensors."""
@@ -300,7 +306,9 @@ class DecodeStep(_Step):
 
     The caller writes ``tokens (capacity, 1)`` and, paged, ``tables
     (capacity, max_blocks)`` (int32) in place, calls :meth:`replay`, and
-    reads ``logits (capacity, 1, vocab)`` (float32). The step advances
+    reads ``logits (capacity, 1, vocab)`` (float32); with codebooks
+    ``tokens (capacity, 1, K)`` and ``logits (capacity, 1, K, vocab)``.
+    The step advances
     ``cache.pos`` in place, so the pool's positions tensor is the same
     one for the step's whole life; admission and eviction write it in
     place too. ``fused=False`` runs the gather → dense decode → commit
@@ -322,11 +330,12 @@ class DecodeStep(_Step):
         self.model, self.params, self.cache = model, params, cache
         self.paged = max_blocks is not None
         self.block, self.fused = block, fused
-        self.tokens = torch.zeros((capacity, 1), dtype=torch.int32,
+        kb = _codebooks(model.cfg)
+        self.tokens = torch.zeros((capacity, 1, *kb), dtype=torch.int32,
                                   device=dev)
         self.tables = None if not self.paged else torch.full(
             (capacity, max_blocks), -1, dtype=torch.int32, device=dev)
-        self.logits = torch.zeros((capacity, 1, model.cfg.vocab_size),
+        self.logits = torch.zeros((capacity, 1, *kb, model.cfg.vocab_size),
                                   dtype=torch.float32, device=dev)
         self.prefills: dict[tuple, PrefillStep] = {}
         self.specs: dict[tuple, _Step] = {}
@@ -405,7 +414,8 @@ class PrefillStep(_Step):
     Chunked (``chunk`` tokens): the caller writes ``tokens (1, chunk)``
     (zero-padded past the valid ones) and ``n_valid (1,)`` (int32) in
     place, calls :meth:`replay`, and reads ``logits (1, 1, vocab)``
-    (float32, the last valid row). The chunk lands in the B=1 staging
+    (float32, the last valid row); with codebooks ``tokens (1, chunk,
+    K)`` and ``logits (1, 1, K, vocab)``. The chunk lands in the B=1 staging
     ``cache`` of ``extent`` positions (a prompt bucket) at ``cache.pos``,
     which the step advances in place; a new prompt starts with
     :meth:`start`. The caller keeps ``cache.pos + chunk <= extent``.
@@ -422,12 +432,13 @@ class PrefillStep(_Step):
         dev = model.device
         self.model, self.params = model, params
         self.extent, self.chunk = extent, chunk
-        self.tokens = torch.zeros((1, extent if chunk is None else chunk),
-                                  dtype=torch.int32, device=dev)
+        kb = _codebooks(model.cfg)
+        self.tokens = torch.zeros((1, extent if chunk is None else chunk,
+                                   *kb), dtype=torch.int32, device=dev)
         self.n_valid = None if chunk is None else torch.zeros(
             (1,), dtype=torch.int32, device=dev)
         self.cache = model.init_cache(1, extent)
-        self.logits = torch.zeros((1, 1, model.cfg.vocab_size),
+        self.logits = torch.zeros((1, 1, *kb, model.cfg.vocab_size),
                                   dtype=torch.float32, device=dev)
         self._init_replay()
         self.reset()
@@ -769,6 +780,10 @@ def _spec_entry(decode: DecodeStep, key: tuple, make) -> _Step:
     if step is None:
         if not decode.paged:
             raise ConfigError("speculative steps run on the paged pool")
+        if decode.model.cfg.n_codebooks:
+            # as in the reference: a codebook head would need an
+            # acceptance per codebook
+            raise ConfigError("speculative steps take no codebook head")
         step = make()
         if decode.captures:
             # the capture runs from the entry's reset state: an empty pool

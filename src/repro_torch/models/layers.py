@@ -42,9 +42,9 @@ import torch
 from repro_torch.kernels.sc_attention import (sc_attention_bits_ok, sc_pv,
                                               sc_scores)
 
-__all__ = ["rms_norm", "rope", "apply_rope", "flash_attention",
-           "decode_attention", "paged_decode_attention", "PagedKV", "softcap",
-           "tree_sum"]
+__all__ = ["rms_norm", "rope", "apply_rope", "apply_mrope",
+           "flash_attention", "decode_attention", "paged_decode_attention",
+           "PagedKV", "softcap", "tree_sum"]
 
 NEG_INF = -1e30
 
@@ -107,6 +107,29 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     sin = sin[:, :, None, :]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: tuple[int, ...], theta: float) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl): ``positions (3, B, S)`` are (t, h, w)
+    ids. The rotary half-dim is split into ``sections`` (16/24/24 at
+    head_dim 128); each section rotates by its own position stream. The
+    angles are :func:`rope`'s, so positions equal in all three streams
+    give :func:`rope`'s tables bit for bit."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not split the "
+                         f"rotary half-dim {half}")
+    exps = torch.arange(0, half, dtype=torch.float32,
+                        device=positions.device) / half
+    freqs = 1.0 / (theta ** exps)
+    angles = positions[..., None].to(torch.float32) * freqs  # (3, B, S, h)
+    parts, start = [], 0
+    for axis, sec in enumerate(sections):
+        parts.append(angles[axis, :, :, start:start + sec])
+        start += sec
+    ang = torch.cat(parts, dim=-1)                           # (B, S, half)
+    return apply_rope(x, torch.cos(ang), torch.sin(ang))
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:

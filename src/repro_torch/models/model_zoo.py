@@ -1,7 +1,7 @@
 """Family dispatch (port of ``repro/models/model_zoo.py``): one bound
-interface over a config. The dense, ssm (Mamba-2) and hybrid (Zamba2)
-families are ported; the others raise :class:`ConfigError` naming the
-slice that brings them."""
+interface over a config. The dense, vlm and audio families (the
+transformer), ssm (Mamba-2) and hybrid (Zamba2) are ported; moe raises
+:class:`ConfigError` naming the slice that brings it."""
 from __future__ import annotations
 
 import torch
@@ -16,10 +16,10 @@ from . import ssm_lm, transformer, zamba2
 __all__ = ["bind", "BoundModel", "pack_sc_weights"]
 
 #: Families of the JAX package that later slices of the port bring.
-_LATER = {"moe": "the MoE slice", "vlm": "the VLM slice",
-          "audio": "the audio slice"}
+_LATER = {"moe": "the MoE slice"}
 
-_MODULES = {"dense": transformer, "ssm": ssm_lm, "hybrid": zamba2}
+_MODULES = {"dense": transformer, "vlm": transformer, "audio": transformer,
+            "ssm": ssm_lm, "hybrid": zamba2}
 
 
 def _module(cfg: ModelConfig):

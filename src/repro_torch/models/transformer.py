@@ -1,5 +1,5 @@
-"""Decoder-only transformer, dense family (port of the dense path of
-``repro/models/transformer.py``).
+"""Decoder-only transformer: the dense, vlm and audio families (port of
+``repro/models/transformer.py`` without its MoE layers).
 
 Parameters are a plain dict with the JAX package's leaf shapes — ``wq``
 ``(d, H, hd)``, ``wk``/``wv`` ``(d, KV, hd)``, ``wo`` ``(H, hd, d)`` — except
@@ -21,6 +21,15 @@ With ``cfg.attn_sc`` every attention site takes ``sc_bits = cfg.sc_bits``
 (:func:`_attn_sc_bits`): prefill through the flash kernel, decode through
 the paged kernel, both on their SC path.
 
+The vlm family (qwen2-vl) rotates Q and K by M-RoPE
+(``layers.apply_mrope``) at every attention site: ``batch
+["mrope_positions"] (3, B, S)`` where given, else the call's positions in
+all three streams, which gives plain RoPE's bits, so a text-only step
+needs no input beyond the tokens. ``batch["visual_embeds"] (B, P, d)``,
+the vision front end's stub, replaces the first ``P`` embedded rows. The
+audio family (musicgen) embeds ``(B, S, K)`` codebook tokens through ``K``
+tables summed, and its head gives ``(..., K, V)`` logits.
+
 The decode steps update the cache in place (the page pool and the slot
 cache are the largest tensors of a serving process) and return it.
 """
@@ -37,8 +46,9 @@ from repro_torch.core.sc_layers import sc_proj
 from repro_torch.device import resolve_device
 from repro_torch.kernels.sc_matmul import pack_weight
 
-from .layers import (PagedKV, apply_rope, decode_attention, flash_attention,
-                     paged_decode_attention, rms_norm, rope, softcap)
+from .layers import (PagedKV, apply_mrope, apply_rope, decode_attention,
+                     flash_attention, paged_decode_attention, rms_norm, rope,
+                     softcap)
 
 __all__ = ["init_params", "forward_hidden", "logits_from_hidden",
            "prefill_step", "prefill_chunk_step", "KVCache", "init_kv_cache",
@@ -74,21 +84,24 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device: str | torch.device | None = None) -> dict:
     """Random parameters from ``seed`` with the JAX package's shapes and
     scales (``transformer.py:93-123``): normal weights scaled by
-    ``fan_in ** -0.5``, unit norms. Drawn on ``device`` in float32 from a
-    ``torch.Generator`` there, then cast to the model dtype. The draws
-    differ from JAX's; tests carry JAX's parameters across with
-    ``repro_torch.convert`` instead."""
+    ``fan_in ** -0.5``, unit norms; with ``cfg.n_codebooks`` an embed of
+    ``(K, V, d)`` and a head of ``(d, K·V)``. Drawn on ``device`` in
+    float32 from a ``torch.Generator`` there, then cast to the model
+    dtype. The draws differ from JAX's; tests carry JAX's parameters
+    across with ``repro_torch.convert`` instead."""
     cfg.validate()
     dev = resolve_device(device)
     dtype = model_dtype(cfg)
     normal = normal_init(seed, dtype, dev)
-    d = cfg.d_model
+    d, kb = cfg.d_model, cfg.n_codebooks
     params: dict[str, Any] = {
-        "embed": normal((cfg.vocab_size, d), d ** -0.5),
+        "embed": normal((kb, cfg.vocab_size, d) if kb
+                        else (cfg.vocab_size, d), d ** -0.5),
         "final_norm": torch.ones((d,), dtype=dtype, device=dev),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((d, cfg.vocab_size), d ** -0.5)
+        params["lm_head"] = normal((d, max(kb, 1) * cfg.vocab_size),
+                                   d ** -0.5)
     params["layers"] = [init_block(cfg, normal, dtype, dev)
                         for _ in range(cfg.n_layers)]
     return params
@@ -138,9 +151,16 @@ def params_to(params, device: str | torch.device):
     return params.to(device)
 
 
-def _lm_head(params):
-    """The LM head ``(d, vocab)``: ``lm_head``, or the tied ``embed.T``."""
-    return params["lm_head"] if "lm_head" in params else params["embed"].T
+def _lm_head(params, cfg: ModelConfig):
+    """The LM head ``(d, vocab)`` (``(d, K·vocab)`` with codebooks):
+    ``lm_head``, or the tied ``embed.T`` (codebooks: the ``(K, V, d)``
+    embed permuted to ``(d, K, V)`` and flattened, as the reference
+    does)."""
+    if "lm_head" in params:
+        return params["lm_head"]
+    if cfg.n_codebooks:
+        return params["embed"].permute(2, 0, 1).reshape(cfg.d_model, -1)
+    return params["embed"].T
 
 
 def pack_sc_weights(params: dict, cfg: ModelConfig,
@@ -149,7 +169,7 @@ def pack_sc_weights(params: dict, cfg: ModelConfig,
     once (``kernels.sc_matmul.pack_weight`` at ``cfg.sc_bits``) beside its
     float weight, as each projection takes it: ``wq``/``wk``/``wv`` as
     ``(d, heads·hd)``, ``wo`` as ``(H·hd, d)``, the MLP weights as they
-    are, the head as ``(d, vocab)``. Packs are always made anew from the
+    are, the head as ``(d, vocab)`` (``(d, K·vocab)``). Packs are always made anew from the
     float weights, so a tree packed before a weight changed is never used
     in place of the new one. Without ``cfg.use_sc_gemm`` the tree comes
     back as it is. The float weights stay for the exact path, for
@@ -160,7 +180,7 @@ def pack_sc_weights(params: dict, cfg: ModelConfig,
     if not cfg.use_sc_gemm:
         return params
     out = dict(params)
-    out["packed"] = {"head": pack(_lm_head(params), cfg.sc_bits)}
+    out["packed"] = {"head": pack(_lm_head(params, cfg), cfg.sc_bits)}
     out["layers"] = [pack_block(layer, cfg, pack)
                      for layer in params["layers"]]
     return out
@@ -212,7 +232,11 @@ def _layer_kv(cache: KVCache, cfg: ModelConfig, layer: int):
 
 # ---------------------------------------------------------------- forward
 
-def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
+def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions,
+         mrope_positions: torch.Tensor | None = None):
+    """Q, K, V of ``x`` at ``positions (B, S)``, Q and K rotated: by
+    M-RoPE with ``cfg.mrope_sections`` (``mrope_positions (3, B, S)``, or
+    ``positions`` in all three streams), else by RoPE."""
     b, s, d = x.shape
     hd = cfg.head_dim
     packed = p.get("packed", {})
@@ -231,6 +255,11 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], eps=cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], eps=cfg.norm_eps)
+    if cfg.mrope_sections is not None:
+        mp = (positions.expand(3, *positions.shape)
+              if mrope_positions is None else mrope_positions)
+        return (apply_mrope(q, mp, cfg.mrope_sections, cfg.rope_theta),
+                apply_mrope(k, mp, cfg.mrope_sections, cfg.rope_theta), v)
     cos, sin = rope(positions, hd, cfg.rope_theta)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
@@ -269,11 +298,33 @@ def block_forward(layer: dict, x: torch.Tensor, cfg: ModelConfig, attend):
     return x + ff_out
 
 
-def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor):
-    x = params["embed"][tokens.to(torch.long)]
+def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  visual_embeds: torch.Tensor | None = None):
+    """``tokens (B, S)`` — ``(B, S, K)`` with codebooks, whose ``K``
+    tables are summed left to right — embedded; ``visual_embeds (B, P,
+    d)`` (the vision front end's stub) written over the first ``P``
+    rows."""
+    tokens = tokens.to(torch.long)
+    if cfg.n_codebooks:
+        x = params["embed"][0][tokens[..., 0]]
+        for i in range(1, cfg.n_codebooks):
+            x = x + params["embed"][i][tokens[..., i]]
+    else:
+        x = params["embed"][tokens]
     if cfg.emb_scale:
         x = x * x.new_full((), cfg.d_model ** 0.5)
+    if visual_embeds is not None:
+        p = visual_embeds.shape[1]
+        if p > x.shape[1]:
+            raise ValueError(f"{p} visual embeddings do not fit "
+                             f"{x.shape[1]} positions")
+        x = torch.cat([visual_embeds.to(x.dtype), x[:, p:]], dim=1)
     return x
+
+
+def _embed(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    return _embed_tokens(params, cfg, batch["tokens"],
+                         batch.get("visual_embeds"))
 
 
 def _attn_sc_bits(cfg: ModelConfig) -> int | None:
@@ -287,31 +338,34 @@ def _final(params, cfg, x):
                     plus_one=cfg.norm_plus_one)
 
 
-def _full_sequence(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+def _full_sequence(params: dict, cfg: ModelConfig, batch: dict,
                    collect: bool):
-    """Causal forward over whole sequences at positions ``0..S-1``; returns
-    the final hidden states and, with ``collect``, each layer's K/V."""
-    x = _embed_tokens(params, cfg, tokens)
+    """Causal forward over whole sequences at positions ``0..S-1`` (M-RoPE
+    at ``batch["mrope_positions"]`` where given); returns the final
+    hidden states and, with ``collect``, each layer's K/V."""
+    x = _embed(params, cfg, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     kvs = [] if collect else None
     for i, layer in enumerate(params["layers"]):
         attend = full_attend(cfg, positions, cfg.window_at(i % cfg.group_size),
-                             kvs)
+                             kvs, batch.get("mrope_positions"))
         x = block_forward(layer, x, cfg, attend)
     return _final(params, cfg, x), kvs
 
 
 def full_attend(cfg: ModelConfig, positions: torch.Tensor,
-                window: int | None, kvs: list | None = None):
+                window: int | None, kvs: list | None = None,
+                mrope_positions: torch.Tensor | None = None):
     """The attention site of a causal forward over whole sequences at
-    ``positions`` (``0..S-1`` a row): ``attend(p, h)`` projects Q/K/V,
-    appends ``(k, v)`` to ``kvs`` when given, and flash-attends."""
+    ``positions`` (``0..S-1`` a row): ``attend(p, h)`` projects Q/K/V
+    (:func:`_qkv`), appends ``(k, v)`` to ``kvs`` when given, and
+    flash-attends."""
     s = positions.shape[1]
 
     def attend(p, h):
-        q, k, v = _qkv(p, h, cfg, positions)
+        q, k, v = _qkv(p, h, cfg, positions, mrope_positions)
         if kvs is not None:
             kvs.append((k, v))
         return flash_attention(
@@ -328,18 +382,24 @@ def full_attend(cfg: ModelConfig, positions: torch.Tensor,
 def forward_hidden(params: dict, cfg: ModelConfig,
                    batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward → (hidden ``(B, S, d)`` after the final norm,
-    aux loss — zero for the dense family)."""
-    hidden, _ = _full_sequence(params, cfg, batch["tokens"], collect=False)
+    aux loss — zero without MoE layers). ``batch`` may hold
+    ``visual_embeds`` and ``mrope_positions``."""
+    hidden, _ = _full_sequence(params, cfg, batch, collect=False)
     return hidden, torch.zeros((), dtype=torch.float32, device=hidden.device)
 
 
 def logits_from_hidden(params: dict, cfg: ModelConfig,
                        hidden: torch.Tensor) -> torch.Tensor:
     """LM head: ``lm_head``, or the tied ``embed.T`` (``K = d``,
-    ``N = vocab``; the largest SC-GEMM of every step) through ``sc_proj``."""
-    logits = sc_proj(hidden, _lm_head(params), cfg,
+    ``N = vocab``; the largest SC-GEMM of every step) through ``sc_proj``;
+    with codebooks reshaped to ``(..., K, vocab)``."""
+    logits = sc_proj(hidden, _lm_head(params, cfg), cfg,
                      params.get("packed", {}).get("head"))
-    return softcap(logits.to(torch.float32), cfg.final_softcap)
+    logits = softcap(logits.to(torch.float32), cfg.final_softcap)
+    if cfg.n_codebooks:
+        logits = logits.reshape(*hidden.shape[:-1], cfg.n_codebooks,
+                                cfg.vocab_size)
+    return logits
 
 
 def _stack_cache(cfg: ModelConfig, kvs, extra_slots: int) -> tuple:
@@ -361,8 +421,12 @@ def _stack_cache(cfg: ModelConfig, kvs, extra_slots: int) -> tuple:
 def prefill_step(params: dict, cfg: ModelConfig, batch: dict, *,
                  extra_slots: int = 0) -> tuple[torch.Tensor, KVCache]:
     """Process the full prompt → (last-token logits ``(B, 1, V)``, filled
-    :class:`KVCache`); ``extra_slots`` pads the cache's sequence axis."""
-    hidden, kvs = _full_sequence(params, cfg, batch["tokens"], collect=True)
+    :class:`KVCache`); ``extra_slots`` pads the cache's sequence axis.
+    ``batch`` may hold ``visual_embeds`` and ``mrope_positions``; without
+    the latter M-RoPE takes positions ``0..S-1`` in all three streams, the
+    default the reference's other entry points build (its own
+    ``prefill_step`` needs them given)."""
+    hidden, kvs = _full_sequence(params, cfg, batch, collect=True)
     b, s = hidden.shape[:2]
     logits = logits_from_hidden(params, cfg, hidden[:, -1:])
     k, v = _stack_cache(cfg, kvs, extra_slots)
@@ -391,15 +455,15 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, cache: KVCache,
     caller, which knows the offset on the host, keeps ``pos + T`` within
     the staging extent.
     """
-    tokens = batch["tokens"]
-    x = _embed_tokens(params, cfg, tokens)
+    x = _embed(params, cfg, batch)
     n_valid = torch.as_tensor(batch["n_valid"], dtype=torch.int32,
                               device=x.device).reshape(-1)[:1]
     positions = chunk_positions(cache.pos, x)
     for i, layer in enumerate(params["layers"]):
         k_cache, v_cache = _layer_kv(cache, cfg, i)
         attend = chunk_attend(cfg, k_cache, v_cache, positions,
-                              cfg.window_at(i % cfg.group_size))
+                              cfg.window_at(i % cfg.group_size),
+                              batch.get("mrope_positions"))
         x = block_forward(layer, x, cfg, attend)
     x = _final(params, cfg, x)
     last = x.index_select(1, (n_valid - 1).to(torch.long))
@@ -419,7 +483,8 @@ def chunk_positions(pos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def chunk_attend(cfg: ModelConfig, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, positions: torch.Tensor,
-                 window: int | None):
+                 window: int | None,
+                 mrope_positions: torch.Tensor | None = None):
     """The attention site of a prefill chunk at ``positions`` (a
     :func:`chunk_positions`) over a B=1 staging site ``k_cache``/``v_cache``
     ``(B, E, KV, hd)``: ``attend(p, h)`` writes the chunk's K/V at its
@@ -433,7 +498,7 @@ def chunk_attend(cfg: ModelConfig, k_cache: torch.Tensor,
                           device=positions.device).expand(b, e)
 
     def attend(p, h):
-        q, k, v = _qkv(p, h, cfg, positions)
+        q, k, v = _qkv(p, h, cfg, positions, mrope_positions)
         # columns past the filled prefix are causally masked, so bucket
         # padding and pad-row writes are exact no-ops for valid rows.
         # q_offset puts the chunk on the flash kernel on the card, so
@@ -460,7 +525,7 @@ def _run_decode(params: dict, cfg: ModelConfig, cache: KVCache, batch: dict,
     ["tokens"]: (B, W)``, rows at ``cache.pos + i``): embed, run the
     layers, project. ``site(layer_index)`` is the layer's attention site
     (:func:`decode_attend`), where the rows' K/V are written and read."""
-    x = _embed_tokens(params, cfg, batch["tokens"])
+    x = _embed(params, cfg, batch)
     b, w = x.shape[:2]
     pos = cache.pos.expand(b) if cache.pos.numel() == 1 else cache.pos
     positions = pos[:, None]
@@ -470,7 +535,7 @@ def _run_decode(params: dict, cfg: ModelConfig, cache: KVCache, batch: dict,
     for i, layer in enumerate(params["layers"]):
         x = block_forward(layer, x, cfg, decode_attend(
             cfg, positions, pos, cfg.window_at(i % cfg.group_size),
-            site(i)))
+            site(i), batch.get("mrope_positions")))
     x = _final(params, cfg, x)
     logits = logits_from_hidden(params, cfg, x)
     return logits, KVCache(k=cache.k, v=cache.v, pos=pos + w)
@@ -545,14 +610,15 @@ def paged_decode_step(params: dict, cfg: ModelConfig, cache: KVCache,
 
 
 def decode_attend(cfg: ModelConfig, positions: torch.Tensor,
-                  pos: torch.Tensor, window: int | None, site):
+                  pos: torch.Tensor, window: int | None, site,
+                  mrope_positions: torch.Tensor | None = None):
     """The attention site of a decode step at ``positions`` (rows from
     ``pos``): ``attend(p, h)`` projects Q/K/V and attends through ``site``
     — a dense ``(k_cache, v_cache)`` pair (:func:`dense_decode_attend`) or
     a :class:`~.layers.PagedKV` (:func:`paged_decode_attend`)."""
 
     def attend(p, h):
-        q, k, v = _qkv(p, h, cfg, positions)
+        q, k, v = _qkv(p, h, cfg, positions, mrope_positions)
         if isinstance(site, PagedKV):
             return paged_decode_attend(cfg, site, q, k, v, pos, window)
         return dense_decode_attend(cfg, *site, q, k, v, pos, window)

@@ -59,6 +59,11 @@ runs one batched decode over every live slot; :meth:`Engine.run` and
 * *Evict*: a request leaves on EOS or length; its slot and pages free on
   the same step.
 
+Codebook models (the audio family) take ``(S, K)`` prompts and emit a
+``(K,)`` token a step, one per codebook, sampled from the step's ``(K,
+V)`` logit row; their streams are ``(n, K)`` and stop on length only, as
+in the reference. They take neither speculation nor the prefix cache.
+
 Determinism: with SC-GEMM on, per-request streams equal the sequential
 ``launch.serve.generate`` baseline token for token — the projections are
 integer-exact with per-row scales, and every float reduction on the path
@@ -96,7 +101,8 @@ from .slots import PagedSlotPool, PoolExhausted, SlotEntry, SlotPool
 __all__ = ["Engine"]
 
 #: ``on_token(uid, index, token, finished_reason)`` — ``index`` is the
-#: 0-based position in the stream; ``finished_reason`` is None until the
+#: 0-based position in the stream, ``token`` a 0-d array (``(K,)`` with
+#: codebooks); ``finished_reason`` is None until the
 #: final token ("eos" / "length"). A preempted-and-readmitted request
 #: replays its stream from index 0; ``Engine.stream`` dedupes by index.
 TokenCallback = Callable[[str, int, np.ndarray, "str | None"], None]
@@ -269,15 +275,17 @@ class Engine:
         # host staging of the step's inputs: pinned on the card, so their
         # copies to the step's static buffers do not wait on the host
         pin = self.device.type == "cuda"
-        self._tok_host = torch.zeros((capacity, 1), dtype=torch.int32,
-                                     pin_memory=pin)
+        # (capacity, 1), or (capacity, 1, K) with codebooks, as the step's
+        self._tok_host = torch.zeros(self._decode.tokens.shape,
+                                     dtype=torch.int32, pin_memory=pin)
+        kb = self._decode.tokens.shape[2:]
         self._tok_buf = self._tok_host.numpy()
         self._tables_host = None if not paged else torch.zeros(
             (capacity, max_blocks), dtype=torch.int32, pin_memory=pin)
         # a prompt, zero-padded to its bucket, and each chunk's valid
         # length, written once a prompt; _copied marks the last copy out
         # of them, which a new prompt waits for before it overwrites them
-        self._prompt_host = torch.zeros((1, self.buckets[-1]),
+        self._prompt_host = torch.zeros((1, self.buckets[-1], *kb),
                                         dtype=torch.int32, pin_memory=pin)
         self._nv_host = torch.zeros((self.buckets[-1] // chunk,),
                                     dtype=torch.int32, pin_memory=pin)
@@ -355,9 +363,12 @@ class Engine:
                 or self._staging is not None)
 
     def _check_request(self, req: Request) -> None:
-        if req.prompt.ndim != 1:
-            raise ConfigError(f"request {req.uid!r}: codebook prompts come "
-                              f"with the audio slice of the port")
+        want = tuple(self._decode.tokens.shape[2:])     # (K,) or ()
+        if req.prompt.shape[1:] != want:
+            raise ConfigError(
+                f"request {req.uid!r}: a prompt of {self.cfg.name} is "
+                f"{'(S, %d)' % want[0] if want else '(S,)'} token ids, got "
+                f"{req.prompt.shape}")
         if (self.prefill_mode == "oneshot"
                 and self.cfg.family in ("ssm", "hybrid")
                 and req.prompt_len % self.cfg.ssm_chunk):
@@ -400,9 +411,10 @@ class Engine:
         d.owner = weakref.ref(self)
 
     def _sample(self, entry: SlotEntry, row: np.ndarray) -> np.ndarray:
-        """One token from a logit row. Greedy is argmax; temperature > 0
-        draws from a per-request ``torch.Generator`` seeded by the request,
-        so the stream depends on the request alone."""
+        """One token from a logit row ``(V,)``, or one per codebook from a
+        ``(K, V)`` row. Greedy is argmax; temperature > 0 draws from a
+        per-request ``torch.Generator`` seeded by the request, in codebook
+        order, so the stream depends on the request alone."""
         req = entry.request
         if req.temperature <= 0:
             return np.argmax(row, axis=-1).astype(np.int32)
@@ -411,11 +423,13 @@ class Engine:
         probs = torch.softmax(torch.as_tensor(row, dtype=torch.float64)
                               / req.temperature, dim=-1)
         tok = torch.multinomial(probs, 1, generator=entry.generator)
-        return np.asarray(int(tok[0]), np.int32)
+        return tok.reshape(row.shape[:-1]).numpy().astype(np.int32)
 
     def _finish_reason(self, entry: SlotEntry, tok: np.ndarray) -> str | None:
         req = entry.request
-        if req.eos_id is not None and int(tok) == req.eos_id:
+        # a codebook frame has no one EOS id: it stops on length alone
+        if (req.eos_id is not None and tok.ndim == 0
+                and int(tok) == req.eos_id):
             return "eos"
         if entry.n_generated >= req.max_new_tokens:
             return "length"

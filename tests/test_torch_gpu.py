@@ -1744,3 +1744,151 @@ def test_a_tuned_capture_sweeps_only_in_its_tuning_pass(cuda):
     again.run(_graph_requests(cfg))
     assert autotune.sweeps == swept and again._decode.tuning_sweeps == 0
     steps.clear_decode_steps()
+
+
+# ---------------------------------------------------- the vlm and audio slice
+#
+# qwen2-vl-2b's attention is 12 heads over 2 KV heads (group 6) of D 128
+# and its tied head N = 151,936 at K = 1,536; musicgen-large's is 32 heads
+# over 32 KV heads (group 1) of D 64, its head 4 codebooks x 2,048 = 8,192
+# at K = 2,048. Both cells serve 64-token prompts in 16-row chunks over a
+# 64-token bucket, 4 slots of max_seq 256 in pages of 64.
+
+MULTIMODAL = {"vlm": dict(h=12, kv=2, d=128), "audio": dict(h=32, kv=32, d=64)}
+
+
+@pytest.mark.parametrize("bits", [None, 4, 8], ids=["float", "sc4", "sc8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", sorted(MULTIMODAL))
+def test_paged_kernel_at_the_multimodal_layouts_equals_plain(cuda, layout,
+                                                             dtype, bits):
+    """The decode layouts (the vlm draft runs the SC path at 4 bits); a
+    slot alone gives its rows of the batch bit for bit."""
+    geo = MULTIMODAL[layout]
+    args = _paged(4, geo["kv"], geo["h"] // geo["kv"], geo["d"], 64, 4,
+                  [100, 255, 37, 64], geo["d"], dtype, cuda)
+    got = paged_attention(*args, sc_bits=bits)
+    want = paged_attention_torch(*args, sc_bits=bits)
+    torch.cuda.synchronize()
+    if bits is None:
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    else:
+        _sc_close(got, want, args[2], bits, TOL[dtype])
+    q, k, v, tables, pos = args
+    for i in range(4):
+        one = paged_attention(q[i:i + 1], k, v, tables[i:i + 1],
+                              pos[i:i + 1], sc_bits=bits)
+        assert torch.equal(one, got[i:i + 1]), i
+
+
+@pytest.mark.parametrize("bits", [None, 8], ids=["float", "sc8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", sorted(MULTIMODAL))
+def test_flash_kernel_at_the_multimodal_layouts_equals_plain(cuda, layout,
+                                                             dtype, bits):
+    """A 64-token prompt one-shot against the plain version, and its four
+    16-row chunks over the 64-token bucket (NaN past each chunk, the
+    offset on the card) bit-equal to the one-shot rows; for the vlm also
+    the 256-token vision prefill against the plain version."""
+    geo = MULTIMODAL[layout]
+    h, kv, d = geo["h"], geo["kv"], geo["d"]
+    rng = np.random.default_rng(d + kv)
+    lens = (64, 256) if layout == "vlm" else (64,)
+    for s in lens:
+        q = torch.as_tensor(rng.standard_normal((1, s, h, d)), dtype=dtype
+                            ).to(cuda).transpose(1, 2)
+        k, v = (torch.as_tensor(rng.standard_normal((1, kv, s, d)),
+                                dtype=dtype).to(cuda) for _ in range(2))
+        one = flash_attention(q, k, v, q_offset=0, group=s, sc_bits=bits)
+        want = flash_attention_torch(q, k, v, q_offset=0, group=s,
+                                     sc_bits=bits)
+        torch.cuda.synchronize()
+        if bits is None:
+            torch.testing.assert_close(one.float(), want.float(),
+                                       **TOL[dtype])
+        else:
+            _sc_close(one, want, v, bits, TOL[dtype])
+        if s != 64:
+            continue
+        for off in range(0, s, 16):
+            kx, vx = (torch.full_like(t, math.nan) for t in (k, v))
+            kx[:, :, :off + 16], vx[:, :, :off + 16] = (k[:, :, :off + 16],
+                                                        v[:, :, :off + 16])
+            dev_off = torch.tensor(off, dtype=torch.int32, device=cuda)
+            got = flash_attention(q[:, :, off:off + 16], kx, vx,
+                                  q_offset=dev_off, group=s, sc_bits=bits)
+            torch.cuda.synchronize()
+            assert torch.equal(got, one[:, :, off:off + 16]), off
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 64])
+@pytest.mark.parametrize("k,n", [(1536, 151936), (8960, 1536), (1536, 256),
+                                 (2048, 8192), (8192, 2048)])
+def test_fused_kernel_at_the_multimodal_shapes_equals_plain(cuda, m, k, n):
+    """The heads (qwen2-vl-2b's N = 151,936, musicgen-large's 8,192) and
+    the other widths the cells add, at every row count they send; a row
+    alone gives its row of the batch."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=gen, device=cuda)
+         * k ** -0.5).to(torch.bfloat16)
+    pw = pack_weight(w, 8)
+    got = sc_linear(x, pw)
+    want = sc_linear_torch(x, pw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if m > 1:
+        assert torch.equal(sc_linear(x[1:2], pw), got[1:2])
+
+
+def _multimodal_cfg(arch: str):
+    """Full width, cut to 2 layers."""
+    return dataclasses.replace(ARCHS[arch], use_sc_gemm=True, sc_bits=8,
+                               n_layers=2).validate()
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "musicgen-large"])
+def test_multimodal_streams_one_slot_equal_four_and_chunked_one_shot(cuda,
+                                                                     arch):
+    """The streams of one slot, of four (graphed), of one-shot prefill, of
+    the eager engine, of the vlm's speculative engine (k = 1 at 4 bits)
+    and of the sequential baseline are the same tokens (``(n, 4)`` frames
+    for musicgen-large); every graphed decode step's logit rows equal the
+    eager engine's bit for bit."""
+    from repro_torch.launch import steps
+    steps.clear_decode_steps()
+    cfg = _multimodal_cfg(arch)
+    params = bind(cfg, cuda).init_params(0)
+    rng = np.random.default_rng(24)
+    kb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    reqs = [Request(uid=f"r{i}", prompt=rng.integers(
+        0, cfg.vocab_size, size=(n, *kb)).astype(np.int32),
+        max_new_tokens=g)
+        for i, (n, g) in enumerate(zip((64, 40, 64, 17, 64),
+                                       (6, 11, 4, 9, 7)))]
+    shape = dict(max_seq=256, block=64, chunk=16)
+    runs, rows = {}, {}
+    variants = [("one slot", dict(capacity=1)),
+                ("four slots", dict(capacity=4)),
+                ("one-shot", dict(capacity=4, prefill_mode="oneshot")),
+                ("eager", dict(capacity=4, graphs=False))]
+    if not cfg.n_codebooks:
+        variants.append(("speculative", dict(capacity=4, speculate_k=1,
+                                             draft_bits=4)))
+    for name, kw in variants:
+        eng = _Recording(cfg, params, device=cuda, **shape, **kw)
+        runs[name] = [r.tokens for r in eng.run(reqs)]
+        rows[name] = getattr(eng, "rows", None)
+        steps.clear_decode_steps()
+    base = [generate(cfg, params, r.prompt[None], gen_tokens=r.max_new_tokens,
+                     device=cuda)[0].cpu().numpy() for r in reqs]
+    for name, streams in runs.items():
+        for r, got, want in zip(reqs, streams, base):
+            assert got.shape == want.shape == (r.max_new_tokens, *kb)
+            np.testing.assert_array_equal(got, want,
+                                          err_msg=f"{name} {r.uid}")
+    assert len(rows["four slots"]) == len(rows["eager"]) >= 5
+    for i, (g, e) in enumerate(zip(rows["four slots"], rows["eager"])):
+        np.testing.assert_array_equal(g, e, err_msg=f"decode step {i}")

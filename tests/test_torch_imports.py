@@ -139,7 +139,8 @@ def test_serve_cli_refuses_out_of_range_attention_bits():
 def test_later_slices_are_refused():
     """SC attention, speculation and the prefix cache (on by default) are
     served now (on the CPU here), and so are the ssm and hybrid families,
-    without speculation; moe, vlm and audio are still refused."""
+    without speculation, and the vlm and audio families (audio without
+    speculation, on ``(S, K)`` prompts); moe is still refused."""
     import numpy as np
     from repro_torch.models import bind
     from repro_torch.models.transformer import init_params
@@ -173,9 +174,22 @@ def test_later_slices_are_refused():
                      block=4).run([Request(uid="f", prompt=[1, 2, 3],
                                            max_new_tokens=2)])
         assert out[0].n_generated == 2
-    for arch in ("qwen3-moe-235b-a22b", "qwen2-vl-2b", "musicgen-large"):
-        with pytest.raises(ConfigError, match="slice"):
-            bind(ARCHS[arch].reduced(), "cpu")
+    for arch in ("qwen2-vl-2b", "musicgen-large"):
+        fam = ARCHS[arch].reduced(dtype="float32")
+        fam_params = bind(fam, "cpu").init_params(0)
+        k = fam.n_codebooks
+        prompt = np.arange(1, 7, dtype=np.int32)
+        if k:
+            prompt = np.stack([prompt] * k, axis=-1)
+            with pytest.raises(ConfigError, match="speculative"):
+                Engine(fam, fam_params, device="cpu", speculate_k=2)
+        out = Engine(fam, fam_params, device="cpu", capacity=1, max_seq=24,
+                     block=4).run([Request(uid="v", prompt=prompt,
+                                           max_new_tokens=2)])
+        assert out[0].n_generated == 2
+        assert out[0].tokens.shape == ((2, k) if k else (2,))
+    with pytest.raises(ConfigError, match="slice"):
+        bind(ARCHS["qwen3-moe-235b-a22b"].reduced(), "cpu")
 
 
 @pytest.mark.parametrize("arch", sorted(JAX_ARCHS))
