@@ -5,11 +5,11 @@ kernel against its plain PyTorch version on the card, runs the paper's
 multiplier over exhaustive operand grids and its Table II / Fig. 1(b)
 rows, then serves requests through the port's engine at smollm-360m's
 full width — float attention, then SC attention — and at qwen2-vl-2b's,
-musicgen-large's, mamba2-130m's and zamba2-7b's (the vlm, audio, ssm and
-hybrid families), and checks the streams against the sequential
-baseline.
+musicgen-large's, mamba2-130m's, zamba2-7b's, qwen3-moe-235b-a22b's and
+llama4-maverick-400b-a17b's (the vlm, audio, ssm, hybrid and moe
+families), and checks the streams against the sequential baseline.
 
-    python3 chip_smoke.py            # one CUDA card; ~12-17 minutes
+    python3 chip_smoke.py            # one CUDA card; ~15-18 minutes
     python3 chip_smoke.py --only build,flash   # a subset, for debugging
 
 Phases (each raises on failure, so any failure exits non-zero):
@@ -41,7 +41,12 @@ Phases (each raises on failure, so any failure exits non-zero):
    then mamba2-130m's and zamba2-7b's shapes (K up to 14,336, N up to
    32,000) at M = 1, 4, 128 and 256, bit-equal to the plain version, and
    at M = 4 and 128 timed and summed to a decode step and a prefill chunk
-   of each;
+   of each; then the batched launch (one MoE projection of all experts)
+   at qwen3-moe's (E = 128) and llama4's (E = 32) expert shapes, M = C =
+   64 rows an expert, a NaN row and an expert of zero rows: bit-equal to
+   its plain version and to E unbatched launches at the default and the
+   tuned plan, its device ms against the planes' bytes at the HBM rate
+   and against the E unbatched launches' sum;
 5. paged decode-attention kernel vs its plain version at smollm's layout,
    f32 and bf16, float and SC at 4 and 8 bits, fragmented tables, windows,
    a single-KV-head layout (SC), zamba2-7b's layout (KV 32, G 1, D 112;
@@ -127,36 +132,54 @@ Phases (each raises on failure, so any failure exits non-zero):
 14. ``serve_prefix``: the reference's default serve, prefix cache on, over
     one shared 128-token preamble (cache off, eager, graphed cold and
     warm, speculative, a rebind), its stats held to the script's plan;
-15. ``serve_ssm`` and ``serve_hybrid``: mamba2-130m and zamba2-7b as
-    registered, whole (zamba2-7b's 81 layers and 27 shared-block sites;
-    nothing cut), SC-GEMM at 8 bits, float attention, random weights
-    from seed 0: 8 requests of 128- and 256-token prompts (whole
-    ``ssm_chunk``s) and 16-64 new tokens through ``Engine(capacity=4,
-    max_seq=384, block=64, chunk=128)``;
-16. ``serve_vlm`` and ``serve_audio``: qwen2-vl-2b and musicgen-large as
-    registered, whole (28 and 48 layers), likewise, with the ``serve``
-    cell's traffic and engine (8 requests of 64-token prompts, ``(64,
-    4)`` codebook frames for musicgen-large, 16-64 new tokens);
+15. ``serve_ssm`` and ``serve_hybrid``: mamba2-130m as registered, whole,
+    and zamba2-7b at full width and 27 of its 81 layers (9 shared-block
+    sites; ``FAMILY_CUTS``: the moe cells' time is found here), SC-GEMM at
+    8 bits, float attention, random weights from seed 0: 8 requests of
+    128- and 256-token prompts (whole ``ssm_chunk``s) and 16-64 new
+    tokens through ``Engine(capacity=4, max_seq=384, block=64,
+    chunk=128)``;
+16. ``serve_vlm`` and ``serve_audio``: qwen2-vl-2b as registered, whole
+    (28 layers), and musicgen-large at full width and 24 of its 48
+    layers, likewise, with the ``serve`` cell's traffic and engine (8
+    requests of 64-token prompts, ``(64, 4)`` codebook frames for
+    musicgen-large, 16-64 new tokens);
     qwen2-vl-2b first holds a one-shot prefill of a 256-token prompt with
     64 patch embeddings at the (t, h, w) ids of an 8 x 8 grid against
     plain versions (``_vision_prefill``: float32 and bf16 with exact
     projections against plain attention, the cell's numeric against
-    plain SC-GEMM).
+    plain SC-GEMM);
+17. ``serve_moe`` and ``serve_moe_llama4``: qwen3-moe-235b-a22b at full
+    width and 4 of its 94 layers (all 128 experts, top-8, C = 64) and
+    llama4-maverick-400b-a17b at its one whole period of 4 layers and 32
+    of its 128 experts (top-1, a shared expert, windows on 3 of 4
+    layers), ~43 GB of weights and planes each; the ``serve`` cell's
+    traffic and engine with 4 requests (``MOE_REQUESTS``); first the
+    static check that C covers every router group the cell forms (a
+    decode step's 4 slots, a 16-row chunk, a 64-token one-shot prompt, a
+    verify window of 4 x 2), so no token is dropped and routing is
+    batch-invariant. qwen3-moe runs like 16 (eager and graphed twice, a
+    speculative engine at (1, 4), the caller's weights on the host
+    meanwhile); llama4 graphed only, chunked and one-shot.
 
-Each family cell (15, 16) asks for the prefix cache (the dense-only gate
+Each family cell (15-17) asks for the prefix cache (the dense-only gate
 turns it off, and the stats must say so) and serves chunked then
 one-shot, each eager and then graphed twice on one engine; every run
 against the sequential baseline, the counters showing one SC-GEMM launch
-a projection (48 a step or chunk for mamba2-130m, 352 for zamba2-7b, 197
-for qwen2-vl-2b, 337 for musicgen-large) and one paged or flash launch
-an attention site; tokens/s, TTFT p50, decode ms/step, a prefill chunk
-of the longest prompt (eager and graphed), peak memory and launches.
-Last, a graphed speculative engine at (k, draft_bits) = (1, 4) serves
-qwen2-vl-2b against the baseline and must be refused for the other
-three, as in the reference.
+a projection (48 a step or chunk for mamba2-130m, 118 for zamba2-7b at
+27 layers, 197 for qwen2-vl-2b, 169 for musicgen-large at 24 layers, 29
+for qwen3-moe and 35 for llama4, an expert projection one launch for all
+experts) and one paged launch an attention site a step and one flash
+launch an unwindowed site a prefill call (llama4's windowed sites take
+the plain formulation, as in the reference); tokens/s, TTFT p50, decode
+ms/step, a prefill chunk of the longest prompt (eager and graphed),
+peak memory and launches. Last, a graphed speculative engine at (k,
+draft_bits) = (1, 4) serves qwen2-vl-2b and qwen3-moe against the
+baseline and must be refused for the ssm, hybrid and audio cells, as in
+the reference.
 
 The line before the last is a JSON object with one entry per kernel,
-its ``launches`` the sum over every serving run of phases 11-16 (the
+its ``launches`` the sum over every serving run of phases 11-17 (the
 attention kernels' float and SC entries split as their wrappers counted
 them), its ``tuned`` the tune phase's keys of the kernel; the last line is ``{"ok": true, "device": {...}}``. Details go to
 ``build/chip_smoke.json`` (``$CHIP_SMOKE_OUT`` names another directory).
@@ -577,9 +600,104 @@ def phase_sc_gemm() -> dict:
         f"blocks per SM (the wrapper's is {aim}): " + ", ".join(
             f"{b}: {_ms(v)}" for b, v in split_sweep.items()))
     families = _sc_gemm_families(gen, dev, sms)
+    moe = _sc_gemm_moe(gen, dev)
     return {"cases": rows, "timing": timing, "decode_step": step,
             "prefill_pass": prefill, "blocks_per_sm_sweep": split_sweep,
-            "sms": sms, "families": families}
+            "sms": sms, "families": families, "moe": moe}
+
+
+#: The moe cells' expert projections, each one batched launch: (arch, E,
+#: rows an expert = C, (K, N) of w1/w3 and of w2, launches of each a step)
+MOE_SC_SHAPES = (("qwen3-moe-235b-a22b", 128, 64, (4096, 1536), 8),
+                 ("qwen3-moe-235b-a22b", 128, 64, (1536, 4096), 4),
+                 ("llama4-maverick-400b-a17b", 32, 64, (5120, 8192), 4),
+                 ("llama4-maverick-400b-a17b", 32, 64, (8192, 5120), 2))
+
+
+def _sc_gemm_moe(gen, dev) -> dict:
+    """The batched launch (one MoE projection of every expert) at the moe
+    cells' expert shapes, bf16 rows with a NaN row in one expert and
+    zero rows (empty capacity rows) in another: bit-equal to its plain
+    version and to E unbatched launches of the same rows, at the default
+    plan and at the autotuner's. Device ms of the batched launch (both
+    plans) against the bound — the planes' bytes at the HBM rate — and
+    against the E unbatched launches' sum, and the plain version's ms."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.sc_matmul import (PackedWeight, pack_weight,
+                                               sc_linear, sc_linear_torch)
+    out = []
+    for arch, e, m, (k, n), per_step in MOE_SC_SHAPES:
+        w = (torch.randn((e, k, n), generator=gen, device=dev)
+             * k ** -0.5).to(torch.bfloat16)
+        pw = pack_weight(w, 8)
+        del w
+        x = torch.randn((e, m, k), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        x[1, 3, 5] = math.nan
+        x[2, m // 2:] = 0
+        tuned = autotune.get_or_tune(x, pw)
+        ones = [PackedWeight(pw.plane[i], pw.scale[i], 8, (k, n))
+                for i in range(e)]
+        t0 = time.perf_counter()
+        want = sc_linear_torch(x, pw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        for cfg in (None, tuned):
+            got = sc_linear(x, pw, config=cfg)
+            loop = torch.stack([sc_linear(x[i], ones[i], config=cfg)
+                                for i in range(e)])
+            torch.cuda.synchronize()
+            for what, ref in (("plain version", want),
+                              ("unbatched launches", loop)):
+                if not (torch.equal(got.isnan(), ref.isnan()) and
+                        torch.equal(got.nan_to_num(), ref.nan_to_num())):
+                    bad = (got.nan_to_num() != ref.nan_to_num()).sum().item()
+                    raise AssertionError(
+                        f"batched SC-GEMM ({arch}, E={e} M={m} K={k} N={n}, "
+                        f"plan {cfg}) differs from its {what}: {bad} entries")
+            del got, loop
+        del want
+        it = iter(range(1 << 30))
+        batched = device_ms(lambda: sc_linear(x, pw), "sc_gemm_kernel",
+                            iters=5)
+        batched_tuned = device_ms(lambda: sc_linear(x, pw, config=tuned),
+                                  "sc_gemm_kernel", iters=5)
+        def one():
+            i = next(it) % e
+            return sc_linear(x[i], ones[i])
+        unbatched = device_ms(one, "sc_gemm_kernel", iters=2 * e,
+                              one_launch=True)
+        nbytes = e * k * (-(-n // 8) * 8) * 2
+        bound = nbytes / HBM_BYTES_S * 1e3
+        ops = 2 * e * m * n * k
+        row = {"arch": arch, "E": e, "M": m, "K": k, "N": n,
+               "launches_per_step": per_step, "bit_equal": True,
+               "device_ms": batched, "tuned": dataclasses.asdict(tuned),
+               "tuned_device_ms": batched_tuned,
+               "unbatched_sum_device_ms": None if unbatched is None
+               else e * unbatched,
+               "plain_ms": plain_ms, "bound_ms": bound,
+               "bound_by": "bytes" if nbytes / HBM_BYTES_S
+               >= ops / INT8_OPS_S else "operations",
+               "plane_bytes": nbytes, "counts": e * m * n * k}
+        rate = None if batched_tuned is None else \
+            row["counts"] / (batched_tuned * 1e-3)
+        row["tuned_counts_per_s"] = rate
+        out.append(row)
+        log(f"[sc_gemm] {arch} batched E={e} M={m} K={k:5d} N={n:5d}: "
+            f"bit-equal to its plain version and to {e} unbatched launches "
+            f"(default and tuned plans); device {_ms(batched)} (tuned "
+            f"{row['tuned']}: {_ms(batched_tuned)}"
+            + (f", {rate / 1e12:.3f} T counts/s" if rate else "")
+            + f"), {e} unbatched launches {_ms(row['unbatched_sum_device_ms'])}"
+            f", plain {plain_ms:.1f} ms, bound {bound:.4f} ms "
+            f"({row['bound_by']}: {nbytes / 1e9:.3f} GB of planes)")
+        del x, pw, ones
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"timing": out}
 
 
 def _sc_gemm_families(gen, dev, sms) -> dict:
@@ -1638,13 +1756,29 @@ def _path_counts(cfg) -> tuple[int, int]:
     prefill call of ``cfg``'s family: dense, 7 a layer and the LM head;
     ssm, ``in_proj`` and ``out_proj`` a Mamba layer (the tied head is a
     float product); hybrid, those, 7 at each shared-block site and the
-    head."""
+    head; moe, 4 attention projections a layer, 3 in a dense layer's MLP,
+    3 in a MoE layer (each one launch for all experts) and 3 more for a
+    shared expert, and the head."""
     if cfg.family == "ssm":
         return 2 * cfg.n_layers, 0
     if cfg.family == "hybrid":
         sites = cfg.n_layers // cfg.shared_attn_every
         return 2 * cfg.n_layers + 7 * sites + 1, sites
-    return 7 * cfg.n_layers + 1, cfg.n_layers
+    moe = sum(cfg.moe_at(i) for i in range(cfg.n_layers))
+    shared = 3 * moe if cfg.shared_expert_d_ff else 0
+    return 7 * cfg.n_layers + shared + 1, cfg.n_layers
+
+
+def _flash_sites(cfg) -> int:
+    """The attention sites at which a prefill call launches the flash
+    kernel: every one without a sliding window. A windowed site (llama4's
+    3 of 4 layers) takes the plain formulation, as in the reference,
+    whose TPU kernel's gate refuses windows too; its decode runs the paged
+    kernel, which takes windows."""
+    if cfg.family in ("ssm", "hybrid"):
+        return _path_counts(cfg)[1]
+    return sum(cfg.window_at(i % cfg.group_size) is None
+               for i in range(cfg.n_layers))
 
 
 def _serve_run(cfg, eng, reqs, mode, baseline, *, run: int = 1,
@@ -1669,6 +1803,7 @@ def _serve_run(cfg, eng, reqs, mode, baseline, *, run: int = 1,
     from repro_torch.launch.steps import EAGER_RUNS, bucket_for
     graphs = eng.graphs
     n_proj, sites = _path_counts(cfg)
+    flash_sites = _flash_sites(cfg)
     shapes = {(bucket_for(r.prompt_len, eng.buckets), eng.chunk)
               if mode == "chunked" else r.prompt_len for r in reqs}
     graphs0 = len(step_cache.decode_steps())
@@ -1725,9 +1860,9 @@ def _serve_run(cfg, eng, reqs, mode, baseline, *, run: int = 1,
         entries = eng.prefill_steps()
         want_p = {"sc_linear": n_proj}
         if sites:
-            want_p["flash_attention"] = sites
+            want_p["flash_attention"] = flash_sites
         if sc_attn:
-            want_p["flash_attention_sc"] = sc_attn
+            want_p["flash_attention_sc"] = flash_sites
         replays = {k: s.replays - replays0.get(k, 0)
                    for k, s in entries.items()}
         prefill_graph = {"shapes": [list(k) for k in entries],
@@ -1778,8 +1913,8 @@ def _serve_run(cfg, eng, reqs, mode, baseline, *, run: int = 1,
         f"attention {launches['paged_attention']} (>= {steps} x {sites}), "
         f"flash attention {launches['flash_attention']} (= "
         f"{st['prefill_chunks'] if mode == 'chunked' else st['prefills']}"
-        f" x {sites}, and {sites} a warm-up run of a capture in this "
-        f"run); max_memory_allocated {peak / 2**30:.3f} GiB, "
+        f" x {flash_sites} unwindowed sites, and {flash_sites} a warm-up "
+        f"run of a capture in this run); max_memory_allocated {peak / 2**30:.3f} GiB, "
         f"memory_reserved {reserved / 2**30:.3f} GiB")
     if steps < 1:
         raise AssertionError("the engine ran no decode step")
@@ -1801,7 +1936,7 @@ def _serve_run(cfg, eng, reqs, mode, baseline, *, run: int = 1,
                              f"{steps} decode steps")
     # one flash launch per layer per prefill call (chunk or one-shot)
     if prefill_calls < 1 or launches["flash_attention"] != \
-            (prefill_calls + warm) * sites:
+            (prefill_calls + warm) * flash_sites:
         raise AssertionError(f"flash kernel launched "
                              f"{launches['flash_attention']} times for "
                              f"{prefill_calls} prefill calls")
@@ -1950,13 +2085,27 @@ def _family_workload(cfg, seed=7):
             for i, n in enumerate(lens)]
 
 
+#: The cuts of the family cells, every width kept. The moe configs do not
+#: fit the card whole: qwen3-moe-235b-a22b at 4 of its 94 layers (all 128
+#: experts, C = 64); llama4-maverick-400b-a17b at its one whole period of
+#: 4 layers (windowed dense, windowed MoE, windowed dense, global MoE) and
+#: 32 of its 128 experts (C = 64 at capacity factor 4). The moe cells'
+#: ~5 minutes would take the script past its 1,200 s time limit, so two
+#: earlier cells run at a smaller depth: zamba2-7b at 27 of its 81 layers
+#: (9 of 27 shared-block sites), musicgen-large at 24 of its 48
+FAMILY_CUTS = {"qwen3-moe-235b-a22b": {"n_layers": 4},
+               "llama4-maverick-400b-a17b": {"n_layers": 4, "n_experts": 32},
+               "zamba2-7b": {"n_layers": 27},
+               "musicgen-large": {"n_layers": 24}}
+
+
 def _family_cfg(arch: str):
-    """A family cell's config: ``arch`` as registered, whole, SC-GEMM at 8
-    bits, float attention."""
+    """A family cell's config: ``arch`` as registered (whole, or cut as
+    ``FAMILY_CUTS`` says), SC-GEMM at 8 bits, float attention."""
     import dataclasses
     from repro_torch.configs.registry import ARCHS
-    return dataclasses.replace(ARCHS[arch], use_sc_gemm=True,
-                               sc_bits=8).validate()
+    return dataclasses.replace(ARCHS[arch], use_sc_gemm=True, sc_bits=8,
+                               **FAMILY_CUTS.get(arch, {})).validate()
 
 
 #: phase -> arch of the family cells. ``phase_profile`` profiles each
@@ -1964,8 +2113,16 @@ def _family_cfg(arch: str):
 #: serving runs lost kernel records (one of 96 at mamba2-130m after the vlm
 #: and audio cells, three of 394 at qwen2-vl-2b after zamba2-7b's, 37 of
 #: 704 at zamba2-7b after the smollm cells; PERF.md §7)
-FAMILY_CELLS = {"serve_ssm": "mamba2-130m", "serve_hybrid": "zamba2-7b",
-                "serve_vlm": "qwen2-vl-2b", "serve_audio": "musicgen-large"}
+PROFILED_CELLS = {"serve_ssm": "mamba2-130m", "serve_hybrid": "zamba2-7b",
+                  "serve_vlm": "qwen2-vl-2b",
+                  "serve_audio": "musicgen-large"}
+#: the moe cells (not profiled: a graphed step there is ~0.2 s, almost all
+#: of it the batched expert projections, which ``sc_gemm`` times)
+MOE_CELLS = {"serve_moe": "qwen3-moe-235b-a22b",
+             "serve_moe_llama4": "llama4-maverick-400b-a17b"}
+FAMILY_CELLS = {**PROFILED_CELLS, **MOE_CELLS}
+#: cells served graphed only (no eager run, no speculative engine)
+GRAPHED_ONLY = {"serve_moe_llama4"}
 #: a family cell's traffic: (its requests from the config, the engine's
 #: max_seq and chunk). The ssm and hybrid cells take ``FAMILY_*``'s; the
 #: vlm and audio cells the ``serve`` cell's (8 requests of 64-token
@@ -1974,6 +2131,13 @@ FAMILY_TRAFFIC = (_family_workload,
                   dict(max_seq=FAMILY_MAX_SEQ, chunk=FAMILY_CHUNK))
 SERVE_TRAFFIC = (lambda cfg: _workload(cfg, 8, 64, 16, 64, seed=5),
                  dict(max_seq=256, chunk=16))
+#: the moe cells' requests: the ``serve`` cell's traffic with 4 requests
+#: instead of 8 (a step of either cut model is ~0.2-0.3 s whatever its
+#: tokens: every expert computes its C = 64 capacity rows), so that the
+#: script stays within its time limit
+MOE_REQUESTS = 4
+MOE_TRAFFIC = (lambda cfg: _workload(cfg, MOE_REQUESTS, 64, 16, 64, seed=5),
+               dict(max_seq=256, chunk=16))
 #: a family cell's speculative engine: (k, draft_bits)
 FAMILY_SPEC = (1, 4)
 
@@ -1989,6 +2153,20 @@ def _family_line(cfg, n_params: int) -> str:
                 + (f" ({cfg.n_heads}/{cfg.n_kv_heads} heads x "
                    f"{cfg.head_dim}, d_ff {cfg.d_ff})" if sites else "")
                 + f", vocab {cfg.vocab_size}")
+    elif cfg.family == "moe":
+        from repro_torch.models.moe import moe_capacity
+        moe = sum(cfg.moe_at(i) for i in range(cfg.n_layers))
+        body = (f"{cfg.n_layers} layers ({moe} MoE: {cfg.n_experts} experts, "
+                f"top-{cfg.top_k}, expert d_ff {cfg.moe_d_ff}, capacity C = "
+                f"{moe_capacity(cfg)} a router group of "
+                f"{cfg.router_group_size}"
+                + (f", a shared expert of d_ff {cfg.shared_expert_d_ff}"
+                   if cfg.shared_expert_d_ff else "")
+                + (f"; {cfg.n_layers - moe} dense of d_ff {cfg.d_ff}"
+                   if moe < cfg.n_layers else "")
+                + f"), d_model {cfg.d_model}, {cfg.n_heads}/"
+                f"{cfg.n_kv_heads} heads x {cfg.head_dim}, windows "
+                f"{cfg.windows}, vocab {cfg.vocab_size}")
     else:
         body = (f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
                 f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, "
@@ -1997,6 +2175,9 @@ def _family_line(cfg, n_params: int) -> str:
                    else "")
                 + (f", M-RoPE sections {cfg.mrope_sections}"
                    if cfg.mrope_sections else "") + f", {cfg.act}")
+    cut = FAMILY_CUTS.get(cfg.name)
+    body += (f"; cut {cut} of the registered config, every width kept"
+             if cut else "; whole")
     return (f"{cfg.name} ({cfg.family}): {body}, {cfg.dtype}, "
             f"{n_params / 1e9:.3f} B parameters; SC-GEMM {cfg.sc_bits}-bit "
             f"({n_proj} projections a step), attention float")
@@ -2196,6 +2377,8 @@ def _family_phase(name: str, traffic) -> dict:
     from repro_torch.models import bind
     workload, shape = traffic
     cfg = _family_cfg(FAMILY_CELLS[name])
+    if cfg.family == "moe":
+        _no_drops(cfg, name, shape)
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     params = bind(cfg, "cuda").init_params(0)
@@ -2221,11 +2404,12 @@ def _family_phase(name: str, traffic) -> dict:
         + f", {sum(r.max_new_tokens for r in reqs)} new) in "
         f"{time.perf_counter() - t1:.1f}s, peak allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    modes = (True,) if name in GRAPHED_ONLY else (False, True)
     for mode in ("chunked", "oneshot"):
         steps.clear_decode_steps()
         gc.collect()
         runs = {}
-        for graphs in (False, True):
+        for graphs in modes:
             n0 = len(steps.decode_steps())
             eng = _serve_engine(cfg, params, mode, graphs, **shape,
                                 prefix_cache=True)
@@ -2242,15 +2426,19 @@ def _family_phase(name: str, traffic) -> dict:
                     eng, cfg, f"[{name}:{mode}:{kind}]", longest)
             del eng
             gc.collect()
-        eager, first, graphed = runs["eager"], runs["first"], runs["graphed"]
+            # a moe cell's next entry needs ~40 GiB more in one piece
+            torch.cuda.empty_cache()
+        eager, first, graphed = (runs.get("eager"), runs["first"],
+                                 runs["graphed"])
         for run in (eager, first, graphed):
-            if run["stats"]["prefix_cache"]:
+            if run is not None and run["stats"]["prefix_cache"]:
                 raise AssertionError(f"[{name}] the prefix cache is on for "
                                      f"the {cfg.family} family")
         graphed["first_run"] = first
-        graphed["eager"] = eager
-        graphed["eager_vs_graphed"] = _side_by_side(f"[{name}:{mode}]",
-                                                    eager, graphed)
+        if eager is not None:
+            graphed["eager"] = eager
+            graphed["eager_vs_graphed"] = _side_by_side(f"[{name}:{mode}]",
+                                                        eager, graphed)
         fs = first["stats"]
         log(f"[{name}:{mode}] graphed first run (its captures included): "
             f"tokens/s {fs['tok_per_s']:.2f}, TTFT p50 "
@@ -2260,13 +2448,52 @@ def _family_phase(name: str, traffic) -> dict:
         out[mode] = graphed
     steps.clear_decode_steps()
     gc.collect()
-    out["speculative"] = _family_speculate(cfg, params, reqs, baseline, shape,
-                                           name)
+    if name in GRAPHED_ONLY:
+        out["speculative"] = "not run: a graphed-only cell"
+    else:
+        if cfg.family == "moe":
+            # the draft's planes are a fourth copy of the weights' size:
+            # the caller's float copy waits on the host, and the engine
+            # brings it over only while its entry copies it in
+            from repro_torch.models.transformer import params_to
+            params = params_to(params, "cpu")
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["speculative"] = _family_speculate(cfg, params, reqs, baseline,
+                                               shape, name)
     steps.clear_decode_steps()
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    out["peak_gib"] = max(
+        r["max_memory_allocated"] for m in ("chunked", "oneshot",
+                                            "speculative")
+        if isinstance(out[m], dict)
+        for r in (out[m], out[m].get("first_run"), out[m].get("eager"))
+        if isinstance(r, dict)) / 2**30
+    log(f"[{name}] peak allocated over the cell's serving runs "
+        f"{out['peak_gib']:.3f} GiB of the card's "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.3f}")
     return out
+
+
+def _no_drops(cfg, name: str, shape: dict) -> None:
+    """A moe cell's streams can equal the B=1 baseline only if no token is
+    dropped: every router group the cell forms — a decode step's slots,
+    a prefill chunk, a one-shot prompt, a verify window's slots x (k + 1)
+    — must fit the capacity C (a group of g tokens puts at most g on one
+    expert), and a one-shot prompt must be one group."""
+    from repro_torch.models.moe import moe_capacity
+    c = moe_capacity(cfg)
+    k = FAMILY_SPEC[0]
+    groups = {"decode": 4, "chunk": shape["chunk"], "one-shot prompt": 64,
+              "verify window": 4 * (k + 1)}
+    log(f"[{name}] capacity C = {c} >= every router group the cell forms "
+        f"({groups}): no token can be dropped")
+    if any(g > c or g > cfg.router_group_size for g in groups.values()):
+        raise AssertionError(f"[{name}] a router group of {groups} exceeds "
+                             f"C = {c}: tokens could be dropped and streams "
+                             f"part from the baseline")
 
 
 def phase_serve_ssm() -> dict:
@@ -2283,6 +2510,14 @@ def phase_serve_vlm() -> dict:
 
 def phase_serve_audio() -> dict:
     return _family_phase("serve_audio", SERVE_TRAFFIC)
+
+
+def phase_serve_moe() -> dict:
+    return _family_phase("serve_moe", MOE_TRAFFIC)
+
+
+def phase_serve_moe_llama4() -> dict:
+    return _family_phase("serve_moe_llama4", MOE_TRAFFIC)
 
 
 #: what ``serve_spec`` takes from ``serve`` (key False) and ``serve_sc``
@@ -2360,7 +2595,7 @@ def _serve_spec_run(cfg, eng, reqs, baseline, *, run: int = 1,
     prefill_calls = st["prefill_chunks"]
     warm = EAGER_RUNS * st["prefill_captures"] if graphs else 0
     sc_verify = layers if cfg.attn_sc else 0
-    flash = layers * (prefill_calls + warm)
+    flash = _flash_sites(cfg) * (prefill_calls + warm)
     want = {"sc_linear": per_step * ((k + 1) * rounds + prefill_calls
                                      + warm),
             "sc_matmul_counts": 0,
@@ -3030,7 +3265,7 @@ def phase_profile() -> dict:
     graphed: device time by kernel, host time by operator, host API calls,
     and the device's busy share against the wall time of unprofiled steps
     or chunks of the same engine; then each family cell's graphed decode
-    step (``FAMILY_CELLS``). It runs before any cell serves."""
+    step (``PROFILED_CELLS``). It runs before any cell serves."""
     import dataclasses
     import torch
     from repro_torch.configs.registry import ARCHS
@@ -3047,7 +3282,7 @@ def phase_profile() -> dict:
     steps.clear_decode_steps()
     del params
     out["families"] = {}
-    for name, arch in FAMILY_CELLS.items():
+    for name, arch in PROFILED_CELLS.items():
         fam = _family_cfg(arch)
         fam_params = bind(fam, "cuda").init_params(0)
         out["families"][name] = _profile_engine(fam, fam_params, True,
@@ -3091,7 +3326,7 @@ def main() -> int:
     only = None
     if len(sys.argv) > 2 and sys.argv[1] == "--only":
         only = set(sys.argv[2].split(","))   # a debugging subset: no result
-        if only & FAMILY_CELLS.keys():       # the family cells' profiles
+        if only & PROFILED_CELLS.keys():     # the family cells' profiles
             only.add("profile")
     t0 = time.perf_counter()
     card = phase_card()
@@ -3108,7 +3343,9 @@ def main() -> int:
               ("serve_ssm", phase_serve_ssm),
               ("serve_hybrid", phase_serve_hybrid),
               ("serve_vlm", phase_serve_vlm),
-              ("serve_audio", phase_serve_audio))
+              ("serve_audio", phase_serve_audio),
+              ("serve_moe", phase_serve_moe),
+              ("serve_moe_llama4", phase_serve_moe_llama4))
     seconds = {}
     for name, fn in phases:
         if only is None or name in only:
@@ -3268,7 +3505,8 @@ def main() -> int:
          "families": {
              arch: {what: fam[what] for what in ("decode_step",
                                                  "prefill_chunk")}
-             for arch, fam in report["sc_gemm"]["families"].items()}},
+             for arch, fam in report["sc_gemm"]["families"].items()},
+         "moe_batched": report["sc_gemm"]["moe"]["timing"]},
         paged_entry("paged_attention", None,
                     total["paged_attention"] - total["paged_attention_sc"]),
         paged_entry("paged_attention_sc", 8, total["paged_attention_sc"]),

@@ -2,6 +2,9 @@
 every shape applies to every arch, with the documented exceptions
 (long_500k only for sub-quadratic archs).
 
+``moe_capacity`` is ``models/moe.py``'s one rule, imported here for the
+MoE problems of :func:`sc_gemm_problems`.
+
 The JAX package's ``input_specs`` and ``cache_specs`` build
 ``jax.ShapeDtypeStruct`` stand-ins for its dry run; they come with the
 port of ``launch/dryrun.py`` (ROADMAP.md, Queue 1).
@@ -9,6 +12,8 @@ port of ``launch/dryrun.py`` (ROADMAP.md, Queue 1).
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+from repro_torch.models.moe import moe_capacity
 
 from .base import ModelConfig
 
@@ -44,14 +49,6 @@ def is_applicable(cfg: ModelConfig, shape: Shape) -> tuple[bool, str]:
                        "long_500k requires sub-quadratic decode (spec: run for "
                        "SSM/hybrid only)")
     return True, ""
-
-
-def moe_capacity(cfg: ModelConfig) -> int:
-    """Per-expert dispatch rows of one router group (the JAX package's
-    ``models/moe.py::moe_capacity``; the port's MoE family is not ported
-    yet, so the rule lives here)."""
-    g, e = cfg.router_group_size, cfg.n_experts
-    return max(int(g * cfg.top_k / e * cfg.capacity_factor), 4)
 
 
 def sc_gemm_problems(cfg: ModelConfig,

@@ -92,21 +92,38 @@ def sc_proj(x: torch.Tensor, w: torch.Tensor, cfg,
     ``x``'s dtype; the launch plan is the autotuner's for ``(bucket_m(M),
     K, N, bits)`` under ``"pallas_tuned"`` and, on the card, ``"auto"``),
     else :func:`sc_dense` with the config's ``sc_impl``. All give the same
-    bits."""
+    bits.
+
+    Batched (a MoE projection, the reference's ``jax.vmap`` of ``sc_proj``
+    over experts): ``x (E, M, K)`` with ``w (E, K, N)`` gives ``(E, M,
+    N)``, each expert quantized with its own per-tensor weight scale. The
+    exact path is a float32 batched product; the packed path (``packed``
+    a batched pack) one ``sc_linear`` launch for all experts; the per-call
+    path :func:`sc_dense` expert by expert."""
+    batched = w.dim() == 3
     if not cfg.use_sc_gemm:
+        if batched:
+            return torch.bmm(x.to(torch.float32),
+                             w.to(torch.float32)).to(x.dtype)
         return x @ w
     impl = resolve_impl(cfg.sc_impl)
     if (packed is not None and impl in PACKED_IMPLS
             and not (torch.is_grad_enabled()
                      and (x.requires_grad or w.requires_grad))):
-        if packed.bits != cfg.sc_bits or packed.shape != tuple(w.shape):
+        have = ((packed.experts, *packed.shape) if packed.experts
+                else packed.shape)
+        if packed.bits != cfg.sc_bits or have != tuple(w.shape):
             raise ConfigError(
-                f"packed weight {packed.shape} at {packed.bits} bits does "
+                f"packed weight {have} at {packed.bits} bits does "
                 f"not match the weight {tuple(w.shape)} at sc_bits="
                 f"{cfg.sc_bits}: pack the parameters again")
-        x2 = x.reshape(-1, x.shape[-1])
+        x2 = x if batched else x.reshape(-1, x.shape[-1])
         tuned = impl == "pallas_tuned" or (impl == "auto" and x2.is_cuda)
         out = sc_linear(x2, packed,
                         config=get_or_tune(x2, packed) if tuned else None)
-        return out.reshape(*x.shape[:-1], packed.shape[1])
+        return out if batched else out.reshape(*x.shape[:-1],
+                                               packed.shape[1])
+    if batched:
+        return torch.stack([sc_dense(x[e], w[e], cfg.sc_bits, cfg.sc_impl)
+                            for e in range(w.shape[0])])
     return sc_dense(x, w, cfg.sc_bits, cfg.sc_impl)

@@ -15,8 +15,9 @@ import torch
 
 from .tcu import stream_length
 
-__all__ = ["SignMagnitude", "quantize_sign_magnitude",
-           "dequantize_sign_magnitude", "recover_counts"]
+__all__ = ["SignMagnitude", "quantize_sign_magnitude", "absmax_scale",
+           "quantize_at_scale", "dequantize_sign_magnitude",
+           "recover_counts"]
 
 
 class SignMagnitude(NamedTuple):
@@ -36,19 +37,32 @@ def quantize_sign_magnitude(v: torch.Tensor, *, bits: int,
     over ``axis`` (kept as a size-1 dim). The max is exact in any order, so
     per-row scales make each row's planes independent of its neighbours.
     """
-    n_max = stream_length(bits) - 1
     av = v.abs()
     if axis is None:
         absmax = av.amax()
     else:
         absmax = av.amax(dim=axis, keepdim=True)
+    return quantize_at_scale(v, absmax_scale(absmax, bits=bits), bits=bits)
+
+
+def absmax_scale(absmax: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """The float32 scale of values whose largest magnitude is ``absmax``:
+    ``max(absmax, 1e-12) / (2**bits - 1)``."""
     absmax = absmax.clamp_min(1e-12).to(torch.float32)
     # a tensor divisor: PyTorch's CUDA division by a Python scalar
     # multiplies by its reciprocal, one ulp off the true quotient. It is
     # filled on the divisor's device: a tensor copied from the host would
     # make the host wait for the device
-    scale = absmax / absmax.new_full((), float(n_max))
-    mag = torch.clamp(torch.round(av / scale), 0, n_max).to(torch.int32)
+    return absmax / absmax.new_full((), float(stream_length(bits) - 1))
+
+
+def quantize_at_scale(v: torch.Tensor, scale: torch.Tensor, *,
+                      bits: int) -> SignMagnitude:
+    """Sign-magnitude planes of ``v`` at a given ``scale`` (broadcastable):
+    elementwise, so a tensor quantized piece by piece at its whole
+    scale gives the bits of :func:`quantize_sign_magnitude`."""
+    n_max = stream_length(bits) - 1
+    mag = torch.clamp(torch.round(v.abs() / scale), 0, n_max).to(torch.int32)
     sign = torch.where(v < 0, -1, 1).to(torch.int8)
     return SignMagnitude(sign=sign, mag=mag, scale=scale, bits=bits)
 

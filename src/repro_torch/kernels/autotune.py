@@ -8,7 +8,9 @@ default plan (the first point of each grid, today's ``plan()``):
 
 * SC-GEMM (:class:`KernelConfig`) — rows a block ``mr`` and the K range a
   block ``kc``, hence the K split (``kernels/sc_matmul.py::plan``'s
-  choices). Partials are int32 counts, added exactly in any order.
+  choices). Partials are int32 counts, added exactly in any order. A
+  batched launch (one MoE projection of E experts) is keyed apart
+  (``:e<E>``) and its K split counts every expert's tiles.
 * bit-parallel stream multiply (:class:`StreamConfig`) — ``block_rows``,
   rows of 128 elements a block.
 * flash attention (:class:`FlashConfig`) — query heads and m-tiles a block
@@ -47,10 +49,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import fcntl
 import json
 import math
 import os
 import tempfile
+import threading
 import time
 from dataclasses import asdict, dataclass
 from pathlib import Path
@@ -299,13 +303,17 @@ class AutotuneCache:
 
     @staticmethod
     def key(m: int, k: int, n: int, bits: int, *, dtype="float32",
-            device="cuda", backend: str | None = None) -> str:
+            device="cuda", backend: str | None = None,
+            experts: int = 0) -> str:
         """SC-GEMM: ``dtype`` is the A operand's (float rows of the fused
         entry, or a signed plane). Skinny M extents are bucketed
-        (:func:`bucket_m`)."""
+        (:func:`bucket_m`). A batched launch of ``experts`` problems (a
+        MoE projection) ends in ``:e<experts>``; an unbatched key has no
+        such suffix."""
         backend = backend or _backend(device, "sc_matmul")
         return (f"sc_gemm:{_mode(device)}:{backend}:m{bucket_m(m)}:k{k}"
-                f":n{n}:{_dtype(dtype)}:b{bits}")
+                f":n{n}:{_dtype(dtype)}:b{bits}"
+                + (f":e{experts}" if experts else ""))
 
     @staticmethod
     def stream_key(size: int, bits: int, *, device="cuda",
@@ -391,28 +399,40 @@ class AutotuneCache:
         self._entries[key] = ent
         self._save()
 
-    def _save(self) -> None:
-        """Best-effort persist; an unwritable path degrades to in-memory.
+    @property
+    def lock_path(self) -> Path:
+        """The file whose exclusive ``flock`` serialises the writers of the
+        cache, beside it."""
+        return self.path.with_name(self.path.name + ".lock")
 
-        Concurrent-writer safe: the on-disk document is re-read and merged
-        under this process's keys before the atomic replace, so two tuners
-        sweeping different shapes interleave without losing each other's
-        winners, and a reader never sees a torn file (write to a temporary
-        file, then rename).
+    def _save(self) -> None:
+        """Best-effort persist; an unwritable path (the cache's or its
+        lock's) degrades to in-memory.
+
+        Concurrent-writer safe: under an exclusive ``flock`` on
+        :attr:`lock_path` (and, for the threads of one process, a
+        process-wide lock around it) the on-disk document is re-read,
+        merged under this instance's keys and replaced atomically (written
+        to a temporary file, then renamed), so every writer's keys
+        survive and a reader never sees a torn file.
         """
         tmp = None
         try:
             self.path.parent.mkdir(parents=True, exist_ok=True)
-            merged = self._read_disk()
-            merged.update(self._entries)
-            self._entries = merged
-            doc = {"kind": CACHE_KIND, "version": CACHE_VERSION,
-                   "entries": merged}
-            fd, tmp = tempfile.mkstemp(dir=str(self.path.parent),
-                                       prefix=self.path.name, suffix=".tmp")
-            with os.fdopen(fd, "w") as f:
-                json.dump(doc, f, indent=1, sort_keys=True)
-            os.replace(tmp, self.path)
+            with _SAVE_LOCK, open(self.lock_path, "a") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                merged = self._read_disk()
+                merged.update(self._entries)
+                self._entries = merged
+                doc = {"kind": CACHE_KIND, "version": CACHE_VERSION,
+                       "entries": merged}
+                fd, tmp = tempfile.mkstemp(dir=str(self.path.parent),
+                                           prefix=self.path.name,
+                                           suffix=".tmp")
+                with os.fdopen(fd, "w") as f:
+                    json.dump(doc, f, indent=1, sort_keys=True)
+                os.replace(tmp, self.path)
+                tmp = None
         except OSError:
             if tmp is not None:
                 try:
@@ -424,6 +444,10 @@ class AutotuneCache:
         return len(self._entries)
 
 
+#: Held around a writer's ``flock`` (``AutotuneCache._save``), so the
+#: threads of one process exclude each other whatever ``flock`` does
+#: between their descriptors.
+_SAVE_LOCK = threading.Lock()
 _DEFAULT_CACHES: dict[Path, AutotuneCache] = {}
 
 
@@ -448,14 +472,15 @@ def _unique(cands: Iterable) -> list:
     return out
 
 
-def candidate_configs(m: int, k: int, n: int, *,
-                      sms: int = 0) -> list[KernelConfig]:
-    """The SC-GEMM grid for an (M, K, N) problem on a card of ``sms`` SMs
-    (0 on the CPU): first today's :func:`sc_matmul.plan`, then every row
-    tile up to the one covering M, each with the K splits that give the
-    grid 1, 2, 4 and 8 blocks an SM where K allows, and no split. Every
-    candidate fits the wrapper's limits."""
-    mr0, kc0, _ = gemm_plan(m, n, k, sms)
+def candidate_configs(m: int, k: int, n: int, *, sms: int = 0,
+                      batch: int = 1) -> list[KernelConfig]:
+    """The SC-GEMM grid for a launch of ``batch`` (M, K, N) problems on a
+    card of ``sms`` SMs (0 on the CPU): first today's
+    :func:`sc_matmul.plan`, then every row tile up to the one covering M,
+    each with the K splits that give the grid 1, 2, 4 and 8 blocks an SM
+    where K allows, and no split. Every candidate fits the wrapper's
+    limits."""
+    mr0, kc0, _ = gemm_plan(m, n, k, sms, batch)
     cands = [KernelConfig(mr0, kc0)]
     cover = row_tile(m)
     k_cap = -(-k // K_STAGE) * K_STAGE
@@ -464,7 +489,7 @@ def candidate_configs(m: int, k: int, n: int, *,
             break
         kc_max = max(K_STAGE, min(K_BLOCK_MAX,
                                   A_SMEM_ENTRIES // mr // K_STAGE * K_STAGE))
-        tiles = -(-n // TILE_N) * -(-max(m, 1) // mr)
+        tiles = -(-n // TILE_N) * -(-max(m, 1) // mr) * batch
         for target in SPLIT_TARGETS:
             splits = max(1, min(-(-target * sms // tiles), -(-k // K_STAGE)))
             kc = -(-max(-(-k // splits), 1) // K_STAGE) * K_STAGE
@@ -615,17 +640,20 @@ def _synth(shape, seed: int, dtype: torch.dtype, device,
 
 
 def _gemm_operands(m: int, k: int, n: int, bits: int, a_dtype, fused: bool,
-                   device):
+                   device, experts: int = 0):
     """Synthetic SC-GEMM operands: float rows and a packed weight (the
-    fused entry), or two signed planes (the counts entry)."""
+    fused entry; ``experts`` > 0 a batched one and rows ``(E, M, K)``), or
+    two signed planes (the counts entry)."""
     lim = (1 << bits) - 1
     pdt = plane_dtype(bits)
     if fused:
         ldb = -(-n // 8) * 8
-        plane = _synth((k, ldb), k * 7919 + n, pdt, device, -lim, lim)
-        scale = torch.tensor(1.0 / lim, dtype=torch.float32, device=device)
-        return (_synth((m, k), m * 7919 + k, a_dtype, device),
-                PackedWeight(plane, scale, bits, (k, n)))
+        lead = (experts,) if experts else ()
+        plane = _synth((*lead, k, ldb), k * 7919 + n, pdt, device, -lim, lim)
+        scale = torch.full(lead, 1.0 / lim, dtype=torch.float32,
+                           device=device)
+        return (_synth((*lead, m, k), m * 7919 + k, a_dtype, device),
+                PackedWeight(plane, scale, bits, (k, n), experts))
     return (_synth((m, k), m * 7919 + k, pdt, device, -lim, lim),
             _synth((k, n), k * 7919 + n, pdt, device, -lim, lim))
 
@@ -642,14 +670,16 @@ def autotune(a, b, *, bits: int = 8,
              iters: int = 3, max_candidates: int | None = None
              ) -> tuple[KernelConfig, float]:
     """Sweep the SC-GEMM grid on live operands — float rows ``a (M, K)``
-    and a :class:`PackedWeight` ``b`` (the fused entry), or signed planes
-    ``a (M, K)``, ``b (K, N)`` — and return (best config, best µs)."""
-    m, k = a.shape
+    (``(E, M, K)`` for a batched pack) and a :class:`PackedWeight` ``b``
+    (the fused entry), or signed planes ``a (M, K)``, ``b (K, N)`` — and
+    return (best config, best µs)."""
+    m, k = a.shape[-2:]
     n = b.shape[1]
+    batch = 1
     if isinstance(b, PackedWeight):
-        bits = b.bits
+        bits, batch = b.bits, max(b.experts, 1)
     cands = list(candidates if candidates is not None else candidate_configs(
-        m, k, n, sms=device_info(a.device)[1]))
+        m, k, n, sms=device_info(a.device)[1], batch=batch))
     if max_candidates is not None:
         cands = cands[:max_candidates]
     best, us, _ = _sweep(
@@ -664,26 +694,31 @@ def get_or_tune(a, b, *, bits: int = 8, cache: AutotuneCache | None = None,
                 iters: int = 3) -> KernelConfig:
     """Cached SC-GEMM plan for the problem of ``a (M, K)`` and ``b`` (a
     :class:`PackedWeight`, whose bits win, or a ``(K, N)`` plane); sweeps
-    on a miss. Only the shapes, dtypes and device of ``a`` and ``b`` are
-    read: the sweep times synthetic operands of the same kind, at
-    ``bucket_m(M)`` rows, so one winner serves every batch in a bucket."""
-    m, k = a.shape
+    on a miss. A batched pack of E experts takes rows ``a (E, M, K)``: one
+    launch of E problems, keyed apart (``:e<E>``) and swept over the same
+    grid counted for all E (:func:`candidate_configs`). Only the shapes,
+    dtypes and device of ``a`` and ``b`` are read: the sweep times
+    synthetic operands of the same kind, at ``bucket_m(M)`` rows, so one
+    winner serves every batch in a bucket."""
+    m, k = a.shape[-2:]
     n = b.shape[1]
     fused = isinstance(b, PackedWeight)
+    experts = b.experts if fused else 0
     if fused:
         bits = b.bits
     m = bucket_m(m)
     dev = a.device
     cache = cache if cache is not None else _default_cache()
-    key = cache.key(m, k, n, bits, dtype=a.dtype, device=dev)
+    key = cache.key(m, k, n, bits, dtype=a.dtype, device=dev,
+                    experts=experts)
     hit = cache.get(key, KernelConfig)
     if hit is not None and hit.fits():
         return hit
     _may_sweep(key)
     default = candidates is None
     cands = list(candidates) if not default else candidate_configs(
-        m, k, n, sms=device_info(dev)[1])
-    x, w = _gemm_operands(m, k, n, bits, a.dtype, fused, dev)
+        m, k, n, sms=device_info(dev)[1], batch=max(experts, 1))
+    x, w = _gemm_operands(m, k, n, bits, a.dtype, fused, dev, experts)
     cfg, us, times = _sweep(
         cands, lambda c: best_of_us(lambda: _gemm_call(x, w, bits, c),
                                     iters, dev), key)

@@ -66,6 +66,15 @@
 //
 // Rows: MR = 1, 2, 4, 8 (decode, one row tile) or 16-row tiles above
 // (prefill). Ragged M, N and K are masked (zero bytes contribute O = 0).
+//
+// Experts. One launch may serve a batch of independent problems of one
+// shape (a MoE projection of every expert: the reference's jax.vmap over
+// sc_proj, which gives its pallas_call a batch grid axis): blockIdx.z runs
+// over batch x row tiles, and problem e reads A, B and the weight scale
+// and writes the output at e times their strides. A block's work, its K
+// split and its sums are those of the unbatched launch of problem e, so
+// the bits are too; the split's workspace and tile counters take a tile
+// per (problem, row tile, column tile).
 // The caller keeps |counts| < 2^24 so the float32 conversion is exact, and
 // plane magnitudes below 2^bits. Build without --use_fast_math: the
 // quantizer divides with __fdiv_rn and the epilogue multiplies with
@@ -93,6 +102,8 @@ struct Params {
   int* ws;                // (tiles, splits, MR * 64) partials when splits > 1
   unsigned* counters;     // one per output tile, zero between launches
   int M, N, K, ldb, bits, kc, splits;
+  int tiles_m;            // row tiles a problem; blockIdx.z / tiles_m is it
+  long long a_stride, b_stride, out_stride;   // elements between problems
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
@@ -182,7 +193,8 @@ sc_gemm_kernel(Params p) {
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int tile = blockIdx.z * gridDim.x + blockIdx.x;
-  const int m0 = blockIdx.z * MR, n0 = blockIdx.x * kTileN;
+  const int e = blockIdx.z / p.tiles_m;   // the problem (expert)
+  const int m0 = (blockIdx.z - e * p.tiles_m) * MR, n0 = blockIdx.x * kTileN;
   const int k0 = blockIdx.y * p.kc;
   const int kend = min(p.K, k0 + p.kc);
   const int klen = max(kend - k0, 0);
@@ -195,7 +207,7 @@ sc_gemm_kernel(Params p) {
   const int col = n0 + (tid % kColThreads) * 8;
   const bool col_ok = col < p.ldb;
   const int iters = (klen + kKLanes - 1) / kKLanes;
-  const TB* bp = static_cast<const TB*>(p.b);
+  const TB* bp = static_cast<const TB*>(p.b) + e * p.b_stride;
   auto issue = [&](int it) {
     const int k = k0 + it * kKLanes + kl;
     const bool ok = col_ok && k < kend;
@@ -211,7 +223,7 @@ sc_gemm_kernel(Params p) {
   }
 
   // A: per-row scales over the whole row, then this block's K range
-  const TA* ap = static_cast<const TA*>(p.a);
+  const TA* ap = static_cast<const TA*>(p.a) + e * p.a_stride;
   if constexpr (kQuant<TA>) {
     // rows of whole 16-byte words are read 16 bytes a lane (the max is
     // exact in any order)
@@ -369,11 +381,12 @@ sc_gemm_kernel(Params p) {
     if (r >= rows || n >= p.N) return;
     if constexpr (kQuant<TA>) {
       const float s = __fmul_rn(__fmul_rn(static_cast<float>(1 << p.bits), row_scale[r]),
-                                *p.w_scale);
-      static_cast<TO*>(p.out)[(size_t)m * p.N + n] =
+                                p.w_scale[e]);
+      static_cast<TO*>(p.out)[e * p.out_stride + (size_t)m * p.N + n] =
           store_cast<TO>(__fmul_rn(static_cast<float>(count), s));
     } else {
-      static_cast<float*>(p.out)[(size_t)m * p.N + n] = static_cast<float>(count);
+      static_cast<float*>(p.out)[e * p.out_stride + (size_t)m * p.N + n] =
+          static_cast<float>(count);
     }
   };
   int* part = p.ws + ((size_t)tile * p.splits + blockIdx.y) * (MR * kTileN);
@@ -407,7 +420,7 @@ sc_gemm_kernel(Params p) {
 }
 
 template <typename TB, typename TA, typename TO, int MR, bool P16>
-int launch(const Params& p, int tiles_n, int tiles_m, cudaStream_t stream) {
+int launch(const Params& p, int tiles_n, int tiles_z, cudaStream_t stream) {
   auto kern = sc_gemm_kernel<TB, TA, TO, MR, P16>;
   const size_t smem = (size_t)kStages * kThreads * kVec<TB> * 16 + a_region(MR, p.kc);
   // the dynamic size the kernel may take, raised as larger tiles ask
@@ -419,54 +432,60 @@ int launch(const Params& p, int tiles_n, int tiles_m, cudaStream_t stream) {
     if (e != cudaSuccess) return static_cast<int>(e);
     granted = smem;
   }
-  kern<<<dim3(tiles_n, p.splits, tiles_m), kThreads, smem, stream>>>(p);
+  // z: every problem's row tiles
+  kern<<<dim3(tiles_n, p.splits, tiles_z), kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TB, typename TA, typename TO, bool P16>
-int by_rows(const Params& p, int mr, int tiles_n, int tiles_m, cudaStream_t s) {
+int by_rows(const Params& p, int mr, int tiles_n, int tiles_z, cudaStream_t s) {
   switch (mr) {
-    case 1: return launch<TB, TA, TO, 1, P16>(p, tiles_n, tiles_m, s);
-    case 2: return launch<TB, TA, TO, 2, P16>(p, tiles_n, tiles_m, s);
-    case 4: return launch<TB, TA, TO, 4, P16>(p, tiles_n, tiles_m, s);
-    case 8: return launch<TB, TA, TO, 8, P16>(p, tiles_n, tiles_m, s);
-    case 16: return launch<TB, TA, TO, 16, P16>(p, tiles_n, tiles_m, s);
+    case 1: return launch<TB, TA, TO, 1, P16>(p, tiles_n, tiles_z, s);
+    case 2: return launch<TB, TA, TO, 2, P16>(p, tiles_n, tiles_z, s);
+    case 4: return launch<TB, TA, TO, 4, P16>(p, tiles_n, tiles_z, s);
+    case 8: return launch<TB, TA, TO, 8, P16>(p, tiles_n, tiles_z, s);
+    case 16: return launch<TB, TA, TO, 16, P16>(p, tiles_n, tiles_z, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // int16 planes: the packed 16-bit form at bits <= 8, else the int32 form
 template <typename TA, typename TO>
-int int16_plane(const Params& p, int mr, int tiles_n, int tiles_m, cudaStream_t s) {
-  if (p.bits <= 8) return by_rows<int16_t, TA, TO, true>(p, mr, tiles_n, tiles_m, s);
-  return by_rows<int16_t, TA, TO, false>(p, mr, tiles_n, tiles_m, s);
+int int16_plane(const Params& p, int mr, int tiles_n, int tiles_z, cudaStream_t s) {
+  if (p.bits <= 8) return by_rows<int16_t, TA, TO, true>(p, mr, tiles_n, tiles_z, s);
+  return by_rows<int16_t, TA, TO, false>(p, mr, tiles_n, tiles_z, s);
 }
 
 }  // namespace
 
 // kinds: a 0 f32, 1 bf16 (fused: quantize, count, dequantize into the same
 // dtype), 2 int16, 3 int32 (a signed plane: float32 counts); b 0 int16,
-// 1 int32.
+// 1 int32. batch problems of one shape, problem e at e times the strides
+// (in elements) of A, B and the output, its weight scale w_scale[e].
 extern "C" int sc_gemm(int a_kind, int b_kind, const void* a, const void* b,
                        const void* w_scale, void* out, void* ws, void* counters,
                        int M, int N, int K, int ldb, int bits, int mr, int kc,
-                       int splits, void* stream) {
-  if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
-  Params p{a, b, static_cast<const float*>(w_scale), out, static_cast<int*>(ws),
-           static_cast<unsigned*>(counters), M, N, K, ldb, bits, kc, splits};
+                       int splits, int batch, long long a_stride,
+                       long long b_stride, long long out_stride, void* stream) {
+  if (M <= 0 || N <= 0 || batch <= 0) return static_cast<int>(cudaGetLastError());
   const int tiles_n = (N + kTileN - 1) / kTileN, tiles_m = (M + mr - 1) / mr;
+  if ((long long)tiles_m * batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  Params p{a, b, static_cast<const float*>(w_scale), out, static_cast<int*>(ws),
+           static_cast<unsigned*>(counters), M, N, K, ldb, bits, kc, splits,
+           tiles_m, a_stride, b_stride, out_stride};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tiles_z = tiles_m * batch;
   if (b_kind == 0) {
     switch (a_kind) {
-      case 0: return int16_plane<float, float>(p, mr, tiles_n, tiles_m, s);
-      case 1: return int16_plane<__nv_bfloat16, __nv_bfloat16>(p, mr, tiles_n, tiles_m, s);
-      case 2: return int16_plane<int16_t, float>(p, mr, tiles_n, tiles_m, s);
+      case 0: return int16_plane<float, float>(p, mr, tiles_n, tiles_z, s);
+      case 1: return int16_plane<__nv_bfloat16, __nv_bfloat16>(p, mr, tiles_n, tiles_z, s);
+      case 2: return int16_plane<int16_t, float>(p, mr, tiles_n, tiles_z, s);
     }
   } else if (b_kind == 1) {
     switch (a_kind) {
-      case 0: return by_rows<int32_t, float, float, false>(p, mr, tiles_n, tiles_m, s);
-      case 1: return by_rows<int32_t, __nv_bfloat16, __nv_bfloat16, false>(p, mr, tiles_n, tiles_m, s);
-      case 3: return by_rows<int32_t, int32_t, float, false>(p, mr, tiles_n, tiles_m, s);
+      case 0: return by_rows<int32_t, float, float, false>(p, mr, tiles_n, tiles_z, s);
+      case 1: return by_rows<int32_t, __nv_bfloat16, __nv_bfloat16, false>(p, mr, tiles_n, tiles_z, s);
+      case 3: return by_rows<int32_t, int32_t, float, false>(p, mr, tiles_n, tiles_z, s);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -14,6 +14,12 @@ operators around it. It has two entries:
   planes in, float32 exact counts out. ``sc_matmul_counts_signed.launches``
   counts its launches.
 
+A batched :class:`PackedWeight` (``pack_weight`` of ``(E, K, N)``: a MoE
+projection's experts) makes :func:`sc_linear` of rows ``(E, M, K)`` one
+launch for all ``E`` problems, each the bits of its own unbatched launch
+(the reference's ``jax.vmap`` over ``sc_proj``, which gives its
+``pallas_call`` a batch grid axis).
+
 Each takes its plain PyTorch version (:func:`sc_linear_torch`,
 :func:`sc_matmul_counts_signed_torch`) for tensors on the CPU and launches
 the kernel for tensors on the card — never on a failure. :func:`plan` picks
@@ -31,7 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.sc_matmul import signed_counts
-from repro_torch.core.sc_numerics import quantize_sign_magnitude
+from repro_torch.core.sc_numerics import (absmax_scale, quantize_at_scale,
+                                          quantize_sign_magnitude)
 from repro_torch.core.tcu import stream_length
 from repro_torch.errors import ConfigError, KernelLaunchError
 
@@ -56,6 +63,12 @@ A_SMEM_ENTRIES = 8192
 K_BLOCK_MAX = 4096
 #: Blocks per SM the K split aims for.
 BLOCKS_PER_SM = 2
+#: Row tiles of all problems of a launch (the grid's z extent) at most.
+MAX_GRID_Z = 65535
+#: Elements of a weight quantized at once when it is packed: a large head
+#: (llama4's 5,120 x 202,048) quantized whole would need ~20 GB of float32
+#: and int64 temporaries beside the model.
+PACK_CHUNK = 1 << 24
 
 
 def plane_dtype(bits: int) -> torch.dtype:
@@ -90,32 +103,59 @@ class PackedWeight:
     layout: ``plane`` is the signed plane ``(K, ldb)`` (int16 or int32,
     ``ldb`` = N rounded up to 8 so each row starts on 16 bytes, zero past
     N), ``scale`` the float32 per-tensor scale (0-dim), ``bits`` the width
-    and ``shape`` the weight's ``(K, N)``. A snapshot: a weight changed
-    later needs a new one."""
+    and ``shape`` the weight's ``(K, N)``. Batched (``experts`` = E > 0,
+    the weights ``(E, K, N)`` of a MoE projection): ``plane`` is ``(E, K,
+    ldb)`` and ``scale`` ``(E,)``, each expert's its own. A snapshot: a
+    weight changed later needs a new one."""
     plane: torch.Tensor
     scale: torch.Tensor
     bits: int
     shape: tuple[int, int]
+    experts: int = 0
 
     def to(self, device) -> "PackedWeight":
         return PackedWeight(self.plane.to(device), self.scale.to(device),
-                            self.bits, self.shape)
+                            self.bits, self.shape, self.experts)
+
+
+def _pack_one(w: torch.Tensor, bits: int, out: torch.Tensor) -> torch.Tensor:
+    """Quantize ``w (K, N)`` at its per-tensor scale into the zeroed plane
+    ``out (K, ldb)``, a block of rows at a time (elementwise at the whole
+    tensor's scale: the bits of quantizing it whole); returns the
+    scale."""
+    k, n = w.shape
+    rows = max(1, PACK_CHUNK // max(n, 1))
+    absmax = torch.stack([w[i:i + rows].abs().amax().to(torch.float32)
+                          for i in range(0, k, rows)]).amax()
+    scale = absmax_scale(absmax, bits=bits)
+    for i in range(0, k, rows):
+        q = quantize_at_scale(w[i:i + rows].to(torch.float32), scale,
+                              bits=bits)
+        out[i:i + rows, :n] = pack_signed(q.sign, q.mag, bits)
+    return scale
 
 
 @torch.no_grad()
 def pack_weight(w: torch.Tensor, bits: int) -> PackedWeight:
     """Quantize ``w (K, N)`` per tensor and pack it: the plane and scale are
-    the ones ``quantize_sign_magnitude`` + :func:`pack_signed` give."""
-    if w.dim() != 2:
-        raise ConfigError(f"a packed weight is (K, N), got {tuple(w.shape)}")
-    k, n = w.shape
+    the ones ``quantize_sign_magnitude`` + :func:`pack_signed` give,
+    made a block of rows at a time (:data:`PACK_CHUNK`). ``w (E, K, N)``
+    packs each expert so, into one batched pack."""
+    if w.dim() not in (2, 3):
+        raise ConfigError(f"a packed weight is (K, N) or (E, K, N), got "
+                          f"{tuple(w.shape)}")
+    k, n = w.shape[-2:]
     check_exact(k, bits)
-    q = quantize_sign_magnitude(w.to(torch.float32), bits=bits)
-    plane = pack_signed(q.sign, q.mag, bits)
     ldb = -(-n // 8) * 8
-    if ldb != n:
-        plane = F.pad(plane, (0, ldb - n))
-    return PackedWeight(plane.contiguous(), q.scale, bits, (k, n))
+    plane = torch.zeros((*w.shape[:-2], k, ldb), dtype=plane_dtype(bits),
+                        device=w.device)
+    if w.dim() == 2:
+        return PackedWeight(plane, _pack_one(w, bits, plane), bits, (k, n))
+    e = w.shape[0]
+    scale = torch.empty((e,), dtype=torch.float32, device=w.device)
+    for i in range(e):
+        scale[i] = _pack_one(w[i], bits, plane[i])
+    return PackedWeight(plane, scale, bits, (k, n), e)
 
 
 def row_tile(m: int) -> int:
@@ -127,13 +167,15 @@ def row_tile(m: int) -> int:
     return mr
 
 
-def plan(m: int, n: int, k: int, sms: int) -> tuple[int, int, int]:
-    """``(mr, kc, splits)`` of a launch: rows a block (:func:`row_tile`),
-    the K range a block (a multiple of :data:`K_STAGE`, capped so its
-    quantized rows fit shared memory), and the number of K ranges, chosen
-    so the grid gives ``BLOCKS_PER_SM`` blocks per SM where K allows."""
+def plan(m: int, n: int, k: int, sms: int,
+         batch: int = 1) -> tuple[int, int, int]:
+    """``(mr, kc, splits)`` of a launch of ``batch`` problems (M, K, N):
+    rows a block (:func:`row_tile`), the K range a block (a multiple of
+    :data:`K_STAGE`, capped so its quantized rows fit shared memory), and
+    the number of K ranges, chosen so the grid gives ``BLOCKS_PER_SM``
+    blocks per SM where K allows."""
     mr = row_tile(m)
-    tiles = -(-n // TILE_N) * -(-max(m, 1) // mr)
+    tiles = -(-n // TILE_N) * -(-max(m, 1) // mr) * batch
     kc_max = max(K_STAGE, min(K_BLOCK_MAX,
                               A_SMEM_ENTRIES // mr // K_STAGE * K_STAGE))
     splits = max(1, min(-(-BLOCKS_PER_SM * sms // tiles), -(-k // K_STAGE)))
@@ -197,36 +239,43 @@ def _kernel():
     if _FN is None:
         fn = build.load("sc_matmul").sc_gemm
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 3
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
 
 
-def _launch(a, plane, w_scale, out, *, m, n, k, bits, config=None):
+def _launch(a, plane, w_scale, out, *, m, n, k, bits, config=None,
+            batch: int = 1):
     """One launch of the kernel: ``a`` f32/bf16 (fused) or a signed plane
-    (counts), ``plane (K, ldb)``; the plan is ``config``'s (a tuned
-    ``autotune.KernelConfig``) or :func:`plan`'s. A tuned row tile past
-    :func:`row_tile` of the call's rows (a skinny key's winner, swept at
-    its bucket's M, serving fewer rows) is cut to it: the same grid and K
-    split, no masked rows."""
+    (counts), ``plane (K, ldb)``; with ``batch`` > 1, ``batch`` problems
+    of that shape stacked on a leading axis of ``a``, ``plane``,
+    ``w_scale`` and ``out`` (contiguous). The plan is ``config``'s (a
+    tuned ``autotune.KernelConfig``) or :func:`plan`'s. A tuned row tile
+    past :func:`row_tile` of the call's rows (a skinny key's winner, swept
+    at its bucket's M, serving fewer rows) is cut to it: the same grid and
+    K split, no masked rows."""
     dev = a.device
     if config is None:
         sms = _SMS.get(dev.index)
         if sms is None:
             sms = _SMS[dev.index] = torch.cuda.get_device_properties(
                 dev).multi_processor_count
-        mr, kc, splits = plan(m, n, k, sms)
+        mr, kc, splits = plan(m, n, k, sms, batch)
     else:
         if not (config.is_valid() and config.fits()):
             raise ConfigError(f"SC-GEMM plan {config} is not one the kernel "
                               f"takes")
         mr, kc, splits = (min(config.mr, row_tile(m)), config.kc,
                           config.splits(k))
+    if -(-m // mr) * batch > MAX_GRID_Z:
+        raise ConfigError(f"SC-GEMM of {batch} problems of {m} rows at "
+                          f"{mr} rows a block exceeds the kernel grid")
     stream = torch.cuda.current_stream(dev).cuda_stream
     ws = counters = 0
     if splits > 1:
-        tiles = -(-n // TILE_N) * -(-m // mr)
+        tiles = -(-n // TILE_N) * -(-m // mr) * batch
         c, w = _scratch(dev, stream, tiles, tiles * splits * mr * TILE_N)
         counters, ws = c.data_ptr(), w.data_ptr()
     a_kind = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2,
@@ -234,8 +283,11 @@ def _launch(a, plane, w_scale, out, *, m, n, k, bits, config=None):
     rc = _kernel()(a_kind, 0 if plane.dtype == torch.int16 else 1,
                    a.data_ptr(), plane.data_ptr(),
                    0 if w_scale is None else w_scale.data_ptr(),
-                   out.data_ptr(), ws, counters, m, n, k, plane.shape[1],
-                   bits, mr, kc, splits, stream)
+                   out.data_ptr(), ws, counters, m, n, k, plane.shape[-1],
+                   bits, mr, kc, splits, batch,
+                   m * k if batch > 1 else 0,
+                   plane[0].numel() if batch > 1 else 0,
+                   m * n if batch > 1 else 0, stream)
     build.check(rc, "sc_gemm")
 
 
@@ -306,7 +358,13 @@ def sc_matmul_counts(sx, mx, sy, my, *, bits: int = 8) -> torch.Tensor:
 def sc_linear_torch(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
     """Plain version of the fused kernel: quantize the rows of ``x (M, K)``
     (per-row scales), count against the packed plane, dequantize by
-    ``(N · s_row) · s_w`` and cast to ``x``'s dtype — the unfused chain."""
+    ``(N · s_row) · s_w`` and cast to ``x``'s dtype — the unfused chain.
+    Batched, ``x (E, M, K)``: that of each expert in turn."""
+    if pw.experts:
+        return torch.stack([
+            sc_linear_torch(x[e], PackedWeight(pw.plane[e], pw.scale[e],
+                                               pw.bits, pw.shape))
+            for e in range(pw.experts)])
     n = pw.shape[1]
     qa = quantize_sign_magnitude(x.to(torch.float32), bits=pw.bits, axis=-1)
     counts = sc_matmul_counts_signed_torch(
@@ -324,10 +382,20 @@ def sc_linear(x: torch.Tensor, pw: PackedWeight, *,
     the plain version for CPU tensors. A row
     holding a NaN comes out NaN, and so does a row holding an Inf (on the
     CPU only at bits <= 15: there a NaN magnitude converts to int32's
-    minimum, which an int16 plane truncates to 0)."""
+    minimum, which an int16 plane truncates to 0). With a batched pack of
+    E experts, ``x (E, M, K)`` gives ``(E, M, N)``: one launch for all of
+    them on the card, each expert's rows the bits of its own call, or a
+    :class:`ConfigError` where the launch cannot be made (never a loop
+    over experts)."""
     k, n = pw.shape
-    if x.dim() != 2 or x.shape[1] != k:
-        raise ConfigError(f"SC-GEMM rows must be (M, {k}), got "
+    if pw.experts:
+        ok = x.dim() == 3 and x.shape[0] == pw.experts and x.shape[2] == k
+        want = f"({pw.experts}, M, {k})"
+    else:
+        ok = x.dim() == 2 and x.shape[1] == k
+        want = f"(M, {k})"
+    if not ok:
+        raise ConfigError(f"SC-GEMM rows must be {want}, got "
                           f"{tuple(x.shape)}")
     if x.device.type == "cpu" and pw.plane.device.type == "cpu":
         return sc_linear_torch(x, pw)
@@ -335,12 +403,12 @@ def sc_linear(x: torch.Tensor, pw: PackedWeight, *,
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ConfigError(f"SC-GEMM rows must be float32 or bfloat16 on the "
                           f"card, got {x.dtype}")
-    m = x.shape[0]
+    m = x.shape[-2]
     if m >= (1 << 20) or n >= (1 << 30):
         raise ConfigError(f"SC-GEMM shape ({m}, {n}) exceeds the kernel grid")
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
     _launch(x.contiguous(), pw.plane, pw.scale, out, m=m, n=n, k=k,
-            bits=pw.bits, config=config)
+            bits=pw.bits, config=config, batch=max(pw.experts, 1))
     sc_linear.launches += 1
     return out
 

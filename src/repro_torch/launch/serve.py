@@ -15,13 +15,21 @@ and the sequential per-request :func:`generate` baseline (port of
         --sc-gemm --prompt-len 64 [--speculate-k 1]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large \\
         --sc-gemm --prompt-len 64
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen3-moe-235b-a22b --sc-gemm --reduced [--speculate-k 1]
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch llama4-maverick-400b-a17b --sc-gemm --reduced --device cpu
 
 Runs on the card unless ``--device cpu`` is given. The ssm and hybrid
 families (mamba2-130m, zamba2-7b) round ``--chunk`` up to a multiple of
 ``ssm_chunk``; their one-shot prefill takes prompts of a whole number of
 ``ssm_chunk`` tokens, as the reference's does. qwen2-vl-2b serves text
 prompts (M-RoPE at the text positions); musicgen-large's prompts are
-``(S, 4)`` codebook frames and its streams ``(n, 4)``. The synthetic workload
+``(S, 4)`` codebook frames and its streams ``(n, 4)``. The moe family
+(qwen3-moe-235b-a22b, llama4-maverick-400b-a17b) routes each step's tokens
+as one router group, so a prompt of a one-shot prefill longer than the
+group must be a whole number of groups, as the reference's; whole, neither
+fits one card (``--reduced`` on the CPU). The synthetic workload
 is the reference CLI's: every prompt opens with one shared preamble of
 ``prompt_len // 2`` tokens and then diverges, so the prefix cache (on by
 default) has something to share. ``generate`` is the sequential baseline

@@ -1,7 +1,8 @@
 """Family dispatch (port of ``repro/models/model_zoo.py``): one bound
-interface over a config. The dense, vlm and audio families (the
-transformer), ssm (Mamba-2) and hybrid (Zamba2) are ported; moe raises
-:class:`ConfigError` naming the slice that brings it."""
+interface over a config. Every family of the reference is ported: dense,
+moe, vlm and audio are the transformer (its MoE layers in
+``models/moe.py``), ssm is Mamba-2 (``ssm_lm``) and hybrid Zamba2
+(``zamba2``); an unknown family raises :class:`ConfigError`."""
 from __future__ import annotations
 
 import torch
@@ -15,11 +16,11 @@ from . import ssm_lm, transformer, zamba2
 
 __all__ = ["bind", "BoundModel", "pack_sc_weights"]
 
-#: Families of the JAX package that later slices of the port bring.
-_LATER = {"moe": "the MoE slice"}
+#: Families of the JAX package that later slices of the port bring: none.
+_LATER: dict[str, str] = {}
 
-_MODULES = {"dense": transformer, "vlm": transformer, "audio": transformer,
-            "ssm": ssm_lm, "hybrid": zamba2}
+_MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+            "audio": transformer, "ssm": ssm_lm, "hybrid": zamba2}
 
 
 def _module(cfg: ModelConfig):
@@ -71,8 +72,8 @@ class BoundModel:
 
     def decode_window_step(self, params, cache, batch):
         """Speculative verify: ``W`` tokens a sequence in one forward, row
-        ``i`` equal to the ``i + 1``-th sequential decode step. The dense
-        family only: recurrent state cannot roll back."""
+        ``i`` equal to the ``i + 1``-th sequential decode step. The
+        transformer families only: recurrent state cannot roll back."""
         if self._mod is not transformer:
             raise ConfigError(
                 f"decode_window_step needs a transformer family (recurrent "

@@ -1,5 +1,5 @@
-"""Decoder-only transformer: the dense, vlm and audio families (port of
-``repro/models/transformer.py`` without its MoE layers).
+"""Decoder-only transformer: the dense, moe, vlm and audio families (port
+of ``repro/models/transformer.py``).
 
 Parameters are a plain dict with the JAX package's leaf shapes — ``wq``
 ``(d, H, hd)``, ``wk``/``wv`` ``(d, KV, hd)``, ``wo`` ``(H, hd, d)`` — except
@@ -9,7 +9,14 @@ the JAX layout: ``k``/``v`` are tuples over the window/MoE group positions
 of ``(ngroups, B, S, KV, hd)`` tensors (the slot axis at 1), and layer
 ``l`` lives at ``k[l % group][l // group]``.
 
-With ``cfg.use_sc_gemm`` every dense projection — QKV/O, MLP, and the LM
+The moe family (qwen3-moe, llama4) holds a ``"moe"`` FFN
+(``models/moe.py``) instead of ``"mlp"`` in each layer whose position in
+the group is a MoE one (``cfg.moe_at``; llama4 alternates dense and MoE
+layers). :func:`block_forward` routes it, and :func:`forward_hidden`
+returns its aux losses summed (group by group, as the reference's scan).
+
+With ``cfg.use_sc_gemm`` every dense projection — QKV/O, MLP, the experts
+(one batched launch a projection for all of a layer's experts) and the LM
 head — runs through ``core.sc_layers.sc_proj``, i.e. the SC-GEMM kernel on
 the card. :func:`pack_sc_weights` quantizes and packs those weights once
 (a ``"packed"`` dict beside the float weights of each layer's ``attn`` and
@@ -35,11 +42,9 @@ cache are the largest tensors of a serving process) and return it.
 """
 from __future__ import annotations
 
-from functools import partial
 from typing import Any, NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sc_layers import sc_proj
@@ -49,6 +54,7 @@ from repro_torch.kernels.sc_matmul import pack_weight
 from .layers import (PagedKV, apply_mrope, apply_rope, decode_attention,
                      flash_attention, paged_decode_attention, rms_norm, rope,
                      softcap)
+from .moe import gated_ffn, init_moe_params, moe_ffn, pack_moe
 
 __all__ = ["init_params", "forward_hidden", "logits_from_hidden",
            "prefill_step", "prefill_chunk_step", "KVCache", "init_kv_cache",
@@ -66,16 +72,16 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 # ----------------------------------------------------------------- params
 
 def normal_init(seed: int, dtype: torch.dtype, device: torch.device):
-    """``normal(shape, scale)``: float32 normal draws from a
+    """``normal(shape, scale, dtype=dtype)``: float32 normal draws from a
     ``torch.Generator`` on ``device`` seeded with ``seed``, scaled and cast
     to ``dtype`` — the draw every family's ``init_params`` makes."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
-    def normal(shape, scale):
+    def normal(shape, scale, out_dtype=dtype):
         w = torch.randn(shape, generator=gen, device=device,
                         dtype=torch.float32) * scale
-        return w.to(dtype)
+        return w.to(out_dtype)
 
     return normal
 
@@ -85,7 +91,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     """Random parameters from ``seed`` with the JAX package's shapes and
     scales (``transformer.py:93-123``): normal weights scaled by
     ``fan_in ** -0.5``, unit norms; with ``cfg.n_codebooks`` an embed of
-    ``(K, V, d)`` and a head of ``(d, K·V)``. Drawn on ``device`` in
+    ``(K, V, d)`` and a head of ``(d, K·V)``; a MoE FFN where
+    ``cfg.moe_at`` the layer's group position (its router in float32). Drawn on ``device`` in
     float32 from a ``torch.Generator`` there, then cast to the model
     dtype. The draws differ from JAX's; tests carry JAX's parameters
     across with ``repro_torch.convert`` instead."""
@@ -102,16 +109,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, max(kb, 1) * cfg.vocab_size),
                                    d ** -0.5)
-    params["layers"] = [init_block(cfg, normal, dtype, dev)
-                        for _ in range(cfg.n_layers)]
+    params["layers"] = [init_block(cfg, normal, dtype, dev,
+                                   pos=i % cfg.group_size)
+                        for i in range(cfg.n_layers)]
     return params
 
 
-def init_block(cfg: ModelConfig, normal, dtype, dev) -> dict:
-    """One attention + MLP block (``ln1``, ``ln2``, ``attn``, ``mlp``, and
-    with ``cfg.post_norms`` the post norms) with the reference's shapes and
-    scales (its ``_init_attn`` / ``_init_mlp``); ``normal(shape, scale)``
-    draws the weights."""
+def init_block(cfg: ModelConfig, normal, dtype, dev,
+               pos: int | None = None) -> dict:
+    """One attention + FFN block (``ln1``, ``ln2``, ``attn``, ``mlp`` —
+    ``moe`` instead where group position ``pos`` is a MoE one — and with
+    ``cfg.post_norms`` the post norms) with the reference's shapes and
+    scales (its ``_init_attn`` / ``_init_mlp`` / ``init_moe_params``);
+    ``normal(shape, scale)`` draws the weights."""
     d, h, kv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
 
@@ -131,10 +141,13 @@ def init_block(cfg: ModelConfig, normal, dtype, dev) -> dict:
     if cfg.qk_norm:
         attn["q_norm"] = ones(hd)
         attn["k_norm"] = ones(hd)
-    layer = {"ln1": ones(d), "ln2": ones(d), "attn": attn,
-             "mlp": {"w1": normal((d, f), d ** -0.5),
-                     "w3": normal((d, f), d ** -0.5),
-                     "w2": normal((f, d), f ** -0.5)}}
+    layer = {"ln1": ones(d), "ln2": ones(d), "attn": attn}
+    if pos is not None and cfg.moe_at(pos):
+        layer["moe"] = init_moe_params(cfg, normal, dtype)
+    else:
+        layer["mlp"] = {"w1": normal((d, f), d ** -0.5),
+                        "w3": normal((d, f), d ** -0.5),
+                        "w2": normal((f, d), f ** -0.5)}
     if cfg.post_norms:
         layer["ln1_post"] = ones(d)
         layer["ln2_post"] = ones(d)
@@ -169,7 +182,9 @@ def pack_sc_weights(params: dict, cfg: ModelConfig,
     once (``kernels.sc_matmul.pack_weight`` at ``cfg.sc_bits``) beside its
     float weight, as each projection takes it: ``wq``/``wk``/``wv`` as
     ``(d, heads·hd)``, ``wo`` as ``(H·hd, d)``, the MLP weights as they
-    are, the head as ``(d, vocab)`` (``(d, K·vocab)``). Packs are always made anew from the
+    are, each expert projection ``(E, K, N)`` as one batched pack and a
+    shared expert's as plain ones (``moe.pack_moe``), the head as ``(d,
+    vocab)`` (``(d, K·vocab)``). Packs are always made anew from the
     float weights, so a tree packed before a weight changed is never used
     in place of the new one. Without ``cfg.use_sc_gemm`` the tree comes
     back as it is. The float weights stay for the exact path, for
@@ -187,13 +202,17 @@ def pack_sc_weights(params: dict, cfg: ModelConfig,
 
 
 def pack_block(layer: dict, cfg: ModelConfig, pack) -> dict:
-    """One block with its attention and MLP weights packed by ``pack``
-    beside the float weights, as the projections take them."""
+    """One block with its attention and MLP (or MoE) weights packed by
+    ``pack`` beside the float weights, as the projections take them."""
     bits, d = cfg.sc_bits, cfg.d_model
-    attn, mlp = dict(layer["attn"]), dict(layer["mlp"])
+    attn = dict(layer["attn"])
     attn["packed"] = {name: pack(attn[name].reshape(d, -1), bits)
                       for name in ("wq", "wk", "wv")}
     attn["packed"]["wo"] = pack(attn["wo"].reshape(-1, d), bits)
+    if "moe" in layer:
+        return {**layer, "attn": attn,
+                "moe": pack_moe(layer["moe"], cfg, pack)}
+    mlp = dict(layer["mlp"])
     mlp["packed"] = {name: pack(mlp[name], bits)
                      for name in ("w1", "w3", "w2")}
     return {**layer, "attn": attn, "mlp": mlp}
@@ -271,17 +290,12 @@ def _out_proj(p: dict, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
                    p.get("packed", {}).get("wo"))
 
 
-def _mlp_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    # jax.nn.gelu, the reference's activation, defaults to the tanh form
-    act = F.silu if cfg.act == "silu" else partial(F.gelu, approximate="tanh")
-    packed = p.get("packed", {})
-    h = act(sc_proj(x, p["w1"], cfg, packed.get("w1"))) \
-        * sc_proj(x, p["w3"], cfg, packed.get("w3"))
-    return sc_proj(h, p["w2"], cfg, packed.get("w2"))
-
-
-def block_forward(layer: dict, x: torch.Tensor, cfg: ModelConfig, attend):
-    """One pre-norm block; ``attend(q, k, v)`` is the attention site."""
+def block_forward(layer: dict, x: torch.Tensor, cfg: ModelConfig, attend,
+                  aux: list | None = None):
+    """One pre-norm block; ``attend(q, k, v)`` is the attention site. Its
+    FFN is the gated MLP or, in a MoE layer, ``moe.moe_ffn``; with ``aux``
+    (a list) the block appends its aux loss, a float32 zero for a dense
+    block, and only then is a MoE layer's computed."""
     attn_in = rms_norm(x, layer["ln1"], eps=cfg.norm_eps,
                        plus_one=cfg.norm_plus_one)
     attn_out = _out_proj(layer["attn"], attend(layer["attn"], attn_in), cfg)
@@ -291,7 +305,14 @@ def block_forward(layer: dict, x: torch.Tensor, cfg: ModelConfig, attend):
     x = x + attn_out
     ff_in = rms_norm(x, layer["ln2"], eps=cfg.norm_eps,
                      plus_one=cfg.norm_plus_one)
-    ff_out = _mlp_forward(layer["mlp"], ff_in, cfg)
+    if "moe" in layer:
+        ff_out, loss = moe_ffn(layer["moe"], ff_in, cfg,
+                               with_aux=aux is not None)
+    else:
+        ff_out = gated_ffn(layer["mlp"], ff_in, cfg)
+        loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    if aux is not None:
+        aux.append(loss)
     if cfg.post_norms:
         ff_out = rms_norm(ff_out, layer["ln2_post"], eps=cfg.norm_eps,
                           plus_one=cfg.norm_plus_one)
@@ -339,10 +360,11 @@ def _final(params, cfg, x):
 
 
 def _full_sequence(params: dict, cfg: ModelConfig, batch: dict,
-                   collect: bool):
+                   collect: bool, aux: list | None = None):
     """Causal forward over whole sequences at positions ``0..S-1`` (M-RoPE
     at ``batch["mrope_positions"]`` where given); returns the final
-    hidden states and, with ``collect``, each layer's K/V."""
+    hidden states and, with ``collect``, each layer's K/V; with ``aux`` (a
+    list) each layer's aux loss appended to it."""
     x = _embed(params, cfg, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
@@ -351,7 +373,7 @@ def _full_sequence(params: dict, cfg: ModelConfig, batch: dict,
     for i, layer in enumerate(params["layers"]):
         attend = full_attend(cfg, positions, cfg.window_at(i % cfg.group_size),
                              kvs, batch.get("mrope_positions"))
-        x = block_forward(layer, x, cfg, attend)
+        x = block_forward(layer, x, cfg, attend, aux)
     return _final(params, cfg, x), kvs
 
 
@@ -382,10 +404,20 @@ def full_attend(cfg: ModelConfig, positions: torch.Tensor,
 def forward_hidden(params: dict, cfg: ModelConfig,
                    batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward → (hidden ``(B, S, d)`` after the final norm,
-    aux loss — zero without MoE layers). ``batch`` may hold
-    ``visual_embeds`` and ``mrope_positions``."""
-    hidden, _ = _full_sequence(params, cfg, batch, collect=False)
-    return hidden, torch.zeros((), dtype=torch.float32, device=hidden.device)
+    aux loss — the MoE layers' summed as the reference's scan sums them: a
+    group's positions in order, then the groups; zero without MoE
+    layers). ``batch`` may hold ``visual_embeds`` and
+    ``mrope_positions``."""
+    aux: list = []
+    hidden, _ = _full_sequence(params, cfg, batch, collect=False, aux=aux)
+    gsz = cfg.group_size
+    groups = []
+    for g in range(0, len(aux), gsz):
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for a in aux[g:g + gsz]:
+            total = total + a
+        groups.append(total)
+    return hidden, torch.stack(groups).sum()
 
 
 def logits_from_hidden(params: dict, cfg: ModelConfig,

@@ -63,6 +63,10 @@ Codebook models (the audio family) take ``(S, K)`` prompts and emit a
 ``(K,)`` token a step, one per codebook, sampled from the step's ``(K,
 V)`` logit row; their streams are ``(n, K)`` and stop on length only, as
 in the reference. They take neither speculation nor the prefix cache.
+The moe family speculates and, as in the reference, takes no prefix
+cache; a step's tokens route as one group (its router's capacity
+positions depend on the group), so its streams equal the baseline's
+while no group drops a token.
 
 Determinism: with SC-GEMM on, per-request streams equal the sequential
 ``launch.serve.generate`` baseline token for token — the projections are
@@ -165,8 +169,9 @@ class Engine:
 
     ``speculate_k`` (default ``cfg.speculate_k``) > 0 serves by
     self-speculative rounds with drafts at ``draft_bits`` (default
-    ``cfg.draft_bits``, 2..8); it needs the paged layout, a dense family
-    and greedy requests (others raise :class:`ConfigError`). Graphed, the
+    ``cfg.draft_bits``, 2..8); it needs the paged layout, a transformer
+    family without codebooks (dense, moe, vlm) and greedy requests
+    (others raise :class:`ConfigError`). Graphed, the
     draft, verify and rollback steps of the shape hang off the decode
     step, captured once when an engine first asks for them.
     """

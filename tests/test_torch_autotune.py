@@ -114,6 +114,45 @@ def test_sc_gemm_grid_starts_at_todays_plan(m, k, n, sms):
     assert first == KernelConfig(mr, kc) and first.splits(k) == splits
 
 
+@pytest.mark.parametrize("batch", [1, 32, 128])
+@pytest.mark.parametrize("m,k,n", [(64, 4096, 1536), (64, 1536, 4096),
+                                   (64, 5120, 8192), (4, 96, 40)])
+def test_batched_grid_starts_at_the_batched_plan(m, k, n, batch):
+    """A launch of ``batch`` expert problems: the same grid, today's plan
+    for the whole launch first (its K split counting every expert's
+    tiles), every point valid; one problem is the unbatched grid."""
+    mr, kc, splits = skm.plan(m, n, k, 132, batch)
+    cands = autotune.candidate_configs(m, k, n, sms=132, batch=batch)
+    assert cands[0] == KernelConfig(mr, kc) and cands[0].splits(k) == splits
+    assert all(c.is_valid() and c.fits() for c in cands)
+    if batch == 1:
+        assert cands == autotune.candidate_configs(m, k, n, sms=132)
+    # more tiles never ask for more K ranges
+    assert splits <= skm.plan(m, n, k, 132)[2]
+
+
+def test_a_batched_launch_keys_apart_and_tunes_once(tmp_path, monkeypatch):
+    """``:e<E>`` ends a batched key only (unbatched keys keep their form),
+    and ``get_or_tune`` of rows ``(E, M, K)`` and a batched pack sweeps
+    once under it, then hits for every batch of the bucket."""
+    plain = AutotuneCache.key(64, 96, 40, 8, **CPU)
+    batched = AutotuneCache.key(64, 96, 40, 8, experts=4, **CPU)
+    assert batched == plain + ":e4" and ":e" not in plain
+    pw = skm.pack_weight(torch.as_tensor(_normal(1, (4, 96, 40))), 8)
+    cache = AutotuneCache(tmp_path / "tune.json")
+    cands = autotune.candidate_configs(16, 96, 40, batch=4)
+    timer = _Timer([9.0, 3.0] + [5.0] * len(cands))
+    monkeypatch.setattr(autotune, "best_of_us", timer)
+    sweeps = autotune.sweeps
+    cfg = autotune.get_or_tune(torch.zeros((4, 16, 96)), pw, cache=cache)
+    assert cfg == cands[1] and autotune.sweeps == sweeps + 1
+    assert cache.keys() == [cache.key(16, 96, 40, 8, dtype=torch.float32,
+                                      device="cpu", experts=4)]
+    with autotune.lookup_only():
+        assert autotune.get_or_tune(torch.zeros((4, 9, 96)), pw,
+                                    cache=cache) == cfg
+
+
 @pytest.mark.parametrize("m", [1, 3, 4, 8, 9, 33, 64])
 def test_skinny_m_tiles(m):
     """A decode batch sweeps at its bucket: the grid offers every row tile
@@ -326,15 +365,12 @@ def _survivors(path, tags, n):
 
 
 def _check_merge(path, tags, n):
-    """The last writer's set is complete, the others' survive up to the
-    keys inside its final read-to-rename window, and the document is
-    never torn."""
+    """Every writer's keys survive (the writers hold the cache's file lock
+    from the re-read to the rename), and the document is never torn."""
     doc = json.loads(path.read_text())
     assert doc["kind"] == CACHE_KIND and doc["version"] == CACHE_VERSION
     alive = _survivors(path, tags, n)
-    assert any(len(v) == n for v in alive.values()), alive
-    assert all(len(v) >= 1 for v in alive.values()), alive
-    assert sum(map(len, alive.values())) >= n + len(tags) - 1
+    assert all(v == list(range(n)) for v in alive.values()), alive
 
 
 def test_cache_concurrent_writer_threads(tmp_path):
@@ -387,6 +423,18 @@ def test_cache_unwritable_path_degrades_to_memory():
     key = cache.key(1, 2, 3, 8, **CPU)
     cache.put(key, KernelConfig())
     assert cache.get(key) == KernelConfig()
+
+
+def test_cache_unwritable_lock_degrades_to_memory(tmp_path):
+    """A lock file that cannot be opened (here a directory stands at its
+    path) leaves the cache in memory, as an unwritable cache does."""
+    cache = AutotuneCache(tmp_path / "tune.json")
+    cache.lock_path.mkdir()
+    key = cache.key(1, 2, 3, 8, **CPU)
+    cache.put(key, KernelConfig())
+    assert cache.get(key) == KernelConfig()
+    assert not cache.path.exists()
+    assert [p.name for p in tmp_path.iterdir()] == [cache.lock_path.name]
 
 
 def test_default_path_is_the_ports_own(monkeypatch, tmp_path):

@@ -1892,3 +1892,118 @@ def test_multimodal_streams_one_slot_equal_four_and_chunked_one_shot(cuda,
     assert len(rows["four slots"]) == len(rows["eager"]) >= 5
     for i, (g, e) in enumerate(zip(rows["four slots"], rows["eager"])):
         np.testing.assert_array_equal(g, e, err_msg=f"decode step {i}")
+
+
+# ------------------------------------------------------------ the moe slice
+#
+# A MoE projection is one launch for all experts: rows (E, M, K) against a
+# batched pack (E, K, N). qwen3-moe-235b-a22b's experts are (4096, 1536)
+# and (1536, 4096), llama4-maverick-400b-a17b's (5120, 8192) and (8192,
+# 5120), each at M = C = 64 rows an expert; here E = 4 of them.
+
+MOE_SHAPES = [(4096, 1536), (1536, 4096), (5120, 8192), (8192, 5120)]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("k,n", MOE_SHAPES)
+def test_batched_launch_equals_plain_and_unbatched_launches(cuda, k, n,
+                                                            dtype, bits):
+    """At 64 rows and at 37 (not a row-tile multiple), a NaN row in one
+    expert and an expert of zero rows: one batched launch, at the default
+    plan and at every candidate of its grid, is bit-equal to the plain
+    version and to E unbatched launches of each expert."""
+    from repro_torch.kernels import autotune
+    gen = torch.Generator(device=cuda).manual_seed(k + n + bits)
+    w = (torch.randn((4, k, n), generator=gen, device=cuda)
+         * k ** -0.5).to(dtype)
+    pw = pack_weight(w, bits)
+    for m in (64, 37):
+        x = torch.randn((4, m, k), generator=gen, device=cuda).to(dtype)
+        x[1, 5, 7] = math.nan
+        x[2] = 0
+        want = sc_linear_torch(x, pw)
+        ones = [pack_weight(w[e], bits) for e in range(4)]
+        for cfg in [None, *autotune.candidate_configs(m, k, n, sms=132,
+                                                      batch=4)]:
+            before = sc_linear.launches
+            got = sc_linear(x, pw, config=cfg)
+            assert sc_linear.launches == before + 1
+            torch.cuda.synchronize()
+            assert got.shape == (4, m, n) and got.dtype == dtype
+            assert torch.equal(got.isnan(), want.isnan())
+            assert torch.equal(got.nan_to_num(), want.nan_to_num()), cfg
+            assert bool(got[1, 5].isnan().all()) and not bool(got[2].any())
+            for e in range(4):
+                one = sc_linear(x[e], ones[e], config=cfg)
+                assert torch.equal(one.nan_to_num(),
+                                   got[e].nan_to_num()), (cfg, e)
+
+
+def test_a_batched_launch_that_cannot_be_made_raises(cuda):
+    """Rows of the wrong expert count, or a grid past the kernel's z
+    extent, raise: nothing loops over experts or drops to the plain
+    version on the card."""
+    pw = pack_weight(torch.randn((4, 64, 32), device=cuda), 8)
+    with pytest.raises(ConfigError, match=r"\(4, M, 64\)"):
+        sc_linear(torch.randn((3, 8, 64), device=cuda), pw)
+    big = pack_weight(torch.randn((4100, 32, 8), device=cuda), 8)
+    before = sc_linear.launches
+    with pytest.raises(ConfigError, match="grid"):
+        sc_linear(torch.randn((4100, 256, 32), device=cuda), big)
+    assert sc_linear.launches == before
+
+
+def _moe_cfg():
+    return dataclasses.replace(
+        ARCHS["qwen3-moe-235b-a22b"].reduced(dtype="float32"),
+        use_sc_gemm=True, sc_bits=8).validate()
+
+
+def _moe_requests(cfg):
+    """Prompts of at most C = 16 tokens: no prefill drops a token, so the
+    streams equal the B=1 baseline's."""
+    rng = np.random.default_rng(25)
+    return [Request(uid=f"r{i}", prompt=rng.integers(
+        0, cfg.vocab_size, size=(n,)).astype(np.int32), max_new_tokens=g)
+        for i, (n, g) in enumerate(zip((9, 16, 5, 12), (6, 10, 8, 5)))]
+
+
+@pytest.mark.parametrize("mode", ["chunked", "oneshot"])
+def test_moe_graphed_decode_equals_eager_and_baseline(cuda, mode):
+    """Reduced qwen3-moe, SC-GEMM at 8 bits: every graphed decode step's
+    logit rows equal the eager engine's bit for bit, the streams equal
+    the baseline, each expert projection of a replay is one launch, and
+    on a fresh tuner cache every sweep happens in a tuning pass (the
+    batched keys among them), none in a warm-up or a capture."""
+    from repro_torch.kernels import autotune
+    from repro_torch.launch import steps
+    steps.clear_decode_steps()
+    cfg = _moe_cfg()
+    params = bind(cfg, cuda).init_params(0)
+    reqs = _moe_requests(cfg)
+    shape = dict(capacity=2, max_seq=32, block=8, chunk=8, prefill_mode=mode)
+    rows = {}
+    for graphs in (True, False):
+        eng = _Recording(cfg, params, device=cuda, graphs=graphs, **shape)
+        res = eng.run(reqs)
+        rows[graphs] = eng.rows
+        if graphs:
+            entries = [eng._decode, *eng.prefill_steps().values()]
+            assert all(s.captures == 1 and s.capture_sweeps == 0
+                       for s in entries)
+            moe_layers = sum(map(cfg.moe_at, range(cfg.n_layers)))
+            dense = 4 * cfg.n_layers + 1
+            assert eng._decode.launch_counts["sc_linear"] == \
+                dense + 3 * moe_layers
+            keys = autotune._default_cache().keys()
+            assert any(key.endswith(f":e{cfg.n_experts}") for key in keys)
+    assert len(rows[True]) == len(rows[False]) >= 10
+    for i, (g, e) in enumerate(zip(rows[True], rows[False])):
+        np.testing.assert_array_equal(g, e, err_msg=f"decode step {i}")
+    base = [generate(cfg, params, r.prompt[None], gen_tokens=r.max_new_tokens,
+                     device=cuda)[0].cpu().numpy() for r in reqs]
+    for r, want in zip(res, base):
+        np.testing.assert_array_equal(r.tokens, want, err_msg=r.uid)
+    steps.clear_decode_steps()

@@ -137,10 +137,12 @@ def test_serve_cli_refuses_out_of_range_attention_bits():
 
 
 def test_later_slices_are_refused():
-    """SC attention, speculation and the prefix cache (on by default) are
-    served now (on the CPU here), and so are the ssm and hybrid families,
-    without speculation, and the vlm and audio families (audio without
-    speculation, on ``(S, K)`` prompts); moe is still refused."""
+    """No slice is refused any more: SC attention, speculation and the
+    prefix cache (on by default) are served (on the CPU here), and so are
+    the ssm and hybrid families, without speculation, the vlm and audio
+    families (audio without speculation, on ``(S, K)`` prompts) and the
+    moe family, which binds, serves and speculates with its prefix cache
+    off, as in the reference."""
     import numpy as np
     from repro_torch.models import bind
     from repro_torch.models.transformer import init_params
@@ -188,8 +190,18 @@ def test_later_slices_are_refused():
                                            max_new_tokens=2)])
         assert out[0].n_generated == 2
         assert out[0].tokens.shape == ((2, k) if k else (2,))
-    with pytest.raises(ConfigError, match="slice"):
-        bind(ARCHS["qwen3-moe-235b-a22b"].reduced(), "cpu")
+    for arch in ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b"):
+        fam = ARCHS[arch].reduced(dtype="float32")
+        fam_params = bind(fam, "cpu").init_params(0)
+        eng = Engine(fam, fam_params, device="cpu", capacity=1, max_seq=24,
+                     block=4)
+        assert eng.prefix is None
+        out = eng.run([Request(uid="m", prompt=[1, 2, 3], max_new_tokens=2)])
+        assert out[0].n_generated == 2 and not eng.stats["prefix_cache"]
+    spec = Engine(fam, fam_params, device="cpu", speculate_k=1, capacity=1,
+                  max_seq=16, block=4)
+    out = spec.run([Request(uid="s", prompt=[1, 2, 3], max_new_tokens=3)])
+    assert out[0].n_generated == 3 and spec.stats["spec_rounds"] >= 1
 
 
 @pytest.mark.parametrize("arch", sorted(JAX_ARCHS))

@@ -74,9 +74,15 @@ def _chain(x, w, bits):
     return (counts * (stream_length(bits) * qa.scale * qb.scale)).to(x.dtype)
 
 
+@pytest.mark.parametrize("rows", [None, 3], ids=["whole", "blocks-of-3"])
 @pytest.mark.parametrize("bits", [4, 8, 16])
 @pytest.mark.parametrize("n", [40, 37])
-def test_pack_weight_planes_equal_jax_quantization(bits, n):
+def test_pack_weight_planes_equal_jax_quantization(bits, n, rows,
+                                                   monkeypatch):
+    """Also when the pack is made in blocks of 3 rows (the last one 1 row)
+    at the whole weight's scale."""
+    if rows:
+        monkeypatch.setattr(skm, "PACK_CHUNK", rows * n)
     _, w = _operands(1, 70, n, seed=bits * 100 + n)
     pw = pack_weight(torch.as_tensor(w), bits)
     j = jquant(jnp.asarray(w), bits=bits)
