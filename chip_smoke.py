@@ -7,7 +7,8 @@ rows, then serves requests through the port's engine at smollm-360m's
 full width — float attention, then SC attention — and at qwen2-vl-2b's,
 musicgen-large's, mamba2-130m's, zamba2-7b's, qwen3-moe-235b-a22b's and
 llama4-maverick-400b-a17b's (the vlm, audio, ssm, hybrid and moe
-families), and checks the streams against the sequential baseline.
+families), and checks the streams against the sequential baseline; last
+it trains smollm-360m at full width, killed and resumed.
 
     python3 chip_smoke.py            # one CUDA card; ~15-18 minutes
     python3 chip_smoke.py --only build,flash   # a subset, for debugging
@@ -160,7 +161,27 @@ Phases (each raises on failure, so any failure exits non-zero):
     verify window of 4 x 2), so no token is dropped and routing is
     batch-invariant. qwen3-moe runs like 16 (eager and graphed twice, a
     speculative engine at (1, 4), the caller's weights on the host
-    meanwhile); llama4 graphed only, chunked and one-shot.
+    meanwhile); llama4 graphed only, chunked and one-shot;
+18. ``train``: smollm-360m at full width as registered (bf16, remat on)
+    with SC-GEMM at 8 bits, the reference CLI's batch 8 x seq 128, lr
+    3e-4, synthetic data of seed 0, cut to 8 steps: ``launch.train.train``
+    for 4 steps with a checkpoint, then again on the same directory,
+    resuming from its save to step 8 (counters set to 0 just before,
+    read just after: 2 x 7 x 32 + 1 SC-GEMM and 2 x 32 flash launches a
+    step, remat running each layer's forward twice; the loss falls; the
+    reference's committed steps, 4 then 4 and 8); the restored weights
+    equal the saved ones, and a step from them repeats the resumed
+    run's first loss; the step's loss and gradients through the SC-GEMM
+    kernel (plain attention) equal ``mxu_split``'s bit for bit, through
+    the flash kernel (exact projections) lie within stated tolerances of
+    plain attention's, and with all kernels within stated tolerances of
+    all plain versions, beside the plain step against itself with
+    attention's sums in another order; a full state saved on the writer
+    thread and
+    restored equals the state in memory, and a step from each is bit
+    for bit the same; ms a step with the kernels and with exact
+    projections, one profiled step, the peak memory; one step with
+    compressed gradients.
 
 Each family cell (15-17) asks for the prefix cache (the dense-only gate
 turns it off, and the stats must say so) and serves chunked then
@@ -179,7 +200,8 @@ baseline and must be refused for the ssm, hybrid and audio cells, as in
 the reference.
 
 The line before the last is a JSON object with one entry per kernel,
-its ``launches`` the sum over every serving run of phases 11-17 (the
+its ``launches`` the sum over every serving run of phases 11-17 and the
+train phase's kill-and-resume (``train_launches`` apart; the
 attention kernels' float and SC entries split as their wrappers counted
 them), its ``tuned`` the tune phase's keys of the kernel; the last line is ``{"ok": true, "device": {...}}``. Details go to
 ``build/chip_smoke.json`` (``$CHIP_SMOKE_OUT`` names another directory).
@@ -2520,6 +2542,535 @@ def phase_serve_moe_llama4() -> dict:
     return _family_phase("serve_moe_llama4", MOE_TRAFFIC)
 
 
+#: The train phase: smollm-360m at full width as registered (32 layers,
+#: bf16, remat on) with SC-GEMM at 8 bits and float attention, at the
+#: reference CLI's batch 8 and sequence 128, learning rate 3e-4 and the
+#: synthetic pipeline of seed 0. Its cut: 8 steps (the CLI's default is
+#: 100), a first ``train`` call of 4 steps that saves and is dropped, then
+#: a second on the same directory that resumes and runs to 8.
+TRAIN_ARCH = "smollm-360m"
+TRAIN_RUN = dict(batch=8, seq=128, lr=3e-4, seed=0)
+TRAIN_KILL, TRAIN_STEPS = 4, 8
+#: Steps timed a configuration (after one untimed step), each between
+#: CUDA events as well as on the host's clock.
+TRAIN_TIMED = 4
+#: The kernels' steps are held against the plain versions' by a floor
+#: taken from the plain path's own rounding at the same numeric: the plain
+#: step against itself with each attention output's bf16 rounding moved
+#: one ulp, up or down, in the share of elements where the kernel's
+#: outputs and the plain version's differ in this run (a hash of each
+#: element's index and bits, salted, picks them, so remat's recompute
+#: moves the same ones). Once for each salt, under SC-GEMM at 8 bits (all
+#: kernels) and at exact projections (the flash kernel alone). The
+#: kernels' loss error, gradient tree L2 distance, and each leaf's max
+#: error and L2 distance must each be no larger than the largest floor
+#: reading of the same numeric. On an H100 80GB HBM3 at 700 W (four
+#: salts) every reading but one sat below the smallest floor:
+#: under SC-GEMM 0.10 against 0.14 in L2 and 0.71 against 0.99 for a
+#: leaf, the loss 7.3e-4 within 5.9e-5–5.6e-3; at exact projections
+#: 6.3e-3 against 6.6e-3 and 1.6e-2 against 2.0e-2.
+TRAIN_FLOOR_SALTS = (1, 2, 3)
+#: the metrics that the floor bounds (``_step_errors``)
+TRAIN_HELD = ("loss_rel", "norm_rel", "max_rel", "leaf_l2_rel")
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+class _FlashRecorder:
+    """While entered, keeps the first ``limit`` flash kernel launches'
+    operands and output (the kernel's layout, ``ops.flash_attention_tuned``)
+    for an element-by-element comparison with the plain version; the
+    launches and their counts are the kernel's own."""
+
+    def __init__(self, limit: int):
+        self.limit, self.calls = limit, []
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._real = real = ops.flash_attention_tuned
+
+        def rec(q, k, v, **kw):
+            out = real(q, k, v, **kw)
+            if len(self.calls) < self.limit:
+                self.calls.append((q.detach(), k.detach(), v.detach(), kw,
+                                   out.detach()))
+            return out
+        ops.flash_attention_tuned = rec
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.flash_attention_tuned = self._real
+
+
+def _ordered(x):
+    """A float tensor's bits as integers in the floats' order (adjacent
+    floats one apart), int64."""
+    import torch
+    itype, mag = {torch.bfloat16: (torch.int16, 0x7FFF),
+                  torch.float32: (torch.int32, 0x7FFFFFFF)}[x.dtype]
+    bits = x.contiguous().view(itype).to(torch.int64)
+    return torch.where(bits < 0, -(bits & mag), bits)
+
+
+def _ulp_stats(got, want) -> dict:
+    """The share of elements that differ, the largest distance in ulps of
+    the dtype (large only near zero, where ulps are small) and the largest
+    difference over the largest magnitude of ``want``."""
+    d = (_ordered(got) - _ordered(want)).abs()
+    return {"share": (d > 0).float().mean().item(),
+            "max_ulps": int(d.max().item()),
+            "max_rel": ((got.float() - want.float()).abs().max()
+                        / want.float().abs().max().clamp(min=1e-30)).item()}
+
+
+def _flash_op_stats(calls) -> dict:
+    """The recorded kernel outputs against the plain version on the same
+    operands, and the plain version against itself over key blocks of half
+    the kernel's group (its online softmax merging two blocks where the
+    kernel's group is one), over every recorded call together."""
+    from repro_torch.kernels.flash_attention import flash_attention_torch
+    rows = {"kernel_vs_plain": [], "plain_half_blocks": []}
+    for q, k, v, kw, out in calls:
+        plain = flash_attention_torch(q, k, v, **kw)
+        rows["kernel_vs_plain"].append(_ulp_stats(out, plain))
+        half = flash_attention_torch(q, k, v, **{**kw,
+                                                 "group": kw["group"] // 2})
+        rows["plain_half_blocks"].append(_ulp_stats(half, plain))
+    return {key: {"share": sum(r["share"] for r in rs) / max(len(rs), 1),
+                  "max_ulps": max((r["max_ulps"] for r in rs), default=0),
+                  "max_rel": max((r["max_rel"] for r in rs), default=0.0),
+                  "calls": len(rs)}
+            for key, rs in rows.items()}
+
+
+class _NudgedPlainAttention:
+    """While entered, the plain flash formulation (``layers._flash_plain``)
+    returns its output with one ulp of its dtype added or taken away in a
+    ``share`` of the elements: those whose index and bits hash (with
+    ``salt``) below the share, so a rematerialised forward moves the same
+    elements. The gradient is the plain formulation's own. ``moved`` and
+    ``seen`` count the elements over the calls."""
+
+    def __init__(self, share: float, salt: int):
+        self.share, self.salt = share, salt
+        self.moved = self.seen = 0
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import layers
+        self._real = real = layers._flash_plain
+        self._counts = []
+
+        def nudged(*args, **kw):
+            out = real(*args, **kw)
+            with torch.no_grad():
+                bits = _ordered(out)
+                idx = torch.arange(bits.numel(), device=bits.device
+                                   ).reshape(bits.shape)
+                h = (idx * 0x9E3779B1 + (bits & 0xFFFF) * 0x7FEB352D
+                     + self.salt * 0x68E31DA4) & 0xFFFFFFFF
+                for _ in range(3):   # a 32-bit integer mix
+                    h = ((h >> 16) ^ h) * 0x45D9F3B & 0xFFFFFFFF
+                pick = (h >> 8).to(torch.float64) < self.share * 2.0 ** 24
+                step = torch.where((h & 1).bool() & (bits != 0), -1, 1)
+                moved = bits + torch.where(pick, step, 0)
+                itype, mag = {torch.bfloat16: (torch.int16, 0x7FFF),
+                              torch.float32: (torch.int32, 0x7FFFFFFF)}[
+                                  out.dtype]
+                raw = torch.where(moved < 0, (-moved) | (mag + 1), moved)
+                raw = torch.where(raw > mag, raw - 2 * (mag + 1), raw)
+                delta = raw.to(itype).view(out.dtype) - out
+                self._counts.append((pick.sum(), pick.numel()))
+            return out + delta
+        layers._flash_plain = nudged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        layers._flash_plain = self._real
+        self.moved = sum(int(n) for n, _ in self._counts)
+        self.seen = sum(t for _, t in self._counts)
+
+
+def _differing(a, b) -> list[str]:
+    """The paths of the leaves of two trees of one structure that are not
+    equal bit for bit."""
+    import torch
+    from repro_torch import tree as tr
+    return [name for name, x, y in zip(tr.paths(a), tr.leaves(a),
+                                       tr.leaves(b))
+            if not torch.equal(x, y)]
+
+
+def _train_cell(cfg, dev, root: Path, run: dict, kill: int, steps: int,
+                timed: int) -> dict:
+    """The train phase on ``dev`` (the card; a reduced config on the CPU
+    rehearses it): a kill-and-resume through ``launch.train.train`` with
+    the launch counters set to 0 just before and read just after; the
+    restored weights against the saved ones; the resumed step repeated
+    from the restored state; the kernels' step against the plain
+    versions'; a full state saved asynchronously, restored, and a step
+    from it against the step from the state in memory; ms a step with the
+    kernels and with exact projections, a profiled step, the peak memory;
+    one step with compressed gradients."""
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.launch import train as tt
+    from repro_torch.models import bind
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim import init as opt_init
+    t_start = time.perf_counter()
+
+    def at() -> str:
+        return f"{time.perf_counter() - t_start:.1f}s"
+
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt_dir = root / "run"
+    args = dict(batch=run["batch"], seq=run["seq"], lr=run["lr"],
+                seed=run["seed"], device=dev, log_every=1)
+
+    # -- the main path: train, killed after `kill` steps, then resumed
+    counters = _serve_launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out1 = tt.train(cfg, steps=kill, ckpt_dir=str(ckpt_dir), **args)
+    after1 = Checkpointer(ckpt_dir).all_steps()
+    out2 = tt.train(cfg, steps=steps, ckpt_dir=str(ckpt_dir), **args)
+    after2 = Checkpointer(ckpt_dir).all_steps()
+    _sync(dev)
+    train_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    losses = out1["losses"] + out2["losses"]
+    log(f"[train] {at()} {cfg.name}: train(steps={kill}) then "
+        f"train(steps={steps}) on one directory in {train_s:.1f}s; losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f"; committed after each call {after1} {after2}")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != steps:
+        raise AssertionError(f"[train] losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"[train] the loss did not fall: {losses}")
+    if after1 != [kill] or after2 != [kill, steps]:
+        raise AssertionError(f"[train] committed steps {after1}, {after2}: "
+                             f"the reference commits only each call's end")
+    # a step's launches: one SC-GEMM a projection and one flash call an
+    # attention site in each forward; under remat every layer group runs
+    # its forward twice, the LM head once a loss chunk
+    fwd = 2 if cfg.remat else 1
+    chunks = -(-run["seq"] // min(cfg.loss_chunk, run["seq"]))
+    want = {"sc_linear": steps * (fwd * 7 * cfg.n_layers + chunks),
+            "flash_attention": steps * fwd * cfg.n_layers}
+    want = {name: (want.get(name, 0) if dev.type == "cuda" else 0)
+            for name in launches}
+    log(f"[train] launches in the {steps} steps: {launches} "
+        f"(want {want})")
+    if launches != want:
+        raise AssertionError(f"[train] launches {launches}, want {want}")
+    del out2
+
+    # -- the saved weights restored, and the resumed step repeated
+    m = bind(cfg, dev)
+    optc = AdamWConfig(quantize_moments=cfg.n_experts >= 64)
+    like = m.init_params(run["seed"])
+    state = Checkpointer(ckpt_dir).restore(
+        kill, {"params": like, "opt": opt_init(like, optc)})
+    del like
+    off = _differing(state["params"], out1["params"])
+    if off or int(state["opt"]["step"]) != kill:
+        raise AssertionError(f"[train] restored leaves differ from the "
+                             f"saved ones: {off[:4]}")
+    del out1
+    pipe = TokenPipeline(PipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=run["seq"],
+        global_batch=run["batch"], n_codebooks=cfg.n_codebooks,
+        seed=run["seed"]))
+
+    def batch_at(step):
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in pipe.get_batch(step).items()}
+
+    def step_of(model, s, i):
+        return tt.train_step(model, s["params"], s["opt"], batch_at(i),
+                             lr_peak=run["lr"], steps=steps, optc=optc)
+
+    with _FlashRecorder(cfg.n_layers) as rec_sc:
+        p1, o1, loss_k, grads_k = step_of(m, state, kill)
+    if float(loss_k) != losses[kill]:
+        raise AssertionError(f"[train] a step from the restored state gives "
+                             f"loss {float(loss_k)!r}, the resumed train "
+                             f"gave {losses[kill]!r}")
+    # the state after it, saved on the writer thread meanwhile
+    s5 = {"params": p1, "opt": o1}
+    ck = Checkpointer(root / "state")
+    ck.save(kill + 1, s5)
+
+    # -- the kernels' step against the plain versions': SC-GEMM alone
+    # (attention plain on both sides) bit for bit; the flash kernel alone
+    # (exact projections) and all kernels together (SC-GEMM at 8 bits) no
+    # further than their floors: the plain step against itself with the
+    # kernel's share of its attention outputs moved one ulp
+    # (TRAIN_FLOOR_SALTS)
+    def grads_of(nudge=None, **kw):
+        model = bind(dataclasses.replace(cfg, **kw), dev)
+        if nudge is None:
+            loss, grads = tt.value_and_grad(model, state["params"],
+                                            batch_at(kill))
+            return float(loss), grads
+        with _NudgedPlainAttention(*nudge) as moved:
+            loss, grads = tt.value_and_grad(model, state["params"],
+                                            batch_at(kill))
+        nudges.append((moved.moved, moved.seen))
+        return float(loss), grads
+
+    nudges = []
+
+    sc_kernel = grads_of(attn_kernel="jnp")
+    plain = grads_of(sc_impl="mxu_split", attn_kernel="jnp")
+    sc_off = _differing(sc_kernel[1], plain[1])
+    sc_equal = sc_kernel[0] == plain[0] and not sc_off
+    log(f"[train] {at()} SC-GEMM kernel's step (attention plain) = "
+        f"mxu_split's bit for bit: {sc_equal} ({len(sc_off)} leaves "
+        f"differ)")
+    if not sc_equal:
+        raise AssertionError(f"[train] the SC-GEMM kernel's step differs "
+                             f"from its plain version's: {sc_off[:4]}")
+    all_vs = _step_errors((float(loss_k), grads_k), plain)
+    del grads_k, plain
+    ops_sc = _flash_op_stats(rec_sc.calls)
+    del rec_sc
+    # SC-GEMM through the kernel, which gives mxu_split's bits (above)
+    floors_sc = [_step_errors(grads_of((ops_sc["kernel_vs_plain"]["share"],
+                                        salt), attn_kernel="jnp"),
+                              sc_kernel)
+                 for salt in TRAIN_FLOOR_SALTS]
+    del sc_kernel
+    with _FlashRecorder(cfg.n_layers) as rec_x:
+        flash_k = grads_of(use_sc_gemm=False)
+    exact_plain = grads_of(use_sc_gemm=False, attn_kernel="jnp")
+    flash = _step_errors(flash_k, exact_plain)
+    del flash_k
+    ops_x = _flash_op_stats(rec_x.calls)
+    del rec_x
+    floors_x = [_step_errors(grads_of((ops_x["kernel_vs_plain"]["share"],
+                                       salt), use_sc_gemm=False,
+                                      attn_kernel="jnp"), exact_plain)
+                for salt in TRAIN_FLOOR_SALTS]
+    del exact_plain
+    for tag, ops in (("SC-GEMM 8 bits", ops_sc), ("exact", ops_x)):
+        kv, ro = ops["kernel_vs_plain"], ops["plain_half_blocks"]
+        log(f"[train] flash outputs ({tag}, the first forward's "
+            f"{kv['calls']} calls, {cfg.dtype}): the kernel's differ from "
+            f"plain attention's in {100 * kv['share']:.4f}% of elements (at "
+            f"most {kv['max_ulps']} ulps, {kv['max_rel']:.2e} of a call's "
+            f"largest); plain attention over key blocks of half the "
+            f"kernel's group against its whole group in "
+            f"{100 * ro['share']:.4f}% ({ro['max_ulps']} ulps, "
+            f"{ro['max_rel']:.2e})")
+    log(f"[train] the floors moved "
+        + ", ".join(f"{n} of {t} outputs" for n, t in nudges)
+        + " (each floor's every attention call, remat's recompute too)")
+    log(f"[train] {at()} all kernels vs plain versions (SC-GEMM 8 bits): "
+        f"{_fmt_errors(all_vs)}; floors (each metric held to the "
+        f"largest), the plain step with that share of its attention "
+        f"outputs an ulp off: "
+        + "; ".join(_fmt_errors(f) for f in floors_sc))
+    log(f"[train] {at()} flash alone vs plain attention (exact "
+        f"projections): {_fmt_errors(flash)}; floors: "
+        + "; ".join(_fmt_errors(f) for f in floors_x))
+    held = (("SC-GEMM 8 bits", ops_sc, all_vs, floors_sc),
+            ("exact", ops_x, flash, floors_x))
+    moved = iter(nudges)
+    for what, ops, got, floors in held:
+        share = ops["kernel_vs_plain"]["share"]
+        for n, t in (next(moved) for _ in floors):
+            if not 0.8 * share <= n / t <= 1.25 * share:
+                raise AssertionError(f"[train] a floor ({what}) moved {n} "
+                                     f"of {t} outputs, not the kernel's "
+                                     f"share {share}")
+        over = {k: (got[k], max(f[k] for f in floors)) for k in TRAIN_HELD
+                if got[k] > max(f[k] for f in floors)}
+        if over:
+            raise AssertionError(f"[train] the kernels' step ({what}) parts "
+                                 f"from the plain versions' further than the "
+                                 f"plain step's own one-ulp roundings: "
+                                 f"{over}")
+
+    # -- the full state back from disk, and a step from it
+    ck.wait()
+    back = ck.restore(kill + 1, s5)
+    off = _differing(back, s5)
+    mem = step_of(m, s5, kill + 1)
+    res = step_of(m, back, kill + 1)
+    step_off = _differing((mem[0], mem[1]), (res[0], res[1]))
+    log(f"[train] {at()} full state restored bit for bit: {not off}; a step "
+        f"from it = the step from memory bit for bit: "
+        f"{not step_off and float(mem[2]) == float(res[2])}")
+    if off or step_off or float(mem[2]) != float(res[2]):
+        raise AssertionError(f"[train] restored {off[:4]}, stepped "
+                             f"{step_off[:4]}")
+    del back, res, state
+
+    # -- time a step with the kernels and with exact projections
+    s = {"params": mem[0], "opt": mem[1]}
+    del mem, s5, p1, o1
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ms = {}
+    for tag, vcfg in (("sc_gemm", cfg),
+                      ("exact", dataclasses.replace(cfg, use_sc_gemm=False))):
+        vm = bind(vcfg, dev)
+        p, o, _, _ = step_of(vm, s, kill + 2)
+        _sync(dev)
+        marks = []
+        t0 = time.perf_counter()
+        for i in range(timed):
+            if dev.type == "cuda":
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record()
+            p, o, loss, _ = tt.train_step(
+                vm, p, o, batch_at(kill + 3 + i), lr_peak=run["lr"],
+                steps=steps, optc=optc)
+        if dev.type == "cuda":
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        _sync(dev)
+        ms[tag] = (time.perf_counter() - t0) / timed * 1e3
+        ms[tag + "_events"] = [a.elapsed_time(b)
+                               for a, b in zip(marks, marks[1:])]
+        del p, o
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if dev.type == "cuda" else None)
+    trace = _train_trace(m, s, batch_at(kill + 2), run, steps, optc, dev,
+                         ms["sc_gemm"])
+    log(f"[train] {at()} ms a step (batch {run['batch']} x seq "
+        f"{run['seq']}, {timed} steps, host clock; CUDA events a step): "
+        f"SC-GEMM kernels {ms['sc_gemm']:.1f} ("
+        + " ".join(f"{x:.1f}" for x in ms["sc_gemm_events"])
+        + f"), exact projections {ms['exact']:.1f} ("
+        + " ".join(f"{x:.1f}" for x in ms["exact_events"]) + "); peak "
+        + ("not measured" if peak is None else f"{peak:.2f} GiB"))
+    if trace is not None:
+        log(f"[train] a profiled kernel step: {trace['device_ms']:.1f} ms of "
+            f"kernels ({trace['kernel_launches']} launches, busy "
+            f"{100 * trace['busy_share']:.1f}% of the unprofiled wall), "
+            f"SC-GEMM {trace['sc_gemm_ms']:.1f} ms "
+            f"({100 * trace['sc_gemm_share']:.1f}%), flash "
+            f"{trace['flash_ms']:.2f} ms ({100 * trace['flash_share']:.2f}%)")
+        for row in trace["top_kernels"]:
+            log(f"[train]   device {row['ms']:8.3f} ms {row['calls']:5d} "
+                f"calls  {row['name']}")
+    del s
+
+    # -- one step with compressed gradients (EF-int8)
+    out_c = tt.train(cfg, steps=1, ckpt_dir=None, compress_grads=True,
+                     **args)
+    if not math.isfinite(out_c["losses"][0]):
+        raise AssertionError(f"[train] compressed step: {out_c['losses']}")
+    del out_c
+    shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t_start
+    log(f"[train] phase {seconds:.1f}s")
+    return {"config": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                       "dtype": cfg.dtype, "sc_bits": cfg.sc_bits,
+                       "remat": cfg.remat, **run, "steps": steps,
+                       "killed_at": kill},
+            "losses": losses, "committed": [after1, after2],
+            "train_s": train_s, "launches": launches,
+            "sc_kernel_step_equals_plain": sc_equal,
+            "kernels_vs_plain": all_vs, "kernels_floors": floors_sc,
+            "flash_vs_plain_exact": flash, "flash_floors": floors_x,
+            "flash_outputs": {"sc_gemm": ops_sc, "exact": ops_x},
+            "floor_nudges": nudges,
+            "ms_per_step": ms,
+            "peak_gib": peak, "trace": trace, "seconds": seconds}
+
+
+def _step_errors(got, want) -> dict:
+    """A step's (loss, gradients) against another's: the loss's relative
+    error; each leaf's max |got - want| over the leaf's max |want| and its
+    relative L2 distance (the largest of each, and where); the whole
+    tree's relative L2 distance."""
+    from repro_torch import tree as tr
+    per, per_l2, num, den = {}, {}, 0.0, 0.0
+    for name, g, w in zip(tr.paths(want[1]), tr.leaves(got[1]),
+                          tr.leaves(want[1])):
+        g, w = g.float(), w.float()
+        per[name] = (g - w).abs().max().item() / max(
+            w.abs().max().item(), 1e-30)
+        d2, w2 = (g - w).square().sum().item(), w.square().sum().item()
+        per_l2[name] = math.sqrt(d2 / max(w2, 1e-30))
+        num += d2
+        den += w2
+    worst = max(per, key=per.get)
+    worst_l2 = max(per_l2, key=per_l2.get)
+    return {"loss": got[0], "loss_rel": abs(got[0] - want[0]) / abs(want[0]),
+            "max_rel": per[worst], "worst_leaf": worst,
+            "leaf_l2_rel": per_l2[worst_l2], "worst_l2_leaf": worst_l2,
+            "norm_rel": math.sqrt(num / max(den, 1e-30))}
+
+
+def _fmt_errors(e: dict) -> str:
+    return (f"loss rel {e['loss_rel']:.3e}, gradients' L2 rel "
+            f"{e['norm_rel']:.3e}, leaf max rel {e['max_rel']:.3e} at "
+            f"{e['worst_leaf']}, leaf L2 rel {e['leaf_l2_rel']:.3e} at "
+            f"{e['worst_l2_leaf']}")
+
+
+def _train_trace(m, s, batch, run, steps, optc, dev, wall_ms):
+    """One kernel step under ``torch.profiler``, the card's activity only
+    (a step launches ~35,000 kernels; the host's side would take longer
+    to trace than the step): its kernels' device time, the SC-GEMM and
+    flash kernels' shares of it, the busy share against ``wall_ms`` and
+    the top kernels; None off the card or when the trace holds no device
+    time."""
+    if dev.type != "cuda":
+        return None
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import train as tt
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tt.train_step(m, s["params"], s["opt"], batch, lr_peak=run["lr"],
+                      steps=steps, optc=optc)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if _is_kernel(e)]
+    total = sum(_dev_us(e) for e in kernels) / 1e3
+    if total <= 0:
+        return None
+    ours = {key: sum(_dev_us(e) for e in kernels if key in e.key) / 1e3
+            for key in ("sc_gemm_kernel", "flash_fwd_")}
+    top = sorted(((_dev_us(e) / 1e3, e.count, e.key[:90]) for e in kernels),
+                 reverse=True)[:8]
+    return {"device_ms": total, "busy_share": total / wall_ms,
+            "kernel_launches": sum(e.count for e in kernels),
+            "sc_gemm_ms": ours["sc_gemm_kernel"],
+            "sc_gemm_share": ours["sc_gemm_kernel"] / total,
+            "flash_ms": ours["flash_fwd_"],
+            "flash_share": ours["flash_fwd_"] / total,
+            "top_kernels": [{"ms": ms, "calls": n, "name": name}
+                            for ms, n, name in top]}
+
+
+def phase_train() -> dict:
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(ARCHS[TRAIN_ARCH], use_sc_gemm=True).validate()
+    return _train_cell(cfg, torch.device("cuda"), OUT_DIR / "train_ckpt",
+                       TRAIN_RUN, TRAIN_KILL, TRAIN_STEPS, TRAIN_TIMED)
+
+
 #: what ``serve_spec`` takes from ``serve`` (key False) and ``serve_sc``
 #: (key True): the baseline streams and the chunked cell's graphed
 #: tokens/s (absent when that phase did not run in this call)
@@ -3091,6 +3642,15 @@ def _dev_us(e):
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
+def _is_kernel(e) -> bool:
+    """A trace's device event (a kernel, a copy, a fill). A host range
+    holds its kernels' device time too (an operator's ``aten::``, a CUDA
+    call's, an autograd Function's such as ``ScDense``), and is not
+    one."""
+    from torch.autograd import DeviceType
+    return e.device_type == DeviceType.CUDA
+
+
 #: kernels whose device time and records the profile phase reads by name
 OUR_KERNELS = ("sc_gemm_kernel", "paged_decode_kernel", "flash_fwd_")
 
@@ -3104,7 +3664,7 @@ def _trace_summary(prof, steps: int, wall_ms: float) -> dict:
     dev_us = _dev_us
     averages = prof.key_averages()
     events = [e for e in averages if dev_us(e) > 0]
-    kernels = [e for e in events if not e.key.startswith(("aten::", "cuda"))]
+    kernels = [e for e in events if _is_kernel(e)]
     device_ms = sum(dev_us(e) for e in kernels) / 1e3
     launches = sum(e.count for e in averages
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
@@ -3345,7 +3905,8 @@ def main() -> int:
               ("serve_vlm", phase_serve_vlm),
               ("serve_audio", phase_serve_audio),
               ("serve_moe", phase_serve_moe),
-              ("serve_moe_llama4", phase_serve_moe_llama4))
+              ("serve_moe_llama4", phase_serve_moe_llama4),
+              ("train", phase_train))
     seconds = {}
     for name, fn in phases:
         if only is None or name in only:
@@ -3486,11 +4047,16 @@ def main() -> int:
               for r in runs(cell)]
     total = {name: sum(r["launches"][name] for r in served)
              for name in served[0]["launches"]}
+    # the train phase's kill-and-resume (SC-GEMM and float flash only)
+    trained = report["train"]["launches"]
+    for name, n in trained.items():
+        total[name] += n
     kernels = [
         {"name": "sc_gemm", "route": "cuda",
          "source": f"{src}/sc_matmul.cu",
          "replaces": "src/repro/kernels/sc_matmul.py:89",
-         "launches": total["sc_linear"], "tuned": tuned("sc_gemm"),
+         "launches": total["sc_linear"],
+         "train_launches": trained["sc_linear"], "tuned": tuned("sc_gemm"),
          "max_abs_err": 0.0,
          "ms": step["ms"], "plain_ms": step["plain_ms"],
          "bound_ms": step["bound_ms"],
@@ -3511,7 +4077,9 @@ def main() -> int:
                     total["paged_attention"] - total["paged_attention_sc"]),
         paged_entry("paged_attention_sc", 8, total["paged_attention_sc"]),
         flash_entry("flash_attention", "float", None,
-                    total["flash_attention"] - total["flash_attention_sc"]),
+                    total["flash_attention"] - total["flash_attention_sc"])
+        | {"train_launches": trained["flash_attention"]
+           - trained["flash_attention_sc"]},
         flash_entry("flash_attention_sc", "sc8", 8,
                     total["flash_attention_sc"]),
         {"name": "sc_stream_mul", "route": "cuda",

@@ -52,15 +52,18 @@ def _tensor(leaf, dtype, device) -> torch.Tensor:
 
 
 def from_jax_params(tree: dict, cfg: ModelConfig, *,
-                    device: str | torch.device | None = None) -> dict:
+                    device: str | torch.device | None = None,
+                    dtype: torch.dtype | None = None) -> dict:
     """The port's parameter dict from a JAX ``init_params`` pytree of numpy
     leaves, cast to the config's dtype on ``device`` (the Mamba float32
-    leaves and the MoE router stay float32)."""
+    leaves and the MoE router stay float32). ``dtype`` casts to another
+    dtype instead: a tree of gradients or optimizer moments, which are
+    float32 whatever the model's, comes across with ``torch.float32``."""
     if cfg.family not in ("dense", "moe", "vlm", "audio", "ssm", "hybrid"):
         raise ConfigError(f"conversion of family {cfg.family!r} comes with "
                           f"its slice of the port")
     dev = resolve_device(device)
-    dtype = model_dtype(cfg)
+    dtype = model_dtype(cfg) if dtype is None else dtype
 
     def conv(node: Any, index: int | None = None, name: str = ""):
         if isinstance(node, dict):

@@ -47,6 +47,7 @@ import torch
 from repro_torch.configs.base import sc_attention_bits_ok
 from repro_torch.configs.registry import ARCHS
 from repro_torch.errors import ConfigError
+from repro_torch.launch import numeric_overrides
 from repro_torch.launch.steps import decode_step, prefill_step
 from repro_torch.models import bind, pack_sc_weights
 
@@ -175,11 +176,7 @@ def main(argv=None) -> None:
     cfg = ARCHS[args.arch]
     if args.reduced:
         cfg = cfg.reduced(dtype="float32")
-    over = {}
-    if args.sc_gemm:
-        over["use_sc_gemm"] = True
-    if args.sc_impl is not None:
-        over["sc_impl"] = args.sc_impl
+    over = numeric_overrides(sc_gemm=args.sc_gemm, sc_impl=args.sc_impl)
     if args.paged_attn is not None:
         over["paged_attn_kernel"] = args.paged_attn
     if args.attn_sc or args.attn_sc_bits is not None:

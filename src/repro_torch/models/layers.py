@@ -35,16 +35,19 @@ same order.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.sc_attention import (sc_attention_bits_ok, sc_pv,
                                               sc_scores)
+from repro_torch.tree import leaves
 
 __all__ = ["rms_norm", "rope", "apply_rope", "apply_mrope",
            "flash_attention", "decode_attention", "paged_decode_attention",
-           "PagedKV", "softcap", "tree_sum"]
+           "PagedKV", "softcap", "tree_sum", "remat_group",
+           "chunk_cross_entropy"]
 
 NEG_INF = -1e30
 
@@ -67,6 +70,47 @@ def tree_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         p //= 2
         x = x.narrow(dim, 0, p) + x.narrow(dim, p, p)
     return x.squeeze(dim)
+
+
+def remat_group(cfg, fn: Callable, x: torch.Tensor, group_params):
+    """``fn(x)`` for one layer group — under activation rematerialisation
+    (``torch.utils.checkpoint``, non-reentrant) when ``cfg.remat`` and a
+    gradient is being taken through ``x`` or the group's parameters, as the
+    reference wraps each group in ``jax.checkpoint``. Without a gradient
+    (serving, graph capture) ``fn`` runs as it is. ``fn`` must not write
+    outside itself: it runs again in the backward."""
+    if cfg.remat and torch.is_grad_enabled() and (
+            x.requires_grad or any(
+                isinstance(p, torch.Tensor) and p.requires_grad
+                for p in leaves(group_params))):
+        # the model draws no random numbers: no RNG state to carry over
+        return checkpoint(fn, x, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(x)
+
+
+def chunk_cross_entropy(hidden: torch.Tensor, labels: torch.Tensor,
+                        chunk: int, head: Callable) -> torch.Tensor:
+    """Mean next-token cross-entropy over sequence chunks, so ``(B, S,
+    V)`` logits never exist at once (the reference's ``chunk_loss`` scan):
+    ``hidden (B, S, d)``, ``labels (B, S)`` or ``(B, S, K)`` with -1
+    masked, ``head(h)`` float32 logits ``(..., V)`` of a chunk. Returns
+    ``total / max(count, 1)``; ``S`` must be a multiple of ``chunk``."""
+    s = labels.shape[1]
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the loss "
+                         f"chunk {chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.int32, device=hidden.device)
+    for c0 in range(0, s, chunk):
+        y = labels[:, c0:c0 + chunk]
+        logp = torch.log_softmax(head(hidden[:, c0:c0 + chunk]), dim=-1)
+        valid = y >= 0
+        ll = torch.gather(logp, -1,
+                          torch.clamp(y, min=0).to(torch.long)[..., None])
+        total = total + torch.where(valid, -ll[..., 0], 0.0).sum()
+        count = count + valid.sum(dtype=torch.int32)
+    return total / torch.clamp(count, min=1)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6,

@@ -59,6 +59,11 @@ class BoundModel:
     def init_params(self, seed: int = 0) -> dict:
         return self._mod.init_params(self.cfg, seed, device=self.device)
 
+    def loss_fn(self, params, batch):
+        """Scalar next-token cross-entropy (+ the MoE aux loss) of
+        ``batch`` ``{"tokens", "labels"}`` on the bound device."""
+        return self._mod.loss_fn(params, self.cfg, batch)
+
     def forward_hidden(self, params, batch):
         return self._mod.forward_hidden(params, self.cfg, batch)
 

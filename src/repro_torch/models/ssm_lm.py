@@ -19,13 +19,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 
-from .layers import rms_norm, tree_sum
+from .layers import chunk_cross_entropy, remat_group, rms_norm, tree_sum
 from .mamba2 import (MambaCache, init_mamba_cache, init_mamba_params,
                      mamba_block, mamba_chunk_step, mamba_decode_step,
                      pack_mamba_layers)
 from .transformer import model_dtype, normal_init
 
-__all__ = ["init_params", "forward_hidden", "prefill_step",
+__all__ = ["init_params", "forward_hidden", "loss_fn", "prefill_step",
            "prefill_chunk_step", "SSMCacheState", "init_cache",
            "decode_step", "paged_decode_step", "pack_sc_weights"]
 
@@ -84,12 +84,30 @@ def _final(params, cfg, x):
 
 
 def forward_hidden(params: dict, cfg: ModelConfig, batch: dict):
-    """Full-sequence forward → (hidden after the final norm, zero aux)."""
+    """Full-sequence forward → (hidden after the final norm, zero aux).
+    Under a gradient with ``cfg.remat`` each layer is rematerialised
+    (``layers.remat_group``), as the reference checkpoints its scan
+    body."""
     x = _embed(params, batch["tokens"])
     for layer in params["layers"]:
-        x = x + mamba_block(layer["mixer"], _norm(layer, x, cfg), cfg)
+        def run(x, layer=layer):
+            return x + mamba_block(layer["mixer"], _norm(layer, x, cfg), cfg)
+        x = remat_group(cfg, run, x, layer)
     return _final(params, cfg, x), torch.zeros((), dtype=torch.float32,
                                                device=x.device)
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Next-token cross-entropy in ``cfg.loss_chunk`` chunks (the sequence
+    a whole number of them), labels -1 masked, through the tied head as a
+    plain ``h @ embed.T`` in the model dtype (reference ``ssm_lm.py:53``),
+    no aux loss."""
+    hidden, _ = forward_hidden(params, cfg, batch)
+    labels = batch["labels"]
+    head = params["embed"].T
+    return chunk_cross_entropy(hidden, labels,
+                               min(cfg.loss_chunk, labels.shape[1]),
+                               lambda h: (h @ head).to(torch.float32))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,

@@ -51,12 +51,12 @@ from repro_torch.core.sc_layers import sc_proj
 from repro_torch.device import resolve_device
 from repro_torch.kernels.sc_matmul import pack_weight
 
-from .layers import (PagedKV, apply_mrope, apply_rope, decode_attention,
-                     flash_attention, paged_decode_attention, rms_norm, rope,
-                     softcap)
+from .layers import (PagedKV, apply_mrope, apply_rope, chunk_cross_entropy,
+                     decode_attention, flash_attention, paged_decode_attention,
+                     remat_group, rms_norm, rope, softcap)
 from .moe import gated_ffn, init_moe_params, moe_ffn, pack_moe
 
-__all__ = ["init_params", "forward_hidden", "logits_from_hidden",
+__all__ = ["init_params", "forward_hidden", "logits_from_hidden", "loss_fn",
            "prefill_step", "prefill_chunk_step", "KVCache", "init_kv_cache",
            "decode_step", "decode_window_step", "paged_decode_step",
            "model_dtype", "params_to", "pack_sc_weights", "normal_init",
@@ -360,21 +360,50 @@ def _final(params, cfg, x):
 
 
 def _full_sequence(params: dict, cfg: ModelConfig, batch: dict,
-                   collect: bool, aux: list | None = None):
+                   collect: bool):
     """Causal forward over whole sequences at positions ``0..S-1`` (M-RoPE
-    at ``batch["mrope_positions"]`` where given); returns the final
-    hidden states and, with ``collect``, each layer's K/V; with ``aux`` (a
-    list) each layer's aux loss appended to it."""
+    at ``batch["mrope_positions"]`` where given): ``(hidden after the final
+    norm, kvs, aux)``. With ``collect``, ``kvs`` holds each layer's K/V and
+    ``aux`` is None; without, ``kvs`` is None and ``aux`` the MoE layers'
+    aux loss summed as the reference's scan sums it (a group's positions in
+    order, then the groups), and under a gradient with ``cfg.remat`` each
+    group of ``cfg.group_size`` layers is rematerialised
+    (``layers.remat_group``), as the reference checkpoints its scan body.
+    A collecting run writes outside itself, so it is never
+    rematerialised."""
     x = _embed(params, cfg, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
+    mrope_positions = batch.get("mrope_positions")
+    gsz = cfg.group_size
+    layers = params["layers"]
     kvs = [] if collect else None
-    for i, layer in enumerate(params["layers"]):
-        attend = full_attend(cfg, positions, cfg.window_at(i % cfg.group_size),
-                             kvs, batch.get("mrope_positions"))
-        x = block_forward(layer, x, cfg, attend, aux)
-    return _final(params, cfg, x), kvs
+
+    def group(g0):
+        def run(x):
+            aux = None if collect else []
+            for i in range(g0, min(g0 + gsz, len(layers))):
+                attend = full_attend(cfg, positions, cfg.window_at(i % gsz),
+                                     kvs, mrope_positions)
+                x = block_forward(layers[i], x, cfg, attend, aux)
+            if collect:
+                return x
+            total = torch.zeros((), dtype=torch.float32, device=x.device)
+            for a in aux:
+                total = total + a
+            return x, total
+        return run
+
+    totals = []
+    for g0 in range(0, len(layers), gsz):
+        if collect:
+            x = group(g0)(x)
+        else:
+            x, total = remat_group(cfg, group(g0), x, layers[g0:g0 + gsz])
+            totals.append(total)
+    aux = None if collect else torch.stack(totals).sum()
+    return _final(params, cfg, x), kvs, aux
 
 
 def full_attend(cfg: ModelConfig, positions: torch.Tensor,
@@ -404,20 +433,12 @@ def full_attend(cfg: ModelConfig, positions: torch.Tensor,
 def forward_hidden(params: dict, cfg: ModelConfig,
                    batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward → (hidden ``(B, S, d)`` after the final norm,
-    aux loss — the MoE layers' summed as the reference's scan sums them: a
-    group's positions in order, then the groups; zero without MoE
-    layers). ``batch`` may hold ``visual_embeds`` and
-    ``mrope_positions``."""
-    aux: list = []
-    hidden, _ = _full_sequence(params, cfg, batch, collect=False, aux=aux)
-    gsz = cfg.group_size
-    groups = []
-    for g in range(0, len(aux), gsz):
-        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-        for a in aux[g:g + gsz]:
-            total = total + a
-        groups.append(total)
-    return hidden, torch.stack(groups).sum()
+    aux loss — the MoE layers' summed as the reference's scan sums them;
+    zero without MoE layers). ``batch`` may hold ``visual_embeds`` and
+    ``mrope_positions``. Under a gradient with ``cfg.remat`` each layer
+    group is rematerialised (:func:`_full_sequence`)."""
+    hidden, _, aux = _full_sequence(params, cfg, batch, collect=False)
+    return hidden, aux
 
 
 def logits_from_hidden(params: dict, cfg: ModelConfig,
@@ -432,6 +453,27 @@ def logits_from_hidden(params: dict, cfg: ModelConfig,
         logits = logits.reshape(*hidden.shape[:-1], cfg.n_codebooks,
                                 cfg.vocab_size)
     return logits
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Next-token cross-entropy in ``cfg.loss_chunk`` sequence chunks (the
+    sequence padded to a whole chunk with labels -1), labels -1 masked,
+    ``total / max(count, 1)``, plus ``0.01`` times the MoE aux loss
+    (reference ``transformer.py:366-391``). Audio labels are ``(B, S, K)``
+    over the codebooks."""
+    hidden, aux = forward_hidden(params, cfg, batch)
+    labels = batch["labels"]
+    s = labels.shape[1]
+    chunk = min(cfg.loss_chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        hidden = torch.cat([hidden, hidden.new_zeros(
+            (hidden.shape[0], pad, hidden.shape[2]))], dim=1)
+        labels = torch.cat([labels, labels.new_full(
+            (labels.shape[0], pad, *labels.shape[2:]), -1)], dim=1)
+    ce = chunk_cross_entropy(hidden, labels, chunk,
+                             lambda h: logits_from_hidden(params, cfg, h))
+    return ce + 0.01 * aux
 
 
 def _stack_cache(cfg: ModelConfig, kvs, extra_slots: int) -> tuple:
@@ -458,7 +500,7 @@ def prefill_step(params: dict, cfg: ModelConfig, batch: dict, *,
     the latter M-RoPE takes positions ``0..S-1`` in all three streams, the
     default the reference's other entry points build (its own
     ``prefill_step`` needs them given)."""
-    hidden, kvs = _full_sequence(params, cfg, batch, collect=True)
+    hidden, kvs, _ = _full_sequence(params, cfg, batch, collect=True)
     b, s = hidden.shape[:2]
     logits = logits_from_hidden(params, cfg, hidden[:, -1:])
     k, v = _stack_cache(cfg, kvs, extra_slots)

@@ -27,7 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sc_layers import sc_proj
 from repro_torch.device import resolve_device
 
-from .layers import PagedKV, rms_norm
+from .layers import PagedKV, chunk_cross_entropy, remat_group, rms_norm
 from .mamba2 import (MambaCache, init_mamba_cache, init_mamba_params,
                      mamba_block, mamba_chunk_step, mamba_decode_step,
                      pack_mamba_layers)
@@ -35,7 +35,8 @@ from .transformer import (block_forward, chunk_attend, chunk_positions,
                           decode_attend, full_attend, init_block, model_dtype,
                           normal_init, pack_block)
 
-__all__ = ["n_attn_sites", "init_params", "forward_hidden", "prefill_step",
+__all__ = ["n_attn_sites", "init_params", "forward_hidden", "loss_fn",
+           "prefill_step",
            "prefill_chunk_step", "HybridCache", "init_cache", "decode_step",
            "paged_decode_step", "pack_sc_weights"]
 
@@ -116,24 +117,38 @@ def _whole(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
            collect: bool):
     """Causal forward over whole sequences at positions ``0..S-1``: the
     final hidden states, with ``collect`` each layer's Mamba cache and each
-    site's ``(k, v)``."""
+    site's ``(k, v)``. Without ``collect``, under a gradient with
+    ``cfg.remat``, each group (its Mamba layers and then its shared-block
+    site) is rematerialised (``layers.remat_group``), as the reference
+    checkpoints its scan body."""
     x = _embed(params, tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     mcaches, kvs = [], ([] if collect else None)
+
+    def group(layer_ids):
+        def run(x):
+            for i in layer_ids:
+                layer = params["layers"][i]
+                h = rms_norm(x, layer["ln"], eps=cfg.norm_eps)
+                if collect:
+                    y, mc = mamba_block(layer["mixer"], h, cfg,
+                                        return_cache=True)
+                    mcaches.append(mc)
+                else:
+                    y = mamba_block(layer["mixer"], h, cfg)
+                x = x + y
+            return block_forward(params["shared"], x, cfg,
+                                 full_attend(cfg, positions, None, kvs))
+        return run
+
     for site, layer_ids in _groups(cfg):
-        for i in layer_ids:
-            layer = params["layers"][i]
-            h = rms_norm(x, layer["ln"], eps=cfg.norm_eps)
-            if collect:
-                y, mc = mamba_block(layer["mixer"], h, cfg, return_cache=True)
-                mcaches.append(mc)
-            else:
-                y = mamba_block(layer["mixer"], h, cfg)
-            x = x + y
-        x = block_forward(params["shared"], x, cfg,
-                          full_attend(cfg, positions, None, kvs))
+        run = group(layer_ids)
+        # a collecting run writes outside itself: never rematerialised
+        x = run(x) if collect else remat_group(
+            cfg, run, x, ([params["layers"][i] for i in layer_ids],
+                          params["shared"]))
     return _final(params, cfg, x), mcaches, kvs
 
 
@@ -141,6 +156,17 @@ def forward_hidden(params: dict, cfg: ModelConfig, batch: dict):
     """Full-sequence forward → (hidden after the final norm, zero aux)."""
     hidden, _, _ = _whole(params, cfg, batch["tokens"], collect=False)
     return hidden, torch.zeros((), dtype=torch.float32, device=hidden.device)
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Next-token cross-entropy in ``cfg.loss_chunk`` chunks (the sequence
+    a whole number of them), labels -1 masked, through :func:`_head`
+    (reference ``zamba2.py:107``), no aux loss."""
+    hidden, _ = forward_hidden(params, cfg, batch)
+    labels = batch["labels"]
+    return chunk_cross_entropy(hidden, labels,
+                               min(cfg.loss_chunk, labels.shape[1]),
+                               lambda h: _head(params, cfg, h))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,

@@ -2007,3 +2007,90 @@ def test_moe_graphed_decode_equals_eager_and_baseline(cuda, mode):
     for r, want in zip(res, base):
         np.testing.assert_array_equal(r.tokens, want, err_msg=r.uid)
     steps.clear_decode_steps()
+
+
+# ---------------------------------------------------------------- training
+
+def _train_batch(cfg, step, cuda, batch=4, seq=64):
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    pipe = TokenPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=seq, global_batch=batch))
+    return {k: torch.as_tensor(v, device=cuda)
+            for k, v in pipe.get_batch(step).items()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_kernels_equal_plain_versions(cuda, dtype):
+    """Reduced smollm-360m, a training step's loss and gradients: with
+    SC-GEMM at 8 bits, the SC-GEMM kernel's (float attention through its
+    plain version) equal the plain formulation's (``mxu_split``) bit for
+    bit; with exact projections, the flash kernel's within 1e-5 (float32)
+    or 1e-2 (bf16) relative loss and 1e-3 / 5e-2 of each gradient leaf's
+    largest magnitude of plain attention's. The counters show one SC-GEMM
+    launch a projection and one flash launch a layer in each forward,
+    every layer's forward twice under remat, and the head once a loss
+    chunk."""
+    from repro_torch import tree as tr
+    from repro_torch.launch import train as tt
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    cfg = ARCHS["smollm-360m"].reduced(dtype=dtype, use_sc_gemm=True)
+    params = bind(cfg, cuda).init_params(0)
+    batch = _train_batch(cfg, 0, cuda)
+
+    def run(**kw):
+        return tt.value_and_grad(bind(dataclasses.replace(cfg, **kw), cuda),
+                                 params, batch)
+
+    sc0, fl0 = sc_linear.launches, fk.launches
+    run()
+    chunks = batch["tokens"].shape[1] // cfg.loss_chunk   # head calls
+    assert sc_linear.launches - sc0 == 2 * 7 * cfg.n_layers + chunks
+    assert fk.launches - fl0 == 2 * cfg.n_layers
+    kernel = run(attn_kernel="jnp")
+    plain = run(attn_kernel="jnp", sc_impl="mxu_split")
+    assert torch.equal(kernel[0], plain[0])
+    for a, b in zip(tr.leaves(kernel[1]), tr.leaves(plain[1])):
+        assert torch.equal(a, b)
+    ltol, gtol = (1e-5, 1e-3) if dtype == "float32" else (1e-2, 5e-2)
+    flash = run(use_sc_gemm=False)
+    ref = run(use_sc_gemm=False, attn_kernel="jnp")
+    assert abs(float(flash[0]) - float(ref[0])) <= ltol * abs(float(ref[0]))
+    for a, b in zip(tr.leaves(flash[1]), tr.leaves(ref[1])):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= gtol * b.float().abs().max().item()
+
+
+def test_train_resumes_bit_for_bit(cuda, tmp_path):
+    """Reduced smollm-360m (bf16, SC-GEMM at 8 bits) on the card: a
+    ``train`` call's save restored equals its final weights; a step from a
+    full state saved and restored equals the step from the state in
+    memory bit for bit (the embedding's accumulating ``index_put_``
+    backward sorts its indices on the card)."""
+    from repro_torch import tree as tr
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch import train as tt
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim import init as opt_init
+    cfg = ARCHS["smollm-360m"].reduced(dtype="bfloat16", use_sc_gemm=True)
+    out = tt.train(cfg, steps=2, batch=4, seq=64, ckpt_dir=str(tmp_path),
+                   device=cuda, log_every=100)
+    m = bind(cfg, cuda)
+    like = m.init_params(0)
+    state = Checkpointer(tmp_path).restore(
+        2, {"params": like, "opt": opt_init(like, AdamWConfig())})
+    for a, b in zip(tr.leaves(state["params"]), tr.leaves(out["params"])):
+        assert torch.equal(a, b) and a.device.type == "cuda"
+    ck = Checkpointer(tmp_path / "state")
+    ck.save(3, state)
+    ck.wait()
+    back = ck.restore(3, state)
+
+    def step(s):
+        return tt.train_step(m, s["params"], s["opt"],
+                             _train_batch(cfg, 2, cuda), lr_peak=3e-4,
+                             steps=4, optc=AdamWConfig())
+
+    a, b = step(state), step(back)
+    assert torch.equal(a[2], b[2])
+    for x, y in zip(tr.leaves((a[0], a[1])), tr.leaves((b[0], b[1]))):
+        assert torch.equal(x, y)

@@ -42,7 +42,13 @@ PORT_MODULES = [
     "repro_torch.serving.prefix",
     "repro_torch.serving.slots", "repro_torch.serving.engine",
     "repro_torch.launch.steps", "repro_torch.launch.serve",
-    "repro_torch.launch.paper",
+    "repro_torch.launch.paper", "repro_torch.launch.train",
+    "repro_torch.tree", "repro_torch.optim", "repro_torch.optim.adamw",
+    "repro_torch.optim.schedules", "repro_torch.optim.grad_compression",
+    "repro_torch.data", "repro_torch.data.pipeline",
+    "repro_torch.data.tokenizer", "repro_torch.checkpoint",
+    "repro_torch.checkpoint.checkpointer", "repro_torch.runtime",
+    "repro_torch.runtime.fault_tolerance",
 ]
 
 
