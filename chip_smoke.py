@@ -7,8 +7,9 @@ rows, then serves requests through the port's engine at smollm-360m's
 full width — float attention, then SC attention — and at qwen2-vl-2b's,
 musicgen-large's, mamba2-130m's, zamba2-7b's, qwen3-moe-235b-a22b's and
 llama4-maverick-400b-a17b's (the vlm, audio, ssm, hybrid and moe
-families), and checks the streams against the sequential baseline; last
-it trains smollm-360m at full width, killed and resumed.
+families), and checks the streams against the sequential baseline; then
+it trains smollm-360m at full width, killed and resumed; last it runs the
+distribution layer on one NCCL rank at the same width.
 
     python3 chip_smoke.py            # one CUDA card; ~15-18 minutes
     python3 chip_smoke.py --only build,flash   # a subset, for debugging
@@ -181,7 +182,31 @@ Phases (each raises on failure, so any failure exits non-zero):
     restored equals the state in memory, and a step from each is bit
     for bit the same; ms a step with the kernels and with exact
     projections, one profiled step, the peak memory; one step with
-    compressed gradients.
+    compressed gradients;
+19. ``dist``: the distribution layer on one NCCL rank (an in-process
+    ``HashStore``, no fallback to gloo or the CPU) at the ``train``
+    phase's model: the ``(1, 1)`` ``("data", "model")`` mesh from
+    ``launch.mesh.make_mesh``; smollm-360m's bf16 weights (seed 0) placed
+    by ``param_pspecs`` and ``named``, every local shard bit-equal to its
+    source, and the per-rank parameter bytes the same rules give at
+    16 x 16 and 2 x 16 x 16 (host arithmetic); ``pipeline_forward`` with
+    one stage of the 32 layers (``block_forward`` with ``full_attend``:
+    SC-GEMM at 8 bits and flash, default plans) over the embedded 8 x 128
+    batch in 4 microbatches, bit-equal to the whole batch through the
+    same layers, the launches counted (7 x 32 SC-GEMM and 32 flash a
+    microbatch), ms of both; ``compressed_psum`` over every gradient leaf
+    of one train step, bit-equal to ``dequantize8(quantize8(g))``, its ms
+    against its bytes at the HBM rate; the flash kernel against
+    ``flash_attention_ref`` (float32 2e-3, bf16 3e-2) and
+    ``sc_flash_attention_ref`` (``8 / (2**bits - 1)``) at the prefill
+    layout, the paged SC kernel against ``sc_decode_attention_ref`` at the
+    serve layout with and without a window, and softcap decode (the
+    gathered path) with a window, within ``2 / (2**bits - 1)``;
+    ``sc_attention_divergence`` at 4, 6 and 8 bits on the card within
+    1e-3 relative of the CPU's, falling from 4 bits; ``param_counts`` of
+    every registered arch and ``model_flops`` over the ``train`` phase's
+    ms a step and the ``serve`` cell's graphed decode ms/step, each
+    against the bf16 dense peak.
 
 Each family cell (15-17) asks for the prefix cache (the dense-only gate
 turns it off, and the stats must say so) and serves chunked then
@@ -3071,6 +3096,378 @@ def phase_train() -> dict:
                        TRAIN_RUN, TRAIN_KILL, TRAIN_STEPS, TRAIN_TIMED)
 
 
+#: The dist phase: the ``train`` phase's model (smollm-360m at full width,
+#: bf16, SC-GEMM at 8 bits, weights of seed 0) on one NCCL rank, its
+#: ``(1, 1)`` ``("data", "model")`` mesh and a ``("stage",)`` mesh of one.
+#: The pipeline runs the embedded batch of ``DIST_BATCH x DIST_SEQ`` tokens
+#: in ``DIST_MICRO`` microbatches through one stage of all the layers, at
+#: the kernel's default plans (``sc_impl="pallas"``: no sweep in the phase).
+DIST_BATCH, DIST_SEQ, DIST_MICRO = 8, 128, 4
+#: ``sc_attention_divergence`` on the card against the CPU, relative: the
+#: oracles' float32 sums run in other orders there, and one probability
+#: magnitude moved a step moves a MAD near 0.09 by ~1e-4 of itself.
+DIST_DIVERGENCE_REL = 1e-3
+#: the paged SC kernel's serve layout for the decode oracle: slots, KV
+#: heads, group, head dim, page, pages a slot; the slots' positions and
+#: the sliding window; the softcap (gemma2-9b's) the gathered path takes
+DIST_PAGED = dict(c=4, kv=5, g=3, d=64, block=64, mb=4)
+DIST_PAGED_POS, DIST_PAGED_WINDOW, DIST_SOFTCAP = (40, 100, 180, 255), 96, 50.0
+
+
+def _spec_bytes(specs, params, mesh) -> int:
+    """The bytes of ``params`` one rank of ``mesh`` holds under ``specs``
+    (host arithmetic over shapes)."""
+    from repro_torch import tree as tr
+    from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.parallel.sharding import is_spec
+    sizes = mesh_axes(mesh)
+    total = 0
+    for spec, t in zip(tr.leaves(specs, is_leaf=is_spec), tr.leaves(params)):
+        div = 1
+        for entry in spec:
+            for a in (entry if isinstance(entry, tuple) else (entry,)):
+                div *= 1 if a is None else sizes[a]
+        total += t.numel() * t.element_size() // div
+    return total
+
+
+def _dist_oracles(cfg, dev) -> dict:
+    """The flash kernel against ``flash_attention_ref`` (float32 within
+    2e-3, ``tests/test_kernels.py:177``; bf16 within 3e-2, ``:192``) and
+    ``sc_flash_attention_ref`` (within ``8 / (2**bits - 1)``,
+    ``tests/test_sc_attention.py:130``) at smollm-360m's prefill layout,
+    the quantization group the whole 128-key row, as the model's
+    ``kv_block`` makes it; the paged kernel's SC path against
+    ``sc_decode_attention_ref`` at the serve layout, shuffled pages, with
+    and without a window, and the gathered path (which serves softcap
+    layers on the card) with a window and a softcap, within
+    ``2 / (2**bits - 1)`` (``tests/test_sc_attention.py:193``)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.models.layers import decode_attention
+    gen = torch.Generator().manual_seed(1)
+
+    def rnd(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    out = {}
+    h, kv, d, s = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, DIST_SEQ
+    for dtype, tol in ((torch.float32, 2e-3), (torch.bfloat16, 3e-2)):
+        q, k, v = (rnd(sh, dtype) for sh in ((2, h, s, d), (2, kv, s, d),
+                                             (2, kv, s, d)))
+        got = flash_attention(q, k, v, causal=True, group=s).float()
+        want = ref.flash_attention_ref(q, k, v, causal=True).float()
+        err = (got - want).abs().max().item()
+        ok = bool(torch.isclose(got, want, rtol=tol, atol=tol).all())
+        out[f"flash_{str(dtype)[6:]}"] = {"max_abs_err": err, "tol": tol}
+        if not ok:
+            raise AssertionError(f"[dist] flash kernel ({dtype}) against "
+                                 f"flash_attention_ref: {err} over {tol}")
+    q, k, v = (rnd(sh) for sh in ((2, h, s, d), (2, kv, s, d),
+                                  (2, kv, s, d)))
+    for bits in (4, 8):
+        got = flash_attention(q, k, v, causal=True, group=s, sc_bits=bits)
+        want = ref.sc_flash_attention_ref(q, k, v, bits=bits, causal=True)
+        err, tol = (got - want).abs().max().item(), 8.0 / (2 ** bits - 1)
+        out[f"flash_sc{bits}"] = {"max_abs_err": err, "tol": tol}
+        if not err <= tol:
+            raise AssertionError(f"[dist] SC flash kernel ({bits} bits) "
+                                 f"against sc_flash_attention_ref: {err}")
+    p = DIST_PAGED
+    c, hp = p["c"], p["kv"] * p["g"]
+    s_len = p["block"] * p["mb"]
+    q = rnd((c, 1, hp, p["d"]))
+    kc, vc = rnd((c, s_len, p["kv"], p["d"])), rnd((c, s_len, p["kv"],
+                                                    p["d"]))
+    pos = torch.tensor(DIST_PAGED_POS, dtype=torch.int32, device=dev)
+    n = c * p["mb"]
+    perm = torch.randperm(n, generator=gen)
+    pages = [torch.cat([t.reshape(n, p["block"], p["kv"], p["d"])[
+        perm.argsort().to(dev)], torch.zeros_like(t[:1, :p["block"]])])
+        for t in (kc, vc)]
+    tables = perm.reshape(c, p["mb"]).to(dev, torch.int32)
+    for bits in (4, 8):
+        tol = 2.0 / (2 ** bits - 1)
+        for window in (None, DIST_PAGED_WINDOW):
+            got = paged_attention(q.reshape(c, p["kv"], p["g"], p["d"]),
+                                  *pages, tables, pos, window=window,
+                                  sc_bits=bits).reshape(c, 1, hp, p["d"])
+            want = ref.sc_decode_attention_ref(q, kc, vc, q_position=pos,
+                                               bits=bits, window=window)
+            err = (got - want).abs().max().item()
+            out[f"paged_sc{bits}_window_{window}"] = {"max_abs_err": err,
+                                                      "tol": tol}
+            if not err <= tol:
+                raise AssertionError(f"[dist] paged SC kernel ({bits} bits, "
+                                     f"window {window}) against "
+                                     f"sc_decode_attention_ref: {err}")
+        got = decode_attention(q, kc, vc, q_position=pos,
+                               window=DIST_PAGED_WINDOW,
+                               logit_softcap=DIST_SOFTCAP, sc_bits=bits)
+        want = ref.sc_decode_attention_ref(
+            q, kc, vc, q_position=pos, bits=bits, window=DIST_PAGED_WINDOW,
+            logit_softcap=DIST_SOFTCAP)
+        err = (got - want).abs().max().item()
+        out[f"gathered_sc{bits}_softcap"] = {"max_abs_err": err, "tol": tol}
+        if not err <= tol:
+            raise AssertionError(f"[dist] softcap decode ({bits} bits) "
+                                 f"against sc_decode_attention_ref: {err}")
+    for key, r in out.items():
+        log(f"[dist] oracle {key}: max abs err {r['max_abs_err']:.3e} "
+            f"(tolerance {r['tol']:.3e})")
+    return out
+
+
+def _dist_cell(cfg, dev, report: dict) -> dict:
+    """The dist phase on ``dev`` (the card over NCCL; a reduced config on
+    the CPU over gloo rehearses it): the process group and meshes, the
+    parameters placed by ``param_pspecs``, the pipelined forward against
+    the whole batch, ``compressed_psum`` over a step's gradients, the
+    kernels against the oracles, ``sc_attention_divergence`` on the card
+    against the CPU, ``param_counts`` and ``model_flops`` over measured
+    times."""
+    import dataclasses
+    from datetime import timedelta
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree as tr
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.core.error_analysis import sc_attention_divergence
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.launch import train as tt
+    from repro_torch.launch.mesh import make_mesh, production_mesh
+    from repro_torch.launch.modelmeta import model_flops, param_counts
+    from repro_torch.launch.steps import abstract_params
+    from repro_torch.models import bind
+    from repro_torch.models.transformer import (_embed, block_forward,
+                                                full_attend)
+    from repro_torch.optim.adamw import dequantize8, quantize8
+    from repro_torch.optim.grad_compression import compressed_psum
+    from repro_torch.parallel import named, param_pspecs
+    from repro_torch.parallel.pipeline_parallel import pipeline_forward
+    from repro_torch.parallel.sharding import distribute
+    t_start = time.perf_counter()
+    out: dict = {}
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1, timeout=timedelta(seconds=60))
+    try:
+        # -- the process group and the meshes
+        mesh = make_mesh((1, 1), ("data", "model"), device_type=dev.type)
+        stages = make_mesh((1,), ("stage",), device_type=dev.type)
+        out["backend"] = dist.get_backend()
+        if out["backend"] != backend or mesh.device_type != dev.type:
+            raise AssertionError(f"[dist] a {out['backend']} group, a "
+                                 f"{mesh.device_type} mesh; want {backend} "
+                                 f"on {dev.type}")
+        log(f"[dist] one {out['backend']} rank; meshes {mesh} and {stages}")
+
+        # -- the parameters placed by the rules
+        params = bind(cfg, dev).init_params(0)
+        _sync(dev)
+        specs = param_pspecs(cfg, params, mesh)
+        placed = distribute(params, named(mesh, specs))
+        off = [name for name, src, d in zip(tr.paths(params),
+                                             tr.leaves(params),
+                                             tr.leaves(placed))
+               if d.to_local().dtype != src.dtype
+               or not torch.equal(d.to_local(), src)]
+        n_leaves = len(tr.leaves(params))
+        del placed
+        log(f"[dist] {n_leaves} parameter leaves placed by param_pspecs on "
+            f"the (1, 1) mesh: every local shard bit-equal to its source: "
+            f"{not off}")
+        if off:
+            raise AssertionError(f"[dist] placed leaves differ: {off[:4]}")
+        meta = abstract_params(cfg)
+        whole = _spec_bytes(param_pspecs(cfg, meta, mesh), meta, mesh)
+        per_rank = {}
+        for name, pm in (("16x16", production_mesh()),
+                         ("2x16x16", production_mesh(multi_pod=True))):
+            for strategy in ("tp_sp", "dp"):
+                c = dataclasses.replace(cfg, sharding_strategy=strategy)
+                per_rank[f"{name}_{strategy}"] = _spec_bytes(
+                    param_pspecs(c, meta, pm), meta, pm)
+        out["param_bytes"] = {"one_rank": whole, **per_rank}
+        log(f"[dist] parameter bytes a rank ({cfg.dtype}): one rank "
+            f"{whole:,}; " + ", ".join(f"{k} {v:,}"
+                                       for k, v in per_rank.items()))
+
+        # -- the pipelined forward against the whole batch
+        pcfg = dataclasses.replace(cfg, sc_impl="pallas")
+        gen = torch.Generator().manual_seed(0)
+        tokens = torch.randint(0, cfg.vocab_size, (DIST_BATCH, DIST_SEQ),
+                               generator=gen).to(dev)
+
+        def stage_fn(layers, h):
+            b, s = h.shape[:2]
+            pos = torch.arange(s, dtype=torch.int32,
+                               device=h.device).expand(b, s)
+            for i, layer in enumerate(layers):
+                h = block_forward(layer, h, pcfg, full_attend(
+                    pcfg, pos, pcfg.window_at(i % pcfg.group_size)))
+            return h
+
+        counters = _serve_launch_counters()
+        ms = {}
+        with torch.no_grad():
+            x = _embed(params, pcfg, {"tokens": tokens})
+            stage = tr.tree_map(lambda w: w[None], params["layers"])
+
+            def whole_run():
+                return stage_fn(params["layers"], x)
+
+            def piped_run():
+                return pipeline_forward(stage_fn, stage, x, mesh=stages,
+                                        axis="stage",
+                                        n_microbatches=DIST_MICRO)
+
+            for tag, run in (("whole", whole_run), ("pipelined", piped_run)):
+                run()                     # first calls: the flash tuner
+                _sync(dev)
+                if tag == "pipelined":
+                    for c in counters.values():
+                        c.launches = 0
+                t0 = time.perf_counter()
+                got = run()
+                _sync(dev)
+                ms[tag] = (time.perf_counter() - t0) * 1e3
+                if tag == "pipelined":
+                    launches = {k: c.launches for k, c in counters.items()}
+                    piped = got
+                else:
+                    ref_out = got
+        equal = bool(torch.equal(piped, ref_out))
+        want = {"sc_linear": DIST_MICRO * 7 * cfg.n_layers,
+                "flash_attention": DIST_MICRO * cfg.n_layers}
+        want = {k: (want.get(k, 0) if dev.type == "cuda" else 0)
+                for k in launches}
+        out["pipeline"] = {"bit_equal": equal, "ms": ms,
+                           "launches": launches,
+                           "finite": bool(torch.isfinite(piped).all())}
+        log(f"[dist] pipeline_forward, one stage of {cfg.n_layers} layers, "
+            f"{DIST_BATCH} x {DIST_SEQ} tokens in {DIST_MICRO} microbatches: "
+            f"bit-equal to the whole batch: {equal}; ms (host clock, "
+            f"synchronized) pipelined {ms['pipelined']:.2f}, whole "
+            f"{ms['whole']:.2f}; launches {launches} (want {want})")
+        if not equal or not out["pipeline"]["finite"]:
+            raise AssertionError("[dist] the pipelined forward differs from "
+                                 "the whole batch's")
+        if launches != want:
+            raise AssertionError(f"[dist] pipeline launches {launches}, "
+                                 f"want {want}")
+        del x, stage, piped, ref_out
+
+        # -- compressed_psum over a train step's gradients
+        pipe = TokenPipeline(PipelineConfig(
+            vocab_size=cfg.vocab_size, seq_len=DIST_SEQ,
+            global_batch=DIST_BATCH, n_codebooks=cfg.n_codebooks, seed=0))
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in pipe.get_batch(0).items()}
+        _, grads = tt.value_and_grad(bind(pcfg, dev), params, batch)
+        flat = tr.leaves(grads)
+        del grads
+        n_values = sum(g.numel() for g in flat)
+        compressed_psum(flat[0])          # the communicator's first use
+        _sync(dev)
+        t0 = time.perf_counter()
+        means = [compressed_psum(g) for g in flat]
+        _sync(dev)
+        psum_ms = (time.perf_counter() - t0) * 1e3
+        off = [i for i, (g, m) in enumerate(zip(flat, means))
+               if m.dtype != g.dtype or not torch.equal(
+                   m, dequantize8(quantize8(g), g.shape, g.dtype))]
+        nbytes = sum(2 * g.numel() * g.element_size() for g in flat)
+        out["compressed_psum"] = {
+            "values": n_values, "leaves": len(flat), "ms": psum_ms,
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_S * 1e3,
+            "bit_equal": not off, "dtype": str(flat[0].dtype)}
+        log(f"[dist] compressed_psum over {len(flat)} gradient leaves "
+            f"({n_values:,} values, {flat[0].dtype}): {psum_ms:.2f} ms (host "
+            f"clock, synchronized) against {nbytes:,} bytes read and written "
+            f"once, {out['compressed_psum']['bound_ms']:.3f} ms at the HBM "
+            f"rate; bit-equal to dequantize8(quantize8(g)): {not off}")
+        if off:
+            raise AssertionError(f"[dist] compressed_psum differs from the "
+                                 f"round trip at leaves {off[:4]}")
+        del flat, means, params
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # -- the kernels against the oracles; the divergence on the card
+    out["oracles"] = _dist_oracles(cfg, dev)
+    div = {}
+    for bits in (4, 6, 8):
+        here = sc_attention_divergence(bits, device=dev)
+        cpu = sc_attention_divergence(bits, device="cpu")
+        div[bits] = {"device": here, "cpu": cpu}
+        for key in ("output_mad", "score_mad"):
+            if abs(here[key] - cpu[key]) > DIST_DIVERGENCE_REL * cpu[key]:
+                raise AssertionError(f"[dist] sc_attention_divergence "
+                                     f"({bits} bits) {key} {here[key]} on "
+                                     f"{dev.type}, {cpu[key]} on the CPU")
+        log(f"[dist] sc_attention_divergence {bits} bits on {dev.type}: "
+            f"output MAD {here['output_mad']:.6f} (CPU "
+            f"{cpu['output_mad']:.6f}), score MAD {here['score_mad']:.6f} "
+            f"(CPU {cpu['score_mad']:.6f})")
+    mads = {b: div[b]["device"]["output_mad"] for b in div}
+    if not mads[4] > max(mads[6], mads[8]):
+        raise AssertionError(f"[dist] the divergence does not fall from 4 "
+                             f"bits: {mads}")
+    out["divergence"] = div
+
+    # -- useful work: param_counts of every arch, model_flops over the
+    # measured train and graphed decode steps
+    counts = {arch: param_counts(c) for arch, c in ARCHS.items()}
+    for arch, c in counts.items():
+        log(f"[dist] param_counts {arch}: total {c['total']:,}, active "
+            f"{c['active']:,.0f}, embedding {c['embedding']:,}")
+    train_ms = report.get("train", {}).get("ms_per_step", {}).get("sc_gemm")
+    decode_ms = report.get("serve", {}).get("stats", {}).get(
+        "decode_ms_per_step")
+    work = {}
+    for tag, shape, step_ms in (
+            ("train_step", Shape("train", DIST_SEQ, DIST_BATCH, "train"),
+             train_ms),
+            ("decode_step", Shape("decode", 256, 4, "decode"), decode_ms)):
+        flops = model_flops(cfg, shape)
+        share = (None if step_ms is None
+                 else flops / (step_ms / 1e3) / BF16_OPS_S)
+        work[tag] = {"model_flops": flops, "ms": step_ms,
+                     "peak_flop_s": BF16_OPS_S, "peak": "bf16 dense",
+                     "share_of_peak": share}
+        log(f"[dist] model_flops of the {tag} ({shape.global_batch} x "
+            f"{shape.seq_len if shape.kind == 'train' else 1} tokens): "
+            f"{flops:.4e} over "
+            + ("not measured" if step_ms is None else f"{step_ms:.2f} ms")
+            + " = " + ("not measured" if share is None else
+                       f"{share * 100:.4f}% of the bf16 dense peak "
+                       f"({BF16_OPS_S:.3e} FLOP/s)"))
+    out["useful_work"] = work
+    out["param_counts"] = counts
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"[dist] phase {out['seconds']:.1f}s")
+    return out
+
+
+def phase_dist(report: dict) -> dict:
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(ARCHS[TRAIN_ARCH], use_sc_gemm=True).validate()
+    return _dist_cell(cfg, torch.device("cuda"), report)
+
+
 #: what ``serve_spec`` takes from ``serve`` (key False) and ``serve_sc``
 #: (key True): the baseline streams and the chunked cell's graphed
 #: tokens/s (absent when that phase did not run in this call)
@@ -3906,7 +4303,8 @@ def main() -> int:
               ("serve_audio", phase_serve_audio),
               ("serve_moe", phase_serve_moe),
               ("serve_moe_llama4", phase_serve_moe_llama4),
-              ("train", phase_train))
+              ("train", phase_train),
+              ("dist", lambda: phase_dist(report)))
     seconds = {}
     for name, fn in phases:
         if only is None or name in only:

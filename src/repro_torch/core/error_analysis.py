@@ -1,6 +1,7 @@
 """Error analysis for stochastic multipliers (port of
-``repro/core/error_analysis.py``) — the MAE column of the paper's Table II
-and Fig. 1(b) (absolute error vs normalized operand difference).
+``repro/core/error_analysis.py``) — the MAE column of the paper's Table II,
+Fig. 1(b) (absolute error vs normalized operand difference) and the
+exact-vs-SC attention divergence of the serving bench's error columns.
 
 The exhaustive grid is built on the caller's device, so on the card the
 card runs the sweep; the error is float32, as in the JAX package, and
@@ -20,7 +21,7 @@ from .multipliers import MULTIPLIERS
 from .tcu import stream_length
 
 __all__ = ["exhaustive_grid", "mae", "error_vs_operand_difference",
-           "table2_mae"]
+           "table2_mae", "sc_attention_divergence"]
 
 
 def exhaustive_grid(bits: int, device: str | torch.device | None = None
@@ -63,6 +64,50 @@ def table2_mae(bits: int = 8,
     multipliers = multipliers or MULTIPLIERS
     return {name: mae(fn, bits, device=device)
             for name, fn in multipliers.items()}
+
+
+def _attention_draws(*, b: int, kv: int, g: int, s: int, d: int,
+                     seed: int) -> tuple[torch.Tensor, ...]:
+    """``q (b, kv·g, s, d)``, ``k, v (b, kv, s, d)``: float32 normal draws
+    from a CPU ``torch.Generator`` seeded by ``seed``, so every device sees
+    the same problem."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, dtype=torch.float32)
+                 for shape in ((b, kv * g, s, d), (b, kv, s, d),
+                               (b, kv, s, d)))
+
+
+def sc_attention_divergence(bits: int, *, b: int = 2, kv: int = 2,
+                            g: int = 2, s: int = 64, d: int = 32,
+                            seed: int = 0,
+                            device: str | torch.device | None = None
+                            ) -> dict[str, float]:
+    """Exact-vs-SC attention divergence on a seeded synthetic problem.
+
+    Runs the same ``(B, H, S, D)`` causal attention once through the exact
+    float32 oracle and once through the SC score path at ``bits`` operand
+    width, and reports the mean absolute divergence of the outputs and the
+    mean absolute error of the raw (pre-softmax, unit-scale) scores — the
+    serving bench's per-bits error columns. The draws are the port's own
+    (:func:`_attention_draws`; the reference's come from ``jax.random``);
+    the oracles run on ``device``.
+    """
+    from repro_torch.kernels import ref   # lazy: kernels import core
+
+    dev = resolve_device(device)
+    q, k, v = (t.to(dev) for t in _attention_draws(b=b, kv=kv, g=g, s=s,
+                                                   d=d, seed=seed))
+    exact = ref.flash_attention_ref(q, k, v, causal=True)
+    sc = ref.sc_flash_attention_ref(q, k, v, bits=bits, causal=True)
+    kr = torch.repeat_interleave(k, g, dim=1)
+    scores_exact = torch.einsum("bhqd,bhkd->bhqk", q, kr)
+    scores_sc = ref.sc_attention_scores_ref(q, kr, bits=bits)
+    return {
+        "bits": bits,
+        "output_mad": float(torch.mean(torch.abs(exact - sc))),
+        "score_mad": float(torch.mean(torch.abs(scores_exact - scores_sc))),
+    }
 
 
 def error_vs_operand_difference(name_or_fn, bits: int = 8,

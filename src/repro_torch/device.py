@@ -4,7 +4,9 @@
 ``transformer.init_params``/``init_kv_cache``, ``serving.Engine``,
 ``launch.serve.generate``) resolves its device here, so a machine without
 CUDA fails at once with a typed :class:`ConfigError` instead of silently
-running the plain CPU versions. Tests pass ``device="cpu"``.
+running the plain CPU versions. Tests pass ``device="cpu"``. ``"meta"``
+builds shape-only trees (``launch.steps.abstract_params``): tensors with
+shapes and dtypes and no storage, which nothing computes on.
 
 Resolution also switches TF32 off for matmuls and cuDNN: the port computes
 float32 products in full float32, as the JAX reference does on the CPU.
@@ -27,13 +29,15 @@ def exact_float32() -> None:
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """``None`` → ``cuda``; raises :class:`ConfigError` if CUDA was asked
-    for (explicitly or by default) and no card is visible."""
+    for (explicitly or by default) and no card is visible. ``meta`` is
+    admitted for shape-only trees."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise ConfigError(
             "no CUDA device is visible: the port runs on the card by "
             "default — pass device='cpu' to run the plain PyTorch versions")
-    if dev.type not in ("cuda", "cpu"):
-        raise ConfigError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ConfigError(f"unsupported device {dev}; use 'cuda' or 'cpu' "
+                          f"('meta' for shapes alone)")
     exact_float32()
     return dev

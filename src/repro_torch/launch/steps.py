@@ -24,6 +24,13 @@ KV pool it was captured over, its prefill entries' staging buffers and
 its drafts' weights packed at their width; an engine binding it copies
 its float weights in and packs them, unless the entry holds them already. Every replay runs on the caller's current stream,
 so the graphs, which share one memory pool, never run at once.
+
+The spec helpers of the reference's step builders are here too:
+:func:`activation_spec` (the residual stream's spec),
+:func:`abstract_params` / :func:`abstract_opt_state` (shape-only trees on
+the ``meta`` device) and :func:`opt_pspecs` (the optimizer state's specs).
+The reference's mesh-bound builders (``build_*_step(cfg, mesh)``) serve
+its dry run and are not ported.
 """
 from __future__ import annotations
 
@@ -34,12 +41,17 @@ import weakref
 
 import torch
 
+from repro_torch import tree as tr
 from repro_torch.errors import ConfigError
 from repro_torch.kernels import autotune
 from repro_torch.kernels.ops import launch_counters
 from repro_torch.kernels.sc_matmul import (PackedWeight, pack_weight,
                                            scratch_scope)
+from repro_torch.launch.mesh import mesh_axes
 from repro_torch.models import bind, cache_ops, pack_sc_weights
+from repro_torch.optim import init as opt_init
+from repro_torch.optim.adamw import Quantized8
+from repro_torch.parallel.sharding import DATA_AXES, P, fit_spec, is_spec
 
 __all__ = ["prompt_buckets", "bucket_for", "prefill_step", "decode_step",
            "chunked_prefill_step", "paged_decode_step", "DecodeStep",
@@ -49,7 +61,8 @@ __all__ = ["prompt_buckets", "bucket_for", "prefill_step", "decode_step",
            "draft_loop_step", "verify_window_step", "rollback_step",
            "DraftStep", "VerifyStep", "RollbackStep",
            "cached_draft_loop_step", "cached_verify_window_step",
-           "cached_rollback_step"]
+           "cached_rollback_step", "activation_spec", "abstract_params",
+           "abstract_opt_state", "opt_pspecs"]
 
 #: Eager runs of a step on the capture stream before its capture, each
 #: from the step's reset state: they allocate the step's SC-GEMM scratch
@@ -842,3 +855,55 @@ def clear_decode_steps() -> None:
     """Forget every cached decode step (engines holding one keep it)."""
     _STEPS.clear()
 
+
+# ------------------------------------------------------------- specs
+
+def activation_spec(mesh, strategy: str = "tp_sp"):
+    """Residual stream ``(B, S, d)``: batch over the data axes, sequence
+    over ``model`` (sequence parallelism; ``parallel/context.py``). The
+    ``"dp"`` strategy spreads batch over every axis instead."""
+    names = mesh_axes(mesh)
+    axes = tuple(a for a in DATA_AXES if a in names) or None
+    if strategy == "dp":
+        axes = tuple(axes or ()) + (("model",) if "model" in names else ())
+        return P(axes, None, None)
+    return P(axes, "model", None)
+
+
+def abstract_params(cfg, seed: int = 0):
+    """``cfg``'s parameter tree on the ``meta`` device: shapes and dtypes,
+    no storage (a 400 B model costs nothing)."""
+    return bind(cfg, "meta").init_params(seed)
+
+
+def abstract_opt_state(cfg, params, optc):
+    """The AdamW state of ``params`` (an :func:`abstract_params` tree) on
+    the ``meta`` device."""
+    del cfg
+    return opt_init(params, optc)
+
+
+def opt_pspecs(cfg, opt_state, p_specs, mesh):
+    """Moments follow their parameter's spec; quantized moments shard
+    their block dim over every mesh axis (pure ZeRO state), or stay
+    replicated where the mesh does not divide it."""
+    del cfg
+    all_axes = tuple(mesh_axes(mesh))
+    flat_spec = tr.leaves(p_specs, is_leaf=is_spec)
+
+    def fit(t):
+        return fit_spec(P(all_axes, None), tuple(t.shape), mesh)
+
+    def moments(tree):
+        flat, structure = tr.flatten(
+            tree, is_leaf=lambda x: isinstance(x, Quantized8))
+        if len(flat) != len(flat_spec):
+            raise ConfigError(f"{len(flat)} moments, {len(flat_spec)} "
+                              f"parameter specs")
+        return tr.unflatten(structure, [
+            Quantized8(q=fit(leaf.q), scale=fit(leaf.scale))
+            if isinstance(leaf, Quantized8) else spec
+            for leaf, spec in zip(flat, flat_spec)])
+
+    return {"m": moments(opt_state["m"]), "v": moments(opt_state["v"]),
+            "step": P()}

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.parallel.context import shard_activations
 
 from .layers import chunk_cross_entropy, remat_group, rms_norm, tree_sum
 from .mamba2 import (MambaCache, init_mamba_cache, init_mamba_params,
@@ -91,6 +92,7 @@ def forward_hidden(params: dict, cfg: ModelConfig, batch: dict):
     x = _embed(params, batch["tokens"])
     for layer in params["layers"]:
         def run(x, layer=layer):
+            x = shard_activations(x)
             return x + mamba_block(layer["mixer"], _norm(layer, x, cfg), cfg)
         x = remat_group(cfg, run, x, layer)
     return _final(params, cfg, x), torch.zeros((), dtype=torch.float32,
@@ -131,6 +133,7 @@ def prefill_step(params: dict, cfg: ModelConfig, batch: dict, *,
     x = _embed(params, batch["tokens"])
     caches = []
     for layer in params["layers"]:
+        x = shard_activations(x)
         y, mc = mamba_block(layer["mixer"], _norm(layer, x, cfg), cfg,
                             return_cache=True)
         x = x + y
@@ -161,6 +164,7 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, cache: SSMCacheState,
     n_valid = torch.as_tensor(batch["n_valid"], dtype=torch.int32,
                               device=x.device).reshape(-1)[:1]
     for i, layer in enumerate(params["layers"]):
+        x = shard_activations(x)
         x = x + mamba_chunk_step(layer["mixer"], _norm(layer, x, cfg),
                                  _layer_cache(cache, i), cfg, n_valid)
     x = _final(params, cfg, x)

@@ -39,6 +39,10 @@ tables summed, and its head gives ``(..., K, V)`` logits.
 
 The decode steps update the cache in place (the page pool and the slot
 cache are the largest tensors of a serving process) and return it.
+
+Every layer group of a whole-sequence forward or a prefill chunk starts
+with ``parallel.context.shard_activations``, as the reference's scan
+bodies do: a no-op outside an activation-sharding scope.
 """
 from __future__ import annotations
 
@@ -50,6 +54,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sc_layers import sc_proj
 from repro_torch.device import resolve_device
 from repro_torch.kernels.sc_matmul import pack_weight
+from repro_torch.parallel.context import (batch_axes, constrain,
+                                          shard_activations)
+from repro_torch.parallel.sharding import P
 
 from .layers import (PagedKV, apply_mrope, apply_rope, chunk_cross_entropy,
                      decode_attention, flash_attention, paged_decode_attention,
@@ -74,9 +81,12 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 def normal_init(seed: int, dtype: torch.dtype, device: torch.device):
     """``normal(shape, scale, dtype=dtype)``: float32 normal draws from a
     ``torch.Generator`` on ``device`` seeded with ``seed``, scaled and cast
-    to ``dtype`` — the draw every family's ``init_params`` makes."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    to ``dtype`` — the draw every family's ``init_params`` makes. On the
+    ``meta`` device (shapes alone) nothing is drawn."""
+    gen = None
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
 
     def normal(shape, scale, out_dtype=dtype):
         w = torch.randn(shape, generator=gen, device=device,
@@ -382,6 +392,7 @@ def _full_sequence(params: dict, cfg: ModelConfig, batch: dict,
 
     def group(g0):
         def run(x):
+            x = shard_activations(x)
             aux = None if collect else []
             for i in range(g0, min(g0 + gsz, len(layers))):
                 attend = full_attend(cfg, positions, cfg.window_at(i % gsz),
@@ -417,6 +428,10 @@ def full_attend(cfg: ModelConfig, positions: torch.Tensor,
 
     def attend(p, h):
         q, k, v = _qkv(p, h, cfg, positions, mrope_positions)
+        if cfg.attn_kv_gather:
+            # K/V gathered once a layer on a mesh (a no-op outside a scope)
+            spec = P(batch_axes(), None, None, None)
+            k, v = constrain(k, spec), constrain(v, spec)
         if kvs is not None:
             kvs.append((k, v))
         return flash_attention(
@@ -534,6 +549,8 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, cache: KVCache,
                               device=x.device).reshape(-1)[:1]
     positions = chunk_positions(cache.pos, x)
     for i, layer in enumerate(params["layers"]):
+        if i % cfg.group_size == 0:
+            x = shard_activations(x)
         k_cache, v_cache = _layer_kv(cache, cfg, i)
         attend = chunk_attend(cfg, k_cache, v_cache, positions,
                               cfg.window_at(i % cfg.group_size),

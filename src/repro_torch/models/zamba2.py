@@ -26,6 +26,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sc_layers import sc_proj
 from repro_torch.device import resolve_device
+from repro_torch.parallel.context import shard_activations
 
 from .layers import PagedKV, chunk_cross_entropy, remat_group, rms_norm
 from .mamba2 import (MambaCache, init_mamba_cache, init_mamba_params,
@@ -129,6 +130,7 @@ def _whole(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
     def group(layer_ids):
         def run(x):
+            x = shard_activations(x)
             for i in layer_ids:
                 layer = params["layers"][i]
                 h = rms_norm(x, layer["ln"], eps=cfg.norm_eps)
@@ -219,6 +221,7 @@ def prefill_chunk_step(params: dict, cfg: ModelConfig, cache: HybridCache,
                               device=x.device).reshape(-1)[:1]
     positions = chunk_positions(cache.pos, x)
     for site, layer_ids in _groups(cfg):
+        x = shard_activations(x)
         for i in layer_ids:
             layer = params["layers"][i]
             x = x + mamba_chunk_step(

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-__all__ = ["LEAF", "flatten", "unflatten", "leaves", "paths", "tree_map"]
+__all__ = ["LEAF", "flatten", "flatten_with_path", "unflatten", "leaves",
+           "paths", "tree_map", "tree_map_with_path"]
 
 
 class _Leaf:
@@ -55,13 +56,23 @@ def flatten(tree: Any, is_leaf: Callable[[Any], bool] | None = None
     return [leaf for _, leaf in out], structure
 
 
+def flatten_with_path(tree: Any,
+                      is_leaf: Callable[[Any], bool] | None = None
+                      ) -> tuple[list[tuple[tuple, Any]], Any]:
+    """``([(path, leaf), ...], structure)``: :func:`flatten` with each
+    leaf's path from the root, a tuple of dict keys, named-tuple field
+    names and sequence indices."""
+    out: list = []
+    structure = _walk(tree, (), is_leaf, out)
+    return out, structure
+
+
 def paths(tree: Any, is_leaf: Callable[[Any], bool] | None = None
           ) -> list[str]:
     """Each leaf's path from the root, keys and indices joined by dots
     (``"layers.3.attn.wk"``), in :func:`flatten`'s order."""
-    out: list = []
-    _walk(tree, (), is_leaf, out)
-    return [".".join(str(k) for k in path) for path, _ in out]
+    return [".".join(str(k) for k in path)
+            for path, _ in flatten_with_path(tree, is_leaf)[0]]
 
 
 def unflatten(structure: Any, items) -> Any:
@@ -100,3 +111,11 @@ def tree_map(fn: Callable, tree: Any, *rest: Any,
         if len(o) != len(flat):
             raise ValueError(f"trees of {len(flat)} and {len(o)} leaves")
     return unflatten(structure, [fn(*xs) for xs in zip(flat, *others)])
+
+
+def tree_map_with_path(fn: Callable, tree: Any,
+                       is_leaf: Callable[[Any], bool] | None = None) -> Any:
+    """``fn(path, leaf)`` over the leaves of ``tree`` (paths as in
+    :func:`flatten_with_path`); the result has ``tree``'s structure."""
+    items, structure = flatten_with_path(tree, is_leaf)
+    return unflatten(structure, [fn(path, leaf) for path, leaf in items])

@@ -2094,3 +2094,77 @@ def test_train_resumes_bit_for_bit(cuda, tmp_path):
     assert torch.equal(a[2], b[2])
     for x, y in zip(tr.leaves((a[0], a[1])), tr.leaves((b[0], b[1]))):
         assert torch.equal(x, y)
+
+
+# ------------------------------------------- the kernels against the oracles
+
+def _oracle_inputs(shapes, seed, dev):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=gen).to(dev) for s in shapes]
+
+
+@pytest.mark.parametrize("bits", [None, 4, 8], ids=["float", "sc4", "sc8"])
+@pytest.mark.parametrize("h,kv,s,d", [(4, 2, 32, 16), (15, 5, 40, 64)])
+def test_flash_kernel_matches_the_oracles(cuda, bits, h, kv, s, d):
+    """The flash kernel (float32) against ``flash_attention_ref`` within
+    2e-3 and, SC, against ``sc_flash_attention_ref`` within
+    ``8 / (2**bits - 1)`` with the group the whole key row: the reference
+    tests' tolerances (``tests/test_kernels.py:177``,
+    ``tests/test_sc_attention.py:130``)."""
+    from repro_torch.kernels import ref
+    q, k, v = _oracle_inputs(((2, h, s, d), (2, kv, s, d), (2, kv, s, d)),
+                             h + s, cuda)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True, group=s, sc_bits=bits)
+    assert flash_attention.launches == before + 1
+    if bits is None:
+        want = ref.flash_attention_ref(q, k, v, causal=True)
+        torch.testing.assert_close(out, want, rtol=2e-3, atol=2e-3)
+    else:
+        want = ref.sc_flash_attention_ref(q, k, v, bits=bits, causal=True)
+        assert (out - want).abs().max() <= 8.0 / (2 ** bits - 1)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("window", [None, 6])
+def test_paged_kernel_sc_matches_the_decode_oracle(cuda, bits, window):
+    """The paged kernel's SC path (pages of 4 keys, shuffled) and the dense
+    decode layer (the paged kernel on a one-page-a-sequence view) against
+    ``sc_decode_attention_ref`` within ``2 / (2**bits - 1)``
+    (``tests/test_sc_attention.py:193``)."""
+    from repro_torch.kernels import ref
+    c, s, h, kv, d, block = 3, 16, 4, 2, 16, 4
+    q, kc, vc = _oracle_inputs(((c, 1, h, d), (c, s, kv, d), (c, s, kv, d)),
+                               bits, cuda)
+    pos = torch.tensor([3, 9, 15], dtype=torch.int32, device=cuda)
+    perm = torch.randperm(c * s // block,
+                          generator=torch.Generator().manual_seed(bits))
+    pages = [t.reshape(c * s // block, block, kv, d)[perm.argsort()]
+             for t in (kc, vc)]
+    trash = torch.zeros((1, block, kv, d), device=cuda)
+    kp, vp = (torch.cat([p, trash]).contiguous() for p in pages)
+    tables = perm.reshape(c, s // block).to(torch.int32).to(cuda)
+    want = ref.sc_decode_attention_ref(q, kc, vc, q_position=pos, bits=bits,
+                                       window=window)
+    out = paged_attention(q.reshape(c, kv, h // kv, d), kp, vp, tables, pos,
+                          window=window, sc_bits=bits)
+    tol = 2.0 / (2 ** bits - 1)
+    assert (out.reshape(c, 1, h, d) - want).abs().max() <= tol
+    dense = layers.decode_attention(q, kc, vc, q_position=pos, window=window,
+                                    sc_bits=bits)
+    assert (dense - want).abs().max() <= tol
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_softcap_decode_on_the_card_matches_the_decode_oracle(cuda, bits):
+    """Softcap layers take the gathered path on the card (the paged kernel
+    takes no softcap), held to the decode oracle like the kernel."""
+    from repro_torch.kernels import ref
+    q, kc, vc = _oracle_inputs(((3, 1, 4, 16), (3, 12, 2, 16),
+                                (3, 12, 2, 16)), bits + 50, cuda)
+    pos = torch.tensor([3, 7, 11], dtype=torch.int32, device=cuda)
+    out = layers.decode_attention(q, kc, vc, q_position=pos, window=6,
+                                  logit_softcap=5.0, sc_bits=bits)
+    want = ref.sc_decode_attention_ref(q, kc, vc, q_position=pos, bits=bits,
+                                       window=6, logit_softcap=5.0)
+    assert (out - want).abs().max() <= 2.0 / (2 ** bits - 1)

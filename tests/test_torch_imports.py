@@ -43,6 +43,9 @@ PORT_MODULES = [
     "repro_torch.serving.slots", "repro_torch.serving.engine",
     "repro_torch.launch.steps", "repro_torch.launch.serve",
     "repro_torch.launch.paper", "repro_torch.launch.train",
+    "repro_torch.launch.mesh", "repro_torch.launch.modelmeta",
+    "repro_torch.parallel", "repro_torch.parallel.sharding",
+    "repro_torch.parallel.context", "repro_torch.parallel.pipeline_parallel",
     "repro_torch.tree", "repro_torch.optim", "repro_torch.optim.adamw",
     "repro_torch.optim.schedules", "repro_torch.optim.grad_compression",
     "repro_torch.data", "repro_torch.data.pipeline",
