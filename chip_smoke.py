@@ -403,16 +403,11 @@ def _sm_clock_hz() -> float:
 
 
 def _sc_bound(m, k, n, esz):
-    """Least time of one fused projection: the rows (``esz`` bytes an
-    element) and the int16 weight plane read once and the output written
-    once, against ``2·M·N·K`` operations at the int8 tensor-core peak
-    (the rate of the cheapest type the counts could go through). Returns
-    (ms, bound_by, bytes, ops)."""
-    nbytes = m * k * esz + k * (-(-n // 8) * 8) * 2 + m * n * esz + 4
-    ops = 2 * m * n * k
-    t_b, t_o = nbytes / HBM_BYTES_S, ops / INT8_OPS_S
-    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
-            nbytes, ops)
+    """``launch.cost_analysis.sc_bound``: the one rule of an SC-GEMM
+    launch's least time, which the dry run counts by too. Returns (ms,
+    bound_by, bytes, ops)."""
+    from repro_torch.launch.cost_analysis import sc_bound
+    return sc_bound(m, k, n, esz)
 
 
 def device_ms(fn, kernel: str, iters: int = 20,
@@ -1266,22 +1261,11 @@ def _flash_inputs(dtype, b, h, kv, sq, skv, d, gen, dev, model_layout):
 
 
 def _flash_bound(q, k, q_offset, bits):
-    """Least time for one call: q read and out written once, and the K/V
-    rows the causal rows need read once, against the QKᵀ and PV operations
-    those rows need, at the peak for the operands' type."""
-    import torch
-    b, h, sq, d = q.shape
-    kv, skv = k.shape[1], k.shape[2]
-    keys = sum(min(skv, q_offset + i + 1) for i in range(sq))
-    kv_rows = min(skv, q_offset + sq)
-    esz = q.element_size()
-    nbytes = esz * (2 * b * h * sq * d + 2 * b * kv * kv_rows * d)
-    ops = 4 * b * h * d * keys
-    rate = (INT8_OPS_S if bits else BF16_OPS_S if q.dtype == torch.bfloat16
-            else FP32_OPS_S)
-    bound = max(nbytes / HBM_BYTES_S, ops / rate) * 1e3
-    return bound, ("bytes" if nbytes / HBM_BYTES_S >= ops / rate
-                   else "operations"), nbytes, ops
+    """``launch.cost_analysis.flash_bound``: the one rule of a flash
+    call's least time, which the dry run counts by too. Returns (ms,
+    bound_by, bytes, ops)."""
+    from repro_torch.launch.cost_analysis import flash_bound
+    return flash_bound(q, k, q_offset, bits)
 
 
 #: Long-prompt flash calls, bf16, group 1024 (the registered kv_block):
@@ -3468,6 +3452,351 @@ def phase_dist(report: dict) -> dict:
     return _dist_cell(cfg, torch.device("cuda"), report)
 
 
+#: the dryrun phase: the train step's batch (smollm-360m at full width,
+#: SC-GEMM at 8 bits), the paged decode pool (slots, pages a slot, page
+#: size) with its slots' positions, the timed decode steps (the train
+#: step is timed once, in its bit-equality run), and the production cell
+#: dry-run in a subprocess with its deadline
+DRYRUN_TRAIN = dict(batch=2, seq=128, steps=20)
+DRYRUN_POOL = dict(capacity=4, per_slot=4, block=64)
+DRYRUN_POS = (40, 100, 180, 255)
+DRYRUN_ITERS = 3
+DRYRUN_CELL = ("smollm-360m", "decode_32k", 150)
+
+
+def _op_metas(dev) -> list:
+    """Each kernel operator's fake output against its real output (shape,
+    dtype, strides) at smollm-360m's shapes and qwen3-moe's batched
+    expert shape."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    # the wrappers' modules register the operators
+    import repro_torch.kernels.flash_attention  # noqa: F401
+    import repro_torch.kernels.paged_attention  # noqa: F401
+    from repro_torch.kernels.sc_matmul import pack_weight
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    ops = torch.ops.repro_torch
+    pw = pack_weight(rand(960, 2560), 8)
+    # the batched expert launch: 128 experts, 64 capacity rows, K 4096,
+    # N 1536 (qwen3-moe-235b-a22b's w1/w3)
+    pe = pack_weight(rand(128, 4096, 1536), 8)
+    pool = rand(17, 64, 5, 64)
+    tables = torch.arange(16, dtype=torch.int32, device=dev).reshape(4, 4)
+    pos = torch.tensor(DRYRUN_POS, dtype=torch.int32, device=dev)
+    q_rows = rand(1, 64, 15, 64).transpose(1, 2)
+    kv_rows = rand(1, 64, 5, 64).transpose(1, 2)
+    calls = {
+        "sc_linear": (ops.sc_linear, (rand(4, 960), pw.plane, pw.scale, 8,
+                                      0, 0, 0)),
+        "sc_linear_batched": (ops.sc_linear, (rand(128, 64, 4096), pe.plane,
+                                              pe.scale, 8, 0, 0, 0)),
+        "paged_attention": (ops.paged_attention,
+                            (rand(4, 5, 3, 64), pool, pool.clone(), tables,
+                             pos, 0, 0)),
+        "paged_attention_sc": (ops.paged_attention,
+                               (rand(4, 5, 3, 64), pool, pool.clone(),
+                                tables, pos, 0, 8)),
+        "flash_attention": (ops.flash_attention,
+                            (q_rows, kv_rows, kv_rows, None, 0, True, 64, 0,
+                             0, 0)),
+        "flash_attention_sc": (ops.flash_attention,
+                               (q_rows, kv_rows, kv_rows, None, 0, True, 64,
+                                8, 0, 0)),
+    }
+    rows = []
+    for name, (op, args) in calls.items():
+        real = op(*args)
+        with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+            fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor)
+                        else a for a in args))
+        row = {"op": name, "shape": list(real.shape),
+               "dtype": str(real.dtype), "stride": list(real.stride()),
+               "fake": [list(fake.shape), str(fake.dtype),
+                        list(fake.stride())]}
+        if row["fake"] != [row["shape"], row["dtype"], row["stride"]]:
+            raise AssertionError(f"[dryrun] fake meta of {name} differs: "
+                                 f"{row}")
+        rows.append(row)
+        log(f"[dryrun] fake meta = real: {name} {tuple(real.shape)} "
+            f"{real.dtype} stride {tuple(real.stride())}")
+    del pw, pe, pool
+    return rows
+
+
+def _placed_bytes(tree) -> int:
+    from repro_torch import tree as tr
+    return sum(t.to_local().numel() * t.to_local().element_size()
+               for t in tr.leaves(tree))
+
+
+def _predicted(step, placed_args, dev) -> dict:
+    """The dry run's prediction of ``step`` on the same mesh: each placed
+    argument's shape and placements over a fake shard, counted (rank 0's
+    program), and the roofline of the counts."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch import tree as tr
+    from repro_torch.launch.cost_analysis import (count_step, fake_mode,
+                                                  roofline_terms)
+
+    def fake_like(t):
+        local = t.to_local()
+        return DTensor.from_local(
+            torch.empty(local.shape, dtype=local.dtype, device=dev.type),
+            t.device_mesh, t.placements, shape=t.shape, stride=t.stride())
+
+    mode = fake_mode()
+    with mode:
+        args = [tr.tree_map(fake_like, a) for a in placed_args]
+    _, counted = count_step(step, *args, mode=mode)
+    rl = roofline_terms(counted.stats, n_chips=1, model_flops=0.0,
+                        mesh_shape=(1, 1))
+    return {"memory": counted.memory(), "roofline": rl.to_dict(),
+            "collectives_by_kind": dict(counted.stats.by_kind),
+            "ops": counted.ops}
+
+
+def _paged_pool(m, cfg, dev, gen):
+    """A paged pool of ``DRYRUN_POOL`` with every K/V page random and the
+    slots at ``DRYRUN_POS``, and its full block tables."""
+    import torch
+    from repro_torch.models import cache_ops
+    c, per, block = (DRYRUN_POOL[k] for k in ("capacity", "per_slot",
+                                               "block"))
+    pool = cache_ops.paged_init(m.init_cache, c, c * per, block)
+    for leaf in cache_ops.seq_leaves(pool):
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device=dev)
+                   .to(leaf.dtype))
+    pool.pos.copy_(torch.tensor(DRYRUN_POS, dtype=pool.pos.dtype,
+                                device=dev))
+    tables = torch.arange(c * per, dtype=torch.int32,
+                          device=dev).reshape(c, per)
+    return pool, tables
+
+
+def _dryrun_cell(cfg, dev) -> dict:
+    """(b) and (c) of the dryrun phase on one rank (module docstring)."""
+    import torch
+    import torch.distributed as dist
+    from datetime import timedelta
+    from repro_torch import tree as tr
+    from repro_torch.launch import mesh_steps as ms
+    from repro_torch.launch import steps as eager
+    from repro_torch.launch import train as tt
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import bind, pack_sc_weights
+    from repro_torch.optim import init as opt_init
+    from repro_torch.parallel.sharding import distribute
+    out: dict = {}
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1, timeout=timedelta(seconds=60))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type=dev.type)
+        m = bind(cfg, dev)
+        params = m.init_params(0)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        run = DRYRUN_TRAIN
+        toks = torch.randint(0, cfg.vocab_size, (run["batch"], run["seq"]),
+                             generator=gen, device=dev, dtype=torch.int32)
+        batch = {"tokens": toks, "labels": toks}
+        counters = _serve_launch_counters()
+
+        # -- (b) train: the mesh-bound step against launch.train's
+        step, sh, _, optc = ms.build_train_step(
+            cfg, mesh, warmup=max(run["steps"] // 20, 1),
+            total_steps=run["steps"])
+        opt = opt_init(params, optc)
+        want_p, _, want_loss, _ = tt.train_step(
+            m, params, opt, batch, lr_peak=3e-4, steps=run["steps"],
+            optc=optc)
+        args = (distribute(params, sh["params"]), distribute(opt, sh["opt"]),
+                distribute(batch, sh["batch_fn"](batch)))
+        for c in counters.values():
+            c.launches = 0
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t_run = time.perf_counter()
+        got_p, _, metrics = step(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        # the one run, host clock to a synchronize (a second would cost the
+        # phase its time: the step is DTensor's host work)
+        ms_train = ((time.perf_counter() - t_run) * 1e3
+                    if dev.type == "cuda" else None)
+        peak = (torch.cuda.max_memory_allocated() - base
+                if dev.type == "cuda" else None)
+        launches = {n: c.launches for n, c in counters.items()}
+        same = all(torch.equal(a.full_tensor(), b) for a, b in
+                   zip(tr.leaves(got_p), tr.leaves(want_p)))
+        loss_same = torch.equal(metrics["loss"].full_tensor(), want_loss)
+        if not (same and loss_same):
+            raise AssertionError("[dryrun] the mesh-bound train step is not "
+                                 "bit-equal to launch.train.train_step")
+        t_pred = time.perf_counter()
+        pred = _predicted(step, args, dev)
+        log(f"[dryrun] train: the step {ms_train} ms, its count "
+            f"{time.perf_counter() - t_pred:.1f}s")
+        out["train"] = {"bit_equal": True, "launches": launches,
+                        "argument_bytes": _placed_bytes(args),
+                        "peak_bytes": peak, "ms": ms_train, "prediction": pred}
+        del got_p, want_p, metrics, opt, args
+
+        # -- (b) paged decode: the mesh-bound step against the eager one
+        pool, tables = _paged_pool(m, cfg, dev, gen)
+        step_toks = {"tokens": torch.randint(
+            0, cfg.vocab_size, (DRYRUN_POOL["capacity"], 1), generator=gen,
+            device=dev, dtype=torch.int32)}
+        packed = pack_sc_weights(params, cfg)
+        want_logits, want_pool = eager.paged_decode_step(
+            m, packed, tr.tree_map(lambda t: t.clone(), pool), tables,
+            step_toks)
+        del packed
+        step, sh, _ = ms.build_paged_decode_step(
+            cfg, mesh, capacity=DRYRUN_POOL["capacity"],
+            block=DRYRUN_POOL["block"],
+            n_blocks=DRYRUN_POOL["capacity"] * DRYRUN_POOL["per_slot"],
+            max_blocks=DRYRUN_POOL["per_slot"])
+        args = (distribute(params, sh["params"]),
+                distribute(tr.tree_map(lambda t: t.clone(), pool),
+                           sh["cache"]),
+                distribute(tables, sh["tables"]),
+                distribute(step_toks, sh["batch_fn"](step_toks)))
+        for c in counters.values():
+            c.launches = 0
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        logits, got_pool = step(*args)
+        peak = (torch.cuda.max_memory_allocated() - base
+                if dev.type == "cuda" else None)
+        dec_launches = {n: c.launches for n, c in counters.items()}
+        same = torch.equal(logits.full_tensor(), want_logits) and all(
+            torch.equal(a.full_tensor(), b) for a, b in
+            zip(tr.leaves(got_pool), tr.leaves(want_pool)))
+        if not same:
+            raise AssertionError("[dryrun] the mesh-bound paged decode step "
+                                 "is not bit-equal to the eager step")
+        pos0 = args[1].pos.clone()
+
+        def again():
+            args[1].pos.copy_(pos0)
+            step(*args)
+        ms_decode = (cuda_ms(again, DRYRUN_ITERS, warmup=0)
+                     if dev.type == "cuda" else None)
+        args[1].pos.copy_(pos0)
+        pred = _predicted(step, args, dev)
+        out["paged_decode"] = {"bit_equal": True, "launches": dec_launches,
+                               "argument_bytes": _placed_bytes(args),
+                               "peak_bytes": peak, "ms": ms_decode,
+                               "prediction": pred}
+        out["launches"] = {n: launches[n] + dec_launches[n]
+                           for n in launches}
+    finally:
+        dist.destroy_process_group()
+    for tag in ("train", "paged_decode"):
+        r = out[tag]
+        p = r["prediction"]
+        if p["memory"]["argument_size_in_bytes"] != r["argument_bytes"]:
+            raise AssertionError(f"[dryrun] {tag}: predicted argument bytes "
+                                 f"{p['memory']['argument_size_in_bytes']} "
+                                 f"!= placed {r['argument_bytes']}")
+        pred_peak = (p["memory"]["temp_size_in_bytes"]
+                     + p["memory"]["output_size_in_bytes"])
+        step_s = p["roofline"]["compute_s"], p["roofline"]["memory_s"]
+        log(f"[dryrun] {tag}: bit-equal; launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }; argument "
+            f"bytes {r['argument_bytes']} = predicted; peak above the "
+            f"arguments {r['peak_bytes']} B measured, {pred_peak} B "
+            f"predicted (temp + output); measured {_ms(r['ms'])}, roofline "
+            f"{max(step_s) * 1e3:.4f} ms (compute {step_s[0] * 1e3:.4f}, "
+            f"memory {step_s[1] * 1e3:.4f}); {p['ops']} ops counted")
+    return out
+
+
+def _dryrun_production_cell():
+    """(d): one production cell through the CLI in a subprocess, started
+    at once and run beside (a)-(c) (each is host work on its own core);
+    the returned function waits for it to a deadline and returns its
+    record."""
+    arch, shape, deadline = DRYRUN_CELL
+    out_dir = ROOT / "chiprun_out" / "dryrun_torch"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # its output to a file: a pipe nobody reads could fill and stall it
+    log_path = out_dir / f"{arch}__{shape}__single.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as sink:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out",
+             str(out_dir)], env=env, cwd=str(ROOT), stdout=sink,
+            stderr=subprocess.STDOUT)
+
+    def finish() -> dict:
+        try:
+            proc.wait(timeout=max(1.0, deadline - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise AssertionError(f"[dryrun] the {arch} {shape} cell ran past "
+                                 f"its {deadline} s deadline")
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"[dryrun] the {arch} {shape} cell failed:"
+                                 f"\n{log_path.read_text()[-3000:]}")
+        rec = json.loads((out_dir / f"{arch}__{shape}__single.json")
+                         .read_text())
+        if rec["status"] != "ok" or rec["n_chips"] != 256:
+            raise AssertionError(f"[dryrun] {arch} {shape}: {rec}")
+        r = rec["roofline"]
+        log(f"[dryrun] {arch} {shape} on the 16x16 mesh (fake, rank 0, "
+            f"{rec['device']}): {seconds:.1f}s from its start, trace "
+            f"{rec['trace_s']}s, dominant {r['dominant']}, compute "
+            f"{r['compute_s']:.4e}s memory {r['memory_s']:.4e}s collective "
+            f"{r['collective_s']:.4e}s, memory {rec['memory']}")
+        return {"record": rec, "seconds": seconds}
+
+    return finish
+
+
+def phase_dryrun() -> dict:
+    """(a) each kernel operator's fake output meta against its real
+    output; (b) on one NCCL rank (a 1x1 mesh) smollm-360m at full width
+    under SC-GEMM at 8 bits: the mesh-bound train and paged decode steps
+    through the kernel operators, bit-equal to ``launch.train.train_step``
+    and the eager paged decode step, launches counted; (c) the dry run's
+    prediction of the same two steps on that mesh against the card; (d)
+    one production cell dry-run in a subprocess."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    production_cell = _dryrun_production_cell()
+    out = {"metas": _op_metas(dev)}
+    torch.cuda.empty_cache()
+    t_cell = time.perf_counter()
+    log(f"[dryrun] metas {t_cell - t0:.1f}s")
+    cfg = dataclasses.replace(ARCHS[TRAIN_ARCH], use_sc_gemm=True,
+                              sc_bits=8).validate()
+    out.update(_dryrun_cell(cfg, dev))
+    log(f"[dryrun] one-rank steps {time.perf_counter() - t_cell:.1f}s")
+    out["production_cell"] = production_cell()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[dryrun] phase {out['seconds']:.1f}s")
+    return out
+
+
 #: what ``serve_spec`` takes from ``serve`` (key False) and ``serve_sc``
 #: (key True): the baseline streams and the chunked cell's graphed
 #: tokens/s (absent when that phase did not run in this call)
@@ -4304,7 +4633,8 @@ def main() -> int:
               ("serve_moe", phase_serve_moe),
               ("serve_moe_llama4", phase_serve_moe_llama4),
               ("train", phase_train),
-              ("dist", lambda: phase_dist(report)))
+              ("dist", lambda: phase_dist(report)),
+              ("dryrun", phase_dryrun))
     seconds = {}
     for name, fn in phases:
         if only is None or name in only:
@@ -4448,6 +4778,9 @@ def main() -> int:
     # the train phase's kill-and-resume (SC-GEMM and float flash only)
     trained = report["train"]["launches"]
     for name, n in trained.items():
+        total[name] += n
+    # the dryrun phase's mesh-bound train and paged decode steps
+    for name, n in report["dryrun"]["launches"].items():
         total[name] += n
     kernels = [
         {"name": "sc_gemm", "route": "cuda",

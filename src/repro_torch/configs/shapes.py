@@ -5,20 +5,22 @@ every shape applies to every arch, with the documented exceptions
 ``moe_capacity`` is ``models/moe.py``'s one rule, imported here for the
 MoE problems of :func:`sc_gemm_problems`.
 
-The JAX package's ``input_specs`` and ``cache_specs`` build
-``jax.ShapeDtypeStruct`` stand-ins for its dry run; they come with the
-port of ``launch/dryrun.py`` (ROADMAP.md, Queue 1).
+:func:`input_specs` and :func:`cache_specs` are the dry run's stand-ins
+for one step's inputs (the reference's ``jax.ShapeDtypeStruct`` trees):
+tensors on the ``meta`` device, shapes and dtypes without storage.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import torch
 
 from repro_torch.models.moe import moe_capacity
 
 from .base import ModelConfig
 
 __all__ = ["Shape", "SHAPES", "is_applicable", "sc_gemm_problems",
-           "moe_capacity"]
+           "moe_capacity", "input_specs", "cache_specs"]
 
 
 @dataclass(frozen=True)
@@ -92,3 +94,39 @@ def sc_gemm_problems(cfg: ModelConfig,
     head_out = cfg.vocab_size * max(cfg.n_codebooks, 1)
     probs.add((head_rows, d, head_out))         # lm head (loss-chunked)
     return sorted(probs)
+
+
+def _tokens(cfg: ModelConfig, batch: int, seq: int) -> torch.Tensor:
+    shape = (batch, seq, cfg.n_codebooks) if cfg.n_codebooks else (batch,
+                                                                   seq)
+    return torch.empty(shape, dtype=torch.int32, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: Shape, *,
+                visual_patches: int = 1024) -> dict:
+    """One step's inputs on the ``meta`` device: train and prefill take
+    the whole ``(batch, seq)`` token block (and labels for train), decode
+    one new token a sequence (its cache is :func:`cache_specs`); a vlm's
+    train and prefill add ``visual_embeds (B, min(patches, S // 4), d)``
+    bf16 and ``mrope_positions (3, B, S)`` int32."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        specs = {"tokens": _tokens(cfg, b, s), "labels": _tokens(cfg, b, s)}
+    elif shape.kind == "prefill":
+        specs = {"tokens": _tokens(cfg, b, s)}
+    else:
+        specs = {"tokens": _tokens(cfg, b, 1)}
+    if cfg.family == "vlm" and shape.kind != "decode":
+        specs["visual_embeds"] = torch.empty(
+            (b, min(visual_patches, s // 4), cfg.d_model),
+            dtype=torch.bfloat16, device="meta")
+        specs["mrope_positions"] = torch.empty((3, b, s), dtype=torch.int32,
+                                               device="meta")
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, shape: Shape):
+    """The decode cache at this shape, on the ``meta`` device
+    (``bind(cfg, "meta").init_cache``)."""
+    from repro_torch.models import bind
+    return bind(cfg, "meta").init_cache(shape.global_batch, shape.seq_len)

@@ -27,6 +27,7 @@ import torch
 from repro_torch.errors import ConfigError
 from repro_torch.kernels.autotune import get_or_tune
 from repro_torch.kernels.sc_matmul import sc_linear
+from repro_torch.parallel.context import reshape
 
 from .sc_matmul import resolve_impl, sc_matmul
 
@@ -40,7 +41,7 @@ PACKED_IMPLS = ("auto", "pallas", "pallas_tuned")
 def _sc_forward(x: torch.Tensor, w: torch.Tensor, bits: int,
                 impl: str | None) -> torch.Tensor:
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
+    x2 = reshape(x, -1, x.shape[-1])
     # row_quant: per-token activation scales, so a token's output is
     # independent of whatever else shares the batch — the serving engine's
     # batch-invariance rests on this.
@@ -117,7 +118,7 @@ def sc_proj(x: torch.Tensor, w: torch.Tensor, cfg,
                 f"packed weight {have} at {packed.bits} bits does "
                 f"not match the weight {tuple(w.shape)} at sc_bits="
                 f"{cfg.sc_bits}: pack the parameters again")
-        x2 = x if batched else x.reshape(-1, x.shape[-1])
+        x2 = x if batched else reshape(x, -1, x.shape[-1])
         tuned = impl == "pallas_tuned" or (impl == "auto" and x2.is_cuda)
         out = sc_linear(x2, packed,
                         config=get_or_tune(x2, packed) if tuned else None)

@@ -588,6 +588,15 @@ def best_of_us(call: Callable[[], object], iters: int,
     return best
 
 
+def _no_plan(t) -> bool:
+    """A tensor no launch plan is looked up or swept for: a ``DTensor``
+    (its global shape is no launch's; its shards launch at the default
+    plan) or a tensor without data (fake or on ``meta``)."""
+    from torch._subclasses.fake_tensor import is_fake
+    from repro_torch.parallel.context import is_dtensor
+    return is_dtensor(t) or t.device.type == "meta" or is_fake(t)
+
+
 def _may_sweep(key: str) -> None:
     if _LOOKUP_ONLY or (torch.cuda.is_available()
                         and torch.cuda.is_current_stream_capturing()):
@@ -700,6 +709,8 @@ def get_or_tune(a, b, *, bits: int = 8, cache: AutotuneCache | None = None,
     dtypes and device of ``a`` and ``b`` are read: the sweep times
     synthetic operands of the same kind, at ``bucket_m(M)`` rows, so one
     winner serves every batch in a bucket."""
+    if _no_plan(a):
+        return None
     m, k = a.shape[-2:]
     n = b.shape[1]
     fused = isinstance(b, PackedWeight)
@@ -770,6 +781,8 @@ def get_or_tune_flash(q, k, v, *, causal: bool = True,
     and ``k, v (B, KV, Skv, D)`` at ``q_offset``. An offset held on the
     card keys and sweeps the worst-case launch (``m_tile_count``) and is
     swept at the deepest chunk, ``Skv - Sq``; its value is never read."""
+    if _no_plan(q):
+        return None
     from .flash_attention import flash_attention
     b, h, sq, d = q.shape
     _, kv, skv, _ = k.shape
@@ -817,6 +830,8 @@ def get_or_tune_paged(q, k_pages, v_pages, tables, q_positions, *,
     (:class:`PagedConfig`), looked up, and on a miss timed once over a
     synthetic pool whose tables are full and whose slots sit at their last
     position (the walk's worst case)."""
+    if _no_plan(q):
+        return None
     from .paged_attention import paged_attention
     c, kv, g, d = q.shape
     block = k_pages.shape[1]

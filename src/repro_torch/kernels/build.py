@@ -25,7 +25,7 @@ from pathlib import Path
 from repro_torch.errors import KernelLaunchError
 
 __all__ = ["SOURCES", "build", "load", "check", "library_path", "ptxas_log",
-           "build_root", "source_hash"]
+           "build_root", "source_hash", "direct"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: Every kernel source of the port, by library name.
@@ -124,3 +124,17 @@ def check(rc: int, what: str) -> None:
     launch never runs, and a later synchronize would not report it)."""
     if rc != 0:
         raise KernelLaunchError(f"{what}: CUDA error {rc} at launch")
+
+
+def direct(*tensors) -> bool:
+    """Whether a kernel wrapper may call its custom operator's
+    implementation as a plain function: every operand a plain tensor and
+    no dispatch mode active. A ``DTensor``, a ``FakeTensor`` or a mode
+    (the dry run's counting) must meet the operator, which sends them to
+    its sharding rule or its fake implementation; a plain tensor gains
+    nothing from the dispatcher, which costs an eager decode step tens
+    of milliseconds (PERF.md)."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+    import torch
+    return (all(type(t) is torch.Tensor for t in tensors)
+            and _get_current_dispatch_mode() is None)

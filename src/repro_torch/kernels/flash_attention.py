@@ -11,12 +11,17 @@ contractions through the popcount multiplier, ``csrc/sc_attention.cuh``)
 on packed 8-bit magnitudes in byte SIMD. ``flash_attention.launches``
 counts launches, ``flash_attention.sc.launches`` the SC path's alone.
 :func:`plan` is the launch plan as a pure function of the shapes; the
-source's header has the design.
+source's header has the design. The wrapper is the custom operator
+``torch.ops.repro_torch.flash_attention`` (the plain version on the CPU,
+the launch on the card, a fake implementation for ``FakeTensor``s, a
+``DTensor`` sharding rule in ``parallel/kernel_sharding.py``), whose
+implementation plain tensors call directly (``build.direct``).
 
 Layout: ``q (B, H, Sq, D)``, ``k, v (B, KV, Skv, D)`` with head ``h``
 reading KV head ``h // (H // KV)``; any strides with a contiguous last
 axis (the model passes transposed views of its ``(B, S, H, D)`` tensors,
-and the output takes ``q``'s layout). Returns ``(B, H, Sq, D)`` in
+and the output is laid out as ``(B, Sq, H, D)``, the model's layout,
+whatever ``q``'s strides). Returns ``(B, H, Sq, D)`` in
 ``q.dtype``. A block serves the query heads of one KV head (all of them
 where shared memory allows), so each K/V tile is read once for them.
 
@@ -281,7 +286,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     group: int = 64, sc_bits: int | None = None,
                     config=None) -> torch.Tensor:
     """Fused flash forward: the CUDA kernel for tensors on the card, the
-    plain version for tensors on the CPU. ``q_offset`` is an int, or a
+    plain version for tensors on the CPU, both
+    ``torch.ops.repro_torch.flash_attention``'s implementation (called
+    directly for plain tensors, ``build.direct``). ``q_offset`` is an int, or a
     one-element int32 tensor on the query's device (read by the kernel).
     ``config`` (a tuned ``autotune.FlashConfig``) sets the heads and
     m-tiles a block; the bits do not depend on it."""
@@ -298,10 +305,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if group < 1:
         raise ConfigError(f"flash kernel needs group >= 1, got {group}")
     _check_offset(q_offset, q)
+    on_device = isinstance(q_offset, torch.Tensor)
+    heads, m_tiles = (0, 0) if config is None else (config.heads,
+                                                    config.m_tiles)
+    args = (q, k, v, q_offset if on_device else None,
+            0 if on_device else int(q_offset), bool(causal), int(group),
+            sc_bits or 0, heads, m_tiles)
+    if build.direct(q, k, v, *([q_offset] if on_device else [])):
+        return _flash_attention_impl(*args)
+    return torch.ops.repro_torch.flash_attention(*args)
+
+
+flash_attention.launches = 0
+flash_attention.sc = SimpleNamespace(launches=0)
+
+
+def _out_like(q: torch.Tensor) -> torch.Tensor:
+    """The output buffer ``(B, H, Sq, D)``, laid out as ``(B, Sq, H, D)``
+    (the model's layout, and the plain version's) whatever ``q``'s
+    strides: the output's layout depends on its shape alone, so a
+    ``DTensor``'s local shard and its global shape agree on it."""
+    b, h, sq, d = q.shape
+    return torch.empty((b, sq, h, d), dtype=q.dtype,
+                       device=q.device).transpose(1, 2)
+
+
+def _flash_attention_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          q_offset_t: torch.Tensor | None, q_offset: int,
+                          causal: bool, group: int, sc_bits: int, heads: int,
+                          m_tiles: int) -> torch.Tensor:
+    """:func:`flash_attention` with the offset as a tensor
+    (``q_offset_t``) or an int, ``sc_bits`` 0 for none and the plan's
+    ``heads``/``m_tiles`` (0: :func:`plan`'s): the plain version on the
+    CPU, else one launch."""
+    sc_bits = sc_bits or None
+    offset = q_offset if q_offset_t is None else q_offset_t
     if q.device.type == "cpu":
-        return flash_attention_torch(q, k, v, causal=causal,
-                                     q_offset=q_offset, group=group,
-                                     sc_bits=sc_bits)
+        return flash_attention_torch(q, k, v, causal=causal, q_offset=offset,
+                                     group=group, sc_bits=sc_bits)
     if not all(t.is_cuda and t.device == q.device for t in (k, v)):
         raise ConfigError("flash kernel: every operand must be on the "
                           "query's CUDA device")
@@ -309,22 +350,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             k.dtype != q.dtype or v.dtype != q.dtype:
         raise ConfigError(f"flash kernel takes f32 or bf16 q, k, v of one "
                           f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    b, h, sq, d = q.shape
+    kv, skv = k.shape[1], k.shape[2]
     if d > MAX_D or group > MAX_GROUP:
         raise ConfigError(f"flash kernel holds D <= {MAX_D} and a group of "
                           f"<= {MAX_GROUP} keys, got D={d}, group={group}")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    out = torch.empty_like(q)
-    if out.stride(-1) != 1:
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = _out_like(q)
     if q.numel() == 0 or skv == 0:
         return out.zero_()
     esz = q.element_size()
-    if config is None:
-        p = plan(b, h, kv, sq, d, group, q_offset, sc_bits, esz=esz,
+    if not heads:
+        p = plan(b, h, kv, sq, d, group, offset, sc_bits, esz=esz,
                  sms=_sm_count(q.device))
     else:
-        p = plan(b, h, kv, sq, d, group, q_offset, sc_bits, esz=esz,
-                 heads=config.heads, m_tiles=config.m_tiles)
+        from .autotune import FlashConfig
+        config = FlashConfig(heads, m_tiles)
+        p = plan(b, h, kv, sq, d, group, offset, sc_bits, esz=esz,
+                 heads=heads, m_tiles=m_tiles)
         if not (config.is_valid() and config.fits(p.path, d, group, esz)):
             raise ConfigError(f"flash plan {config} is not one the kernel "
                               f"takes on its {p.path} path at D={d}, "
@@ -335,13 +378,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
               and all(s * esz % 16 == 0 for s in strides[:9]))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    on_device = isinstance(q_offset, torch.Tensor)
+    on_device = q_offset_t is not None
     rc = _entries()[q.dtype](
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kv,
         sq, skv, d, h // kv, p.heads, p.m_tiles, *strides,
         0 if on_device else int(q_offset),
-        q_offset.data_ptr() if on_device else None, int(causal), int(group),
-        sc_bits or 0, vec, d ** -0.5, stream)
+        q_offset_t.data_ptr() if on_device else None, int(causal),
+        int(group), sc_bits or 0, vec, d ** -0.5, stream)
     build.check(rc, "flash_attention")
     flash_attention.launches += 1
     if sc_bits is not None:
@@ -349,5 +392,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-flash_attention.launches = 0
-flash_attention.sc = SimpleNamespace(launches=0)
+_flash_attention_op = torch.library.custom_op(
+    "repro_torch::flash_attention", _flash_attention_impl, mutates_args=())
+
+
+@_flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, q_offset_t, q_offset, causal, group,
+                          sc_bits, heads, m_tiles):
+    return _out_like(q)

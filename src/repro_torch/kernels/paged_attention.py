@@ -41,7 +41,12 @@ of a rounding boundary. Every head layout is served under SC.
 
 ``paged_attention.launches`` counts kernel launches, both paths: one a
 call; ``paged_attention.sc.launches`` counts the SC path's alone.
-:func:`plan` is the launch plan as a pure function of the shapes.
+:func:`plan` is the launch plan as a pure function of the shapes. The
+wrapper is the custom operator ``torch.ops.repro_torch.paged_attention``
+(the plain version on the CPU, the launch on the card, a fake
+implementation for ``FakeTensor``s, a ``DTensor`` sharding rule in
+``parallel/kernel_sharding.py``), whose implementation plain tensors
+call directly (``build.direct``).
 
 Layout: ``q (C, KV, G, D)``; ``k_pages, v_pages (P, block, KV, D)`` with
 page ``P - 1`` the trash page; ``tables (C, MB) int32`` (−1 = unallocated);
@@ -166,7 +171,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     logit_softcap: float | None = None,
                     sc_bits: int | None = None) -> torch.Tensor:
     """Fused paged decode attention: the CUDA kernel for tensors on the
-    card, the plain version for tensors on the CPU."""
+    card, the plain version for tensors on the CPU, both
+    ``torch.ops.repro_torch.paged_attention``'s implementation (called
+    directly for plain tensors, ``build.direct``)."""
     check_sc_bits(sc_bits)
     if logit_softcap is not None:
         raise ConfigError("the paged kernel takes no logit softcap; softcap "
@@ -177,12 +184,29 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ConfigError(f"paged kernel layout: q (C, KV, G, D), pages "
                           f"(P, block, KV, D); got {tuple(q.shape)}, "
                           f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
-    c, kv, g, d = q.shape
-    n_pages, block, kv2, d2 = k_pages.shape
-    if (kv2, d2) != (kv, d) or tables.dim() != 2 or tables.shape[0] != c:
+    c, kv, _, d = q.shape
+    if tuple(k_pages.shape[2:]) != (kv, d) or tables.dim() != 2 or tables.shape[0] != c:
         raise ConfigError(f"paged kernel: pages {tuple(k_pages.shape)} / "
                           f"tables {tuple(tables.shape)} do not match q "
                           f"{tuple(q.shape)}")
+    args = (q, k_pages, v_pages, tables, q_positions,
+            0 if window is None else int(window), sc_bits or 0)
+    if build.direct(*args[:5]):
+        return _paged_attention_impl(*args)
+    return torch.ops.repro_torch.paged_attention(*args)
+
+
+paged_attention.launches = 0
+paged_attention.sc = SimpleNamespace(launches=0)
+
+
+def _paged_attention_impl(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, tables: torch.Tensor,
+                          q_positions: torch.Tensor, window: int,
+                          sc_bits: int) -> torch.Tensor:
+    """:func:`paged_attention` with ``window`` and ``sc_bits`` 0 for none:
+    the plain version on the CPU, else one launch."""
+    window, sc_bits = window or None, sc_bits or None
     if q.device.type == "cpu":
         return paged_attention_torch(q, k_pages, v_pages, tables,
                                      q_positions, window=window,
@@ -198,6 +222,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                           f"{v_pages.dtype}")
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ConfigError("paged kernel: page pools must be contiguous")
+    c, kv, g, d = q.shape
+    n_pages, block = k_pages.shape[:2]
     q = q.contiguous()
     if tables.dtype != torch.int32 or not tables.is_contiguous():
         tables = tables.to(torch.int32).contiguous()
@@ -229,5 +255,11 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return out
 
 
-paged_attention.launches = 0
-paged_attention.sc = SimpleNamespace(launches=0)
+_paged_attention_op = torch.library.custom_op(
+    "repro_torch::paged_attention", _paged_attention_impl, mutates_args=())
+
+
+@_paged_attention_op.register_fake
+def _paged_attention_fake(q, k_pages, v_pages, tables, q_positions, window,
+                          sc_bits):
+    return q.new_empty(q.shape)

@@ -26,6 +26,14 @@ the kernel for tensors on the card — never on a failure. :func:`plan` picks
 the kernel's row tile and K split from the shape (the source note says
 why); a tuned plan (``autotune.KernelConfig``) replaces it where the caller
 passes one.
+
+:func:`sc_linear` is the custom operator ``torch.ops.repro_torch.sc_linear``
+(``torch.library.custom_op``): its implementation is the plain version on
+the CPU and the launch on the card, and its fake implementation gives the
+output's shape, dtype and strides, so a ``FakeTensor`` (the dry run) and a
+``DTensor`` (whose sharding rule is ``parallel/kernel_sharding.py``'s)
+pass through it. Plain tensors call the implementation directly
+(``build.direct``).
 """
 from __future__ import annotations
 
@@ -118,16 +126,18 @@ class PackedWeight:
                             self.bits, self.shape, self.experts)
 
 
-def _pack_one(w: torch.Tensor, bits: int, out: torch.Tensor) -> torch.Tensor:
-    """Quantize ``w (K, N)`` at its per-tensor scale into the zeroed plane
-    ``out (K, ldb)``, a block of rows at a time (elementwise at the whole
-    tensor's scale: the bits of quantizing it whole); returns the
-    scale."""
+def _pack_one(w: torch.Tensor, bits: int, out: torch.Tensor,
+              scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Quantize ``w (K, N)`` at its per-tensor scale (``scale``, or its
+    own) into the zeroed plane ``out (K, ldb)``, a block of rows at a time
+    (elementwise at the whole tensor's scale: the bits of quantizing it
+    whole); returns the scale."""
     k, n = w.shape
     rows = max(1, PACK_CHUNK // max(n, 1))
-    absmax = torch.stack([w[i:i + rows].abs().amax().to(torch.float32)
-                          for i in range(0, k, rows)]).amax()
-    scale = absmax_scale(absmax, bits=bits)
+    if scale is None:
+        absmax = torch.stack([w[i:i + rows].abs().amax().to(torch.float32)
+                              for i in range(0, k, rows)]).amax()
+        scale = absmax_scale(absmax, bits=bits)
     for i in range(0, k, rows):
         q = quantize_at_scale(w[i:i + rows].to(torch.float32), scale,
                               bits=bits)
@@ -146,6 +156,9 @@ def pack_weight(w: torch.Tensor, bits: int) -> PackedWeight:
                           f"{tuple(w.shape)}")
     k, n = w.shape[-2:]
     check_exact(k, bits)
+    from repro_torch.parallel.context import is_dtensor
+    if is_dtensor(w):
+        return _pack_sharded(w, bits)
     ldb = -(-n // 8) * 8
     plane = torch.zeros((*w.shape[:-2], k, ldb), dtype=plane_dtype(bits),
                         device=w.device)
@@ -156,6 +169,59 @@ def pack_weight(w: torch.Tensor, bits: int) -> PackedWeight:
     for i in range(e):
         scale[i] = _pack_one(w[i], bits, plane[i])
     return PackedWeight(plane, scale, bits, (k, n), e)
+
+
+def _pack_sharded(w, bits: int) -> PackedWeight:
+    """:func:`pack_weight` of a ``DTensor``: each scale from the whole
+    weight (an abs-max over every shard), replicated, and each shard's
+    plane quantized at it — elementwise, so every shard holds the bits of
+    its slice of the whole weight's plane. The kernel wants K whole, so
+    the float weight is gathered over K first (the integer plane is
+    never sent: NCCL and gloo move no int16); a plane with padding
+    columns keeps its columns whole too."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    k, n = w.shape[-2:]
+    ldb = -(-n // 8) * 8
+    lead = w.dim() - 2
+    whole = {w.dim() - 2} | ({w.dim() - 1} if ldb != n else set())
+    place = [Replicate() if isinstance(p, Shard) and p.dim in whole else p
+             for p in w.placements]
+    if place != list(w.placements):
+        w = w.redistribute(w.device_mesh, place)
+    absmax = w.abs().amax(dim=(-2, -1)).full_tensor().to(torch.float32)
+    scale = absmax_scale(absmax, bits=bits)
+    # the scales follow the weight's expert axis, if it is split
+    s_place = [p if lead and isinstance(p, Shard) and p.dim == 0
+               else Replicate() for p in place]
+    local_scale = DTensor.from_local(scale, w.device_mesh,
+                                     [Replicate()] * len(place)
+                                     ).redistribute(w.device_mesh,
+                                                    s_place).to_local()
+    local = w.to_local()
+    lk, ln = local.shape[-2:]
+    plane = torch.zeros((*local.shape[:-2], lk, ldb if ldb != n else ln),
+                        dtype=plane_dtype(bits), device=local.device)
+    if lead:
+        for i in range(local.shape[0]):
+            _pack_one(local[i], bits, plane[i], local_scale[i])
+    else:
+        _pack_one(local, bits, plane, local_scale)
+    mesh = w.device_mesh
+    return PackedWeight(
+        DTensor.from_local(plane, mesh, place, shape=(*w.shape[:-1], ldb),
+                           stride=_contiguous_stride((*w.shape[:-1], ldb))),
+        DTensor.from_local(local_scale, mesh, s_place,
+                           shape=scale.shape,
+                           stride=_contiguous_stride(scale.shape)),
+        bits, (k, n), w.shape[0] if lead else 0)
+
+
+def _contiguous_stride(shape) -> tuple[int, ...]:
+    stride, acc = [], 1
+    for d in reversed(shape):
+        stride.append(acc)
+        acc *= d
+    return tuple(reversed(stride))
 
 
 def row_tile(m: int) -> int:
@@ -386,7 +452,9 @@ def sc_linear(x: torch.Tensor, pw: PackedWeight, *,
     E experts, ``x (E, M, K)`` gives ``(E, M, N)``: one launch for all of
     them on the card, each expert's rows the bits of its own call, or a
     :class:`ConfigError` where the launch cannot be made (never a loop
-    over experts)."""
+    over experts). Both are ``torch.ops.repro_torch.sc_linear``'s
+    implementation, called directly for plain tensors
+    (``build.direct``)."""
     k, n = pw.shape
     if pw.experts:
         ok = x.dim() == 3 and x.shape[0] == pw.experts and x.shape[2] == k
@@ -397,20 +465,50 @@ def sc_linear(x: torch.Tensor, pw: PackedWeight, *,
     if not ok:
         raise ConfigError(f"SC-GEMM rows must be {want}, got "
                           f"{tuple(x.shape)}")
-    if x.device.type == "cpu" and pw.plane.device.type == "cpu":
+    if not (x.device.type == "cpu" and pw.plane.device.type == "cpu"):
+        _check_cuda(x, pw.plane, "SC-GEMM rows and packed weight")
+    mr, kc = (0, 0) if config is None else (config.mr, config.kc)
+    args = (x, pw.plane, pw.scale, pw.bits, pw.plane.shape[-1] - n, mr, kc)
+    if build.direct(x, pw.plane, pw.scale):
+        return _sc_linear_impl(*args)
+    return torch.ops.repro_torch.sc_linear(*args)
+
+
+sc_linear.launches = 0
+
+
+def _sc_linear_impl(x: torch.Tensor, plane: torch.Tensor,
+                    scale: torch.Tensor, bits: int, pad: int, mr: int,
+                    kc: int) -> torch.Tensor:
+    """:func:`sc_linear` on a plane ``(K, L)`` (or ``(E, K, L)``) whose
+    last ``pad`` columns are padding, at the plan ``(mr, kc)`` (``mr`` 0:
+    :func:`plan`'s): the plain version on the CPU, else one launch."""
+    n = plane.shape[-1] - pad
+    pw = PackedWeight(plane, scale, bits, (plane.shape[-2], n),
+                      plane.shape[0] if plane.dim() == 3 else 0)
+    if x.device.type == "cpu":
         return sc_linear_torch(x, pw)
-    _check_cuda(x, pw.plane, "SC-GEMM rows and packed weight")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ConfigError(f"SC-GEMM rows must be float32 or bfloat16 on the "
                           f"card, got {x.dtype}")
     m = x.shape[-2]
     if m >= (1 << 20) or n >= (1 << 30):
         raise ConfigError(f"SC-GEMM shape ({m}, {n}) exceeds the kernel grid")
+    config = None
+    if mr:
+        from .autotune import KernelConfig
+        config = KernelConfig(mr, kc)
     out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
-    _launch(x.contiguous(), pw.plane, pw.scale, out, m=m, n=n, k=k,
-            bits=pw.bits, config=config, batch=max(pw.experts, 1))
+    _launch(x.contiguous(), plane, scale, out, m=m, n=n, k=pw.shape[0],
+            bits=bits, config=config, batch=max(pw.experts, 1))
     sc_linear.launches += 1
     return out
 
 
-sc_linear.launches = 0
+_sc_linear_op = torch.library.custom_op("repro_torch::sc_linear",
+                                        _sc_linear_impl, mutates_args=())
+
+
+@_sc_linear_op.register_fake
+def _sc_linear_fake(x, plane, scale, bits, pad, mr, kc):
+    return x.new_empty((*x.shape[:-1], plane.shape[-1] - pad))

@@ -29,8 +29,10 @@ The spec helpers of the reference's step builders are here too:
 :func:`activation_spec` (the residual stream's spec),
 :func:`abstract_params` / :func:`abstract_opt_state` (shape-only trees on
 the ``meta`` device) and :func:`opt_pspecs` (the optimizer state's specs).
-The reference's mesh-bound builders (``build_*_step(cfg, mesh)``) serve
-its dry run and are not ported.
+The reference's mesh-bound builders (``build_*_step(cfg, mesh)`` and
+their ``cached_*_step`` memos, which the dry run uses) are
+``launch/mesh_steps.py``'s; the ``cached_*_step`` names here are the
+engine's per-shape graph caches.
 """
 from __future__ import annotations
 

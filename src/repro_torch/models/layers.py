@@ -42,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.sc_attention import (sc_attention_bits_ok, sc_pv,
                                               sc_scores)
+from repro_torch.parallel.context import is_dtensor, whole_groups
 from repro_torch.tree import leaves
 
 __all__ = ["rms_norm", "rope", "apply_rope", "apply_mrope",
@@ -328,7 +329,8 @@ def _flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     nq, nk = (sq + pq) // q_block, (skv + pk) // kv_block
 
     # grouped layouts: q (B, KV, G, S, D), k/v (B, KV, S, D)
-    qg = q.reshape(b, sq + pq, kv_heads, g, d).permute(0, 2, 3, 1, 4)
+    qg = whole_groups(q, 2, kv_heads).reshape(
+        b, sq + pq, kv_heads, g, d).permute(0, 2, 3, 1, 4)
     kg = k.permute(0, 2, 1, 3)
     vg = v.permute(0, 2, 1, 3)
 
@@ -357,14 +359,14 @@ def _flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             mask = torch.ones((b, q_block, kv_block), dtype=torch.bool,
                               device=q.device)
             if causal:
-                mask &= qp[:, :, None] >= kp[:, None, :]
+                mask = mask & (qp[:, :, None] >= kp[:, None, :])
             elif pk and ki == nk - 1:
                 # the zero padding past Skv is no key; the causal test
                 # masks it through its position, a full mask must too
-                mask &= (ki * kv_block + torch.arange(
+                mask = mask & (ki * kv_block + torch.arange(
                     kv_block, device=q.device) < skv)[None, None, :]
             if window is not None:
-                mask &= (qp[:, :, None] - kp[:, None, :]) < window
+                mask = mask & ((qp[:, :, None] - kp[:, None, :]) < window)
             s = torch.where(mask[:, None, None], s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             alpha = torch.exp(m - m_new)
@@ -466,7 +468,8 @@ def paged_decode_attention(q: torch.Tensor, paged: PagedKV, *,
         else:
             from repro_torch.kernels.paged_attention import (
                 paged_attention as kernel)
-        out = kernel(q[:, 0].reshape(c, kv, g, d), paged.k, paged.v,
+        out = kernel(whole_groups(q[:, 0], 1, kv).reshape(c, kv, g, d),
+                     paged.k, paged.v,
                      paged.tables, q_position, window=window,
                      sc_bits=sc_bits)
         return out.reshape(c, 1, h, d)
@@ -491,7 +494,8 @@ def _decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     _, s, kv_heads, _ = k_cache.shape
     g = h // kv_heads
     scale = d ** -0.5
-    qg = q.reshape(b, w, kv_heads, g, d).permute(0, 2, 3, 1, 4)
+    qg = whole_groups(q, 2, kv_heads).reshape(
+        b, w, kv_heads, g, d).permute(0, 2, 3, 1, 4)
     if sc_bits is not None:
         # q (B, KV, G, W, D) against k rows (B, KV, 1, S, D)
         scores = sc_scores(qg, k_cache.permute(0, 2, 1, 3)[:, :, None],
@@ -504,7 +508,7 @@ def _decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                + torch.arange(w, device=q.device)[None, :])      # (B, W)
     mask = kpos <= row_pos[:, :, None]                 # (B, W, S)
     if window is not None:
-        mask &= (row_pos[:, :, None] - kpos) < window
+        mask = mask & ((row_pos[:, :, None] - kpos) < window)
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
     mx = scores.amax(dim=-1, keepdim=True)
     un = torch.exp(scores - mx)
@@ -519,11 +523,36 @@ def _decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return out.to(q.dtype)
 
 
+def _per_rank_rows(fn, q, k_cache, v_cache, q_position, **kw):
+    """``fn`` on each rank's own sequences of ``DTensor`` operands: the
+    batch split as the cache splits it, every other axis whole (the
+    kernel reads whole heads and whole rows), and ``fn`` run on the local
+    tensors. The kernel's route views a dense cache as one page a
+    sequence, so a rank's rows must meet its own pages, which DTensor's
+    rule for the operator (any table entry may name any page) would
+    gather whole."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = k_cache.device_mesh
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in k_cache.placements]
+
+    def local(t):
+        return t.redistribute(mesh, rows).to_local() if is_dtensor(t) \
+            else t
+
+    out = fn(local(q), local(k_cache), local(v_cache),
+             q_position=local(q_position), **kw)
+    return DTensor.from_local(
+        out, mesh, rows, shape=q.shape,
+        stride=torch.empty(q.shape, device="meta").stride())
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, *, q_position: torch.Tensor,
                      window: int | None = None,
                      logit_softcap: float | None = None,
-                     sc_bits: int | None = None) -> torch.Tensor:
+                     sc_bits: int | None = None,
+                     kernel_impl: str = "auto") -> torch.Tensor:
     """Decode-window attention against a (partly filled) dense KV cache.
 
     ``q: (B, W, H, D)`` — W consecutive query rows per sequence;
@@ -539,14 +568,22 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     as the engine's paged decode: the sequential baseline, the engine and
     a speculative verify window stay token-identical, float and SC alike.
     Its plan is looked up through the autotuner, as the paged decode's.
+    ``kernel_impl="pallas_tuned"`` takes that route on any device (the
+    kernel's plain version on the CPU, which gathers the same rows).
     Everything else (the CPU, softcap layers) is the plain formulation,
     whose rows are W-invariant too.
     """
     b, w, h, d = q.shape
     _, s, kv, _ = k_cache.shape
     g = h // kv
-    if (q.is_cuda and k_cache.is_contiguous() and v_cache.is_contiguous()
+    if ((q.is_cuda or kernel_impl == "pallas_tuned")
+            and k_cache.is_contiguous() and v_cache.is_contiguous()
             and _paged_kernel_eligible(g, kv, logit_softcap, sc_bits)):
+        if is_dtensor(k_cache):
+            return _per_rank_rows(decode_attention, q, k_cache, v_cache,
+                                  q_position, window=window,
+                                  logit_softcap=logit_softcap,
+                                  sc_bits=sc_bits, kernel_impl=kernel_impl)
         from repro_torch.kernels.ops import paged_decode_attention_tuned
         tables = torch.arange(b, dtype=torch.int32, device=q.device)[:, None]
         rows = q_position
@@ -556,7 +593,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                     + torch.arange(w, dtype=torch.int32,
                                    device=q.device)[None, :]).reshape(b * w)
         out = paged_decode_attention_tuned(
-            q.reshape(b * w, kv, g, d), k_cache, v_cache, tables, rows,
+            whole_groups(q, 2, kv).reshape(b * w, kv, g, d), k_cache,
+            v_cache, tables, rows,
             window=window, sc_bits=sc_bits)
         return out.reshape(b, w, h, d)
     return _decode_attention_plain(q, k_cache, v_cache, q_position=q_position,

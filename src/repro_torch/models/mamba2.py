@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sc_layers import sc_proj
 from repro_torch.errors import ConfigError
+from repro_torch.parallel.context import reshape, whole_groups_grad
 
 from .layers import rms_norm, tree_sum
 
@@ -185,7 +186,7 @@ def _mixer(params: dict, x: torch.Tensor, cfg: ModelConfig, conv_carry,
     xbc = _causal_conv(ext, params["conv_w"], params["conv_b"])
     xin, bmat, cmat = torch.split(xbc, [d_in, n, n], dim=-1)
     b, t, _ = x.shape
-    xh = xin.reshape(b, t, heads, cfg.ssm_headdim).to(torch.float32)
+    xh = reshape(xin, b, t, heads, cfg.ssm_headdim).to(torch.float32)
     dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])
     if n_valid is not None:
         rows = torch.arange(t, device=x.device)[None, :, None]
@@ -194,7 +195,7 @@ def _mixer(params: dict, x: torch.Tensor, cfg: ModelConfig, conv_carry,
                         bmat.to(torch.float32), cmat.to(torch.float32),
                         cfg.ssm_chunk, initial_state=state)
     y = y + xh * params["D"][None, None, :, None]
-    y = y.reshape(b, t, d_in).to(x.dtype)
+    y = whole_groups_grad(reshape(y, b, t, d_in), 2, heads).to(x.dtype)
     y = rms_norm(y * F.silu(z), params["gate_norm"], eps=cfg.norm_eps)
     return _proj(params, "out_proj", y, cfg), ext, final
 
@@ -263,7 +264,7 @@ def mamba_decode_step(params: dict, x: torch.Tensor, cache: MambaCache,
     conv_out = F.silu(conv + params["conv_b"])
     xin, bmat, cmat = torch.split(conv_out, [d_in, n, n], dim=-1)
     b = x.shape[0]
-    xh = xin.reshape(b, heads, cfg.ssm_headdim).to(torch.float32)
+    xh = reshape(xin, b, heads, cfg.ssm_headdim).to(torch.float32)
     dt = F.softplus(dt[:, 0].to(torch.float32) + params["dt_bias"])  # (B, H)
     da = torch.exp(-dt * torch.exp(params["A_log"]))
     bv = bmat[:, 0].to(torch.float32)                           # (B, N)
@@ -273,7 +274,7 @@ def mamba_decode_step(params: dict, x: torch.Tensor, cache: MambaCache,
     state = cache.state * da[..., None, None] + upd
     y = tree_sum(state * cv[:, None, None, :], -1)              # (B, H, P)
     y = y + xh * params["D"][None, :, None]
-    y = y.reshape(b, 1, d_in).to(x.dtype)
+    y = reshape(y, b, 1, d_in).to(x.dtype)
     y = rms_norm(y * F.silu(z), params["gate_norm"], eps=cfg.norm_eps)
     cache.conv.copy_(window[:, 1:].to(cache.conv.dtype))
     cache.state.copy_(state)

@@ -38,6 +38,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sc_layers import sc_proj
 from repro_torch.errors import ConfigError
+from repro_torch.parallel.context import (gathered, split_leading_over_data,
+                                          whole_rows)
 
 from .layers import tree_sum
 
@@ -173,16 +175,19 @@ def dispatch(xg: torch.Tensor, r: Routing,
     e = r.probs.shape[-1]
     n_rows = e * ng * capacity
     group = torch.arange(ng, device=xg.device)[:, None]
-    rows = torch.where(r.dispatch,
-                       (r.expert * ng + group) * capacity + r.position,
-                       n_rows)
+    # on a mesh the slots' rows are gathered whole: every rank builds
+    # the one source table (DTensor has no rule for its scatter)
+    rows = gathered(torch.where(r.dispatch,
+                                (r.expert * ng + group) * capacity
+                                + r.position, n_rows))
     token = torch.arange(ng * g, device=xg.device).reshape(ng, g)
     # one source a row; every slot not dispatched lands on the spare
     # entry past the rows, which no gather reads
     src = torch.full((n_rows + 1,), ng * g, dtype=torch.int64,
                      device=xg.device)
     src.scatter_(0, rows.reshape(-1), token.expand(k, ng, g).reshape(-1))
-    x = torch.cat([xg.reshape(ng * g, d), xg.new_zeros((1, d))])
+    x = torch.cat([whole_rows(xg, 2).reshape(ng * g, d),
+                   xg.new_zeros((1, d))])
     return x[src[:n_rows]].reshape(e, ng * capacity, d), rows
 
 
@@ -210,7 +215,8 @@ def combine(ye: torch.Tensor, rows: torch.Tensor, gate: torch.Tensor,
     and rounded once to ``dtype``. A slot not dispatched reads a zero row
     at gate 0."""
     e, rr, d = ye.shape
-    flat = torch.cat([ye.reshape(e * rr, d), ye.new_zeros((1, d))])
+    flat = torch.cat([whole_rows(ye, 2).reshape(e * rr, d),
+                      ye.new_zeros((1, d))])
     y = None
     for k in range(rows.shape[0]):
         w = gate[k].to(dtype).to(torch.float32)[..., None]
@@ -248,8 +254,9 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         raise ConfigError(f"{cfg.name}: {t} tokens are not a whole number "
                           f"of router groups of {g}")
     ng = t // g
-    xg = x.reshape(ng, g, d)
-    r = route(router_probs(xg, p["router"]), cfg.top_k, c)
+    xg = split_leading_over_data(x.reshape(ng, g, d))
+    r = route(split_leading_over_data(router_probs(xg, p["router"])),
+              cfg.top_k, c)
     xe, rows = dispatch(xg, r, c)
     ye = gated_ffn(p, xe, cfg)
     out = combine(ye, rows, r.gate, x.dtype).reshape(b, s, d)

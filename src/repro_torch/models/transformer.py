@@ -55,7 +55,10 @@ from repro_torch.core.sc_layers import sc_proj
 from repro_torch.device import resolve_device
 from repro_torch.kernels.sc_matmul import pack_weight
 from repro_torch.parallel.context import (batch_axes, constrain,
-                                          shard_activations)
+                                          index_copy_, index_put_, is_dtensor,
+                                          reshape, shard_activations,
+                                          whole_groups, whole_groups_grad,
+                                          write_positions_)
 from repro_torch.parallel.sharding import P
 
 from .layers import (PagedKV, apply_mrope, apply_rope, chunk_cross_entropy,
@@ -274,8 +277,9 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions,
         # (d, heads, hd) is a matmul with the head axes flattened
         w = p[name]
         nh = w.shape[1]
-        out = sc_proj(x, w.reshape(d, nh * hd), cfg,
-                      packed.get(name)).reshape(b, s, nh, hd)
+        flat = whole_groups_grad(reshape(w, d, nh * hd), 1, nh)
+        out = whole_groups(sc_proj(x, flat, cfg, packed.get(name)), 2, nh)
+        out = out.reshape(b, s, nh, hd)
         return out + bias if bias is not None else out
 
     q = proj("wq", p.get("bq"))
@@ -296,8 +300,9 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions,
 def _out_proj(p: dict, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     b, s = out.shape[:2]
     hd, h, d = cfg.head_dim, cfg.n_heads, cfg.d_model
-    return sc_proj(out.reshape(b, s, h * hd), p["wo"].reshape(h * hd, d), cfg,
-                   p.get("packed", {}).get("wo"))
+    flat = whole_groups_grad(reshape(out, b, s, h * hd), 2, h)
+    wo = whole_groups_grad(reshape(p["wo"], h * hd, d), 0, h)
+    return sc_proj(flat, wo, cfg, p.get("packed", {}).get("wo"))
 
 
 def block_forward(layer: dict, x: torch.Tensor, cfg: ModelConfig, attend,
@@ -465,8 +470,8 @@ def logits_from_hidden(params: dict, cfg: ModelConfig,
                      params.get("packed", {}).get("head"))
     logits = softcap(logits.to(torch.float32), cfg.final_softcap)
     if cfg.n_codebooks:
-        logits = logits.reshape(*hidden.shape[:-1], cfg.n_codebooks,
-                                cfg.vocab_size)
+        logits = reshape(logits, *hidden.shape[:-1], cfg.n_codebooks,
+                         cfg.vocab_size)
     return logits
 
 
@@ -594,8 +599,8 @@ def chunk_attend(cfg: ModelConfig, k_cache: torch.Tensor,
         # padding and pad-row writes are exact no-ops for valid rows.
         # q_offset puts the chunk on the flash kernel on the card, so
         # its rows reduce as a one-shot prefill's do.
-        k_cache.index_copy_(1, cols, k.to(k_cache.dtype))
-        v_cache.index_copy_(1, cols, v.to(v_cache.dtype))
+        index_copy_(k_cache, 1, cols, k.to(k_cache.dtype))
+        index_copy_(v_cache, 1, cols, v.to(v_cache.dtype))
         return flash_attention(
             q, k_cache, v_cache, q_positions=positions,
             kv_positions=kv_pos, causal=True, window=window,
@@ -657,6 +662,10 @@ def dense_decode_attend(cfg: ModelConfig, k_cache: torch.Tensor,
     # of the old value never races a kept row's write at the same cell
     for j in range(q.shape[1]):
         p = base + j if j else base
+        if is_dtensor(k_cache):
+            write_positions_(k_cache, p, k[:, j])
+            write_positions_(v_cache, p, v[:, j])
+            continue
         col = torch.clamp(p, max=s - 1)
         keep = (p < s)[:, None, None]
         k_cache[rows, col] = torch.where(keep, k[:, j].to(k_cache.dtype),
@@ -665,7 +674,8 @@ def dense_decode_attend(cfg: ModelConfig, k_cache: torch.Tensor,
                                          v_cache[rows, col])
     return decode_attention(q, k_cache, v_cache, q_position=pos,
                             window=window, logit_softcap=cfg.attn_softcap,
-                            sc_bits=_attn_sc_bits(cfg))
+                            sc_bits=_attn_sc_bits(cfg),
+                            kernel_impl=cfg.paged_attn_kernel)
 
 
 def decode_window_step(params: dict, cfg: ModelConfig, cache: KVCache,
@@ -727,8 +737,8 @@ def paged_decode_attend(cfg: ModelConfig, paged: PagedKV, q, k, v,
     entry, off = paged_token_entry(paged.tables, pos, block=paged.block)
     bid = torch.where(entry < 0, paged.trash, entry).to(torch.long)
     off = off.to(torch.long)
-    paged.k[bid, off] = k[:, 0].to(paged.k.dtype)
-    paged.v[bid, off] = v[:, 0].to(paged.v.dtype)
+    index_put_(paged.k, (bid, off), k[:, 0].to(paged.k.dtype))
+    index_put_(paged.v, (bid, off), v[:, 0].to(paged.v.dtype))
     return paged_decode_attention(q, paged, q_position=pos, window=window,
                                   logit_softcap=cfg.attn_softcap,
                                   kernel_impl=cfg.paged_attn_kernel,

@@ -24,6 +24,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import tree as tr
+from repro_torch.parallel.context import whole_rows
 
 __all__ = ["AdamWConfig", "init", "apply_updates", "Quantized8", "quantize8",
            "dequantize8", "decay_mask"]
@@ -55,7 +56,9 @@ def quantize8(x: torch.Tensor) -> Quantized8:
     """Blocks of 256 (the tail zero-padded), each scaled by its abs-max /
     127 and rounded half to even. Both divisions take a tensor divisor
     (module docstring of ``optim.schedules``)."""
-    flat = x.reshape(-1)
+    # on a mesh the moment is gathered whole first: its flat blocks do
+    # not follow the parameter's layout (the caller places them after)
+    flat = whole_rows(x, x.dim()).reshape(-1)
     pad = (-flat.numel()) % _BLOCK
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
@@ -67,7 +70,7 @@ def quantize8(x: torch.Tensor) -> Quantized8:
 
 
 def dequantize8(z: Quantized8, shape, dtype=torch.float32) -> torch.Tensor:
-    flat = (z.q.to(torch.float32) * z.scale).reshape(-1)
+    flat = whole_rows(z.q.to(torch.float32) * z.scale).reshape(-1)
     n = 1
     for s in shape:
         n *= s

@@ -691,6 +691,10 @@ class Engine:
                     self._note_backpressure(e.reason, e.uid,
                                             e.pages_needed, e.pages_free)
                     if len(self.pool.entries) <= 1 and self._staging is None:
+                        # nothing to preempt: a warm page the lone slot's
+                        # own pages pin is all that can still be freed
+                        if self.pool.reclaim_pinned():
+                            continue
                         raise   # run() pre-check makes this unreachable
                     self._preempt_youngest()
 

@@ -230,3 +230,26 @@ class PrefixCache:
             del self._by_page[victim.page]
             out.append(victim.page)
         return out
+
+    def reclaim_pinned(self, refcount: np.ndarray) -> list[int]:
+        """Drop the least-recently-touched refcount-0 page that ``reclaim``
+        cannot reach because a live page below it pins it, together with
+        its whole subtree. Returns the dropped pages, the victim first;
+        those still referenced leave the tree and stay private to their
+        slots. Empty when no refcount-0 page is left."""
+        victim = None
+        for node in self._by_page.values():
+            if refcount[node.page] != 0:
+                continue
+            if victim is None or node.tick < victim.tick:
+                victim = node
+        if victim is None:
+            return []
+        victim.parent.children.pop(victim.digest, None)
+        out, stack = [], [victim]
+        while stack:
+            node = stack.pop()
+            del self._by_page[node.page]
+            out.append(node.page)
+            stack.extend(node.children.values())
+        return out

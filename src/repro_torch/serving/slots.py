@@ -200,6 +200,8 @@ class PagedSlotPool:
         self.prefix: PrefixCache | None = None
         self.n_cow = 0
         self.n_reclaimed = 0
+        #: Of those, pages freed by :meth:`reclaim_pinned`.
+        self.n_reclaimed_pinned = 0
 
     @property
     def n_free(self) -> int:
@@ -314,6 +316,27 @@ class PagedSlotPool:
         self.refcount[pages] = 1
         self.peak_pages = max(self.peak_pages, self.pages_in_use)
         return pages
+
+    def reclaim_pinned(self) -> int:
+        """Last resort when no slot is left to preempt: the leaf-first
+        reclaimer cannot surrender a refcount-0 warm page whose subtree
+        holds a live page (a request that recomputed that block privately
+        and registered its deeper pages below the resident one). Drop the
+        LRU such page with its subtree: its refcount-0 pages are zeroed and
+        freed, its live pages stop being retained. Returns the pages
+        freed."""
+        if self.prefix is None:
+            return 0
+        ids = self.prefix.reclaim_pinned(self.refcount)
+        self.retained.difference_update(ids)
+        freed = [p for p in ids if self.refcount[p] == 0]
+        if freed:
+            self.cache = cache_ops.paged_zero_pages(self.cache, freed)
+            self.n_reclaimed += len(freed)
+            self.n_reclaimed_pinned += len(freed)
+            for p in freed:
+                heapq.heappush(self._free_pages, p)
+        return len(freed)
 
     def _release_page(self, page: int) -> None:
         """Drop one reference; zero and free the page at refcount 0 unless

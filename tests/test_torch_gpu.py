@@ -2168,3 +2168,126 @@ def test_softcap_decode_on_the_card_matches_the_decode_oracle(cuda, bits):
     want = ref.sc_decode_attention_ref(q, kc, vc, q_position=pos, bits=bits,
                                        window=6, logit_softcap=5.0)
     assert (out - want).abs().max() <= 2.0 / (2 ** bits - 1)
+
+
+# ------------------------------------------- kernel operators and mesh steps
+
+def _fake_meta(op, args):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor)
+                    else a for a in args))
+    return tuple(fake.shape), fake.dtype, fake.stride()
+
+
+def test_kernel_operators_fake_meta_equals_the_real_output(cuda):
+    """Each kernel operator's fake implementation gives its real output's
+    shape, dtype and strides: SC-GEMM plain and batched (experts), paged
+    and flash attention, float and SC, at smollm-360m's decode and chunk
+    shapes and a small expert batch."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen,
+                           device=cuda).to(torch.bfloat16)
+
+    ops_ = torch.ops.repro_torch
+    pw, pe = pack_weight(rand(960, 2557), 8), pack_weight(rand(4, 96, 40), 8)
+    pool = rand(17, 64, 5, 64)
+    tables = torch.arange(16, dtype=torch.int32, device=cuda).reshape(4, 4)
+    pos = torch.tensor([3, 70, 130, 255], dtype=torch.int32, device=cuda)
+    q_rows = rand(1, 48, 15, 64).transpose(1, 2)
+    kv_rows = rand(1, 64, 5, 64).transpose(1, 2)
+    off = torch.tensor(16, dtype=torch.int32, device=cuda)
+    calls = [(ops_.sc_linear, (rand(4, 960), pw.plane, pw.scale, 8,
+                               pw.plane.shape[-1] - 2557, 0, 0)),
+             (ops_.sc_linear, (rand(4, 7, 96), pe.plane, pe.scale, 8, 0, 0,
+                               0))]
+    for bits in (0, 8):
+        calls += [(ops_.paged_attention, (rand(4, 5, 3, 64), pool, pool,
+                                          tables, pos, 0, bits)),
+                  (ops_.flash_attention, (q_rows, kv_rows, kv_rows, None, 16,
+                                          True, 64, bits, 0, 0)),
+                  (ops_.flash_attention, (q_rows, kv_rows, kv_rows, off, 0,
+                                          True, 64, bits, 0, 0))]
+    for op, args in calls:
+        real = op(*args)
+        assert _fake_meta(op, args) == (tuple(real.shape), real.dtype,
+                                         real.stride()), op
+
+
+def test_mesh_steps_on_one_nccl_rank_are_bit_equal(cuda):
+    """On one NCCL rank (a 1x1 mesh), reduced smollm-360m in bf16 under
+    SC-GEMM at 8 bits: the mesh-bound train and paged decode steps run
+    through the kernel operators (launches counted) and equal
+    ``launch.train.train_step`` and the eager paged decode step bit for
+    bit."""
+    from datetime import timedelta
+    import torch.distributed as dist
+    from repro_torch import tree as tr
+    from repro_torch.launch import mesh_steps as ms
+    from repro_torch.launch import steps as eager
+    from repro_torch.launch import train as tt
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import cache_ops, pack_sc_weights
+    from repro_torch.optim import init as opt_init
+    from repro_torch.parallel.sharding import distribute
+    if dist.is_initialized():
+        pytest.skip("a process group is already up in this process")
+    cfg = dataclasses.replace(ARCHS["smollm-360m"].reduced(
+        dtype="bfloat16"), use_sc_gemm=True, sc_bits=8).validate()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, timeout=timedelta(seconds=60))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        m = bind(cfg, cuda)
+        params = m.init_params(0)
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                             device=cuda, dtype=torch.int32)
+        batch = {"tokens": toks, "labels": toks}
+        counters = ops.launch_counters()
+        step, sh, _, optc = ms.build_train_step(cfg, mesh, warmup=1,
+                                                total_steps=20)
+        opt = opt_init(params, optc)
+        want_p, _, want_loss, _ = tt.train_step(m, params, opt, batch,
+                                                lr_peak=3e-4, steps=20,
+                                                optc=optc)
+        before = {n: c.launches for n, c in counters.items()}
+        got_p, _, metrics = step(distribute(params, sh["params"]),
+                                 distribute(opt, sh["opt"]),
+                                 distribute(batch, sh["batch_fn"](batch)))
+        n_sc = counters["sc_linear"].launches - before["sc_linear"]
+        n_flash = (counters["flash_attention"].launches
+                   - before["flash_attention"])
+        assert n_sc > 0 and n_flash > 0
+        assert torch.equal(metrics["loss"].full_tensor(), want_loss)
+        for a, b in zip(tr.leaves(got_p), tr.leaves(want_p)):
+            assert torch.equal(a.full_tensor(), b)
+
+        pool = cache_ops.paged_init(m.init_cache, 4, 16, 16)
+        for leaf in cache_ops.seq_leaves(pool):
+            leaf.copy_(torch.randn(leaf.shape, generator=gen, device=cuda)
+                       .to(leaf.dtype))
+        pool.pos.copy_(torch.tensor([3, 20, 40, 63], device=cuda,
+                                    dtype=pool.pos.dtype))
+        tables = torch.arange(16, dtype=torch.int32,
+                              device=cuda).reshape(4, 4)
+        one = {"tokens": toks[:, :1].repeat(2, 1)}
+        want_logits, want_pool = eager.paged_decode_step(
+            m, pack_sc_weights(params, cfg),
+            tr.tree_map(lambda t: t.clone(), pool), tables, one)
+        step, sh, _ = ms.build_paged_decode_step(
+            cfg, mesh, capacity=4, block=16, n_blocks=16, max_blocks=4)
+        before = counters["paged_attention"].launches
+        logits, got_pool = step(
+            distribute(params, sh["params"]),
+            distribute(tr.tree_map(lambda t: t.clone(), pool), sh["cache"]),
+            distribute(tables, sh["tables"]),
+            distribute(one, sh["batch_fn"](one)))
+        assert counters["paged_attention"].launches > before
+        assert torch.equal(logits.full_tensor(), want_logits)
+        for a, b in zip(tr.leaves(got_pool), tr.leaves(want_pool)):
+            assert torch.equal(a.full_tensor(), b)
+    finally:
+        dist.destroy_process_group()

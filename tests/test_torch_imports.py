@@ -44,6 +44,8 @@ PORT_MODULES = [
     "repro_torch.launch.steps", "repro_torch.launch.serve",
     "repro_torch.launch.paper", "repro_torch.launch.train",
     "repro_torch.launch.mesh", "repro_torch.launch.modelmeta",
+    "repro_torch.launch.mesh_steps", "repro_torch.launch.cost_analysis",
+    "repro_torch.launch.dryrun", "repro_torch.parallel.kernel_sharding",
     "repro_torch.parallel", "repro_torch.parallel.sharding",
     "repro_torch.parallel.context", "repro_torch.parallel.pipeline_parallel",
     "repro_torch.tree", "repro_torch.optim", "repro_torch.optim.adamw",
