@@ -206,7 +206,22 @@ Phases (each raises on failure, so any failure exits non-zero):
     1e-3 relative of the CPU's, falling from 4 bits; ``param_counts`` of
     every registered arch and ``model_flops`` over the ``train`` phase's
     ms a step and the ``serve`` cell's graphed decode ms/step, each
-    against the bf16 dense peak.
+    against the bf16 dense peak;
+20. ``dryrun``: the kernel operators' fake metas, the mesh-bound train
+    and paged decode steps on one NCCL rank against the plain-tensor
+    steps and the dry run's prediction, one production cell dry-run
+    (``phase_dryrun``);
+21. ``analysis``: the port's lint (``repro_torch.analysis``, R1-R5) over
+    this checkout's ``src/repro_torch`` must find nothing; the four
+    contract audits run on the card (``analysis.contracts``: the stream
+    kernel integer-only and equal to its plain version, the paged plain
+    version and the gathered dense path reducing alike and the paged
+    kernel serving both bit-equal, one capture a shape through graphed
+    engines, the prefix cache's copy-on-write ledger stepped by hand),
+    then capture-counts and cow-protocol again at smollm-360m's full
+    width (bf16, SC-GEMM at 8 bits, seed-0 weights) on their own short
+    schedules; the launch counters, set to 0 just before each audit,
+    must show the kernels of its path.
 
 Each family cell (15-17) asks for the prefix cache (the dense-only gate
 turns it off, and the stats must say so) and serves chunked then
@@ -225,8 +240,10 @@ baseline and must be refused for the ssm, hybrid and audio cells, as in
 the reference.
 
 The line before the last is a JSON object with one entry per kernel,
-its ``launches`` the sum over every serving run of phases 11-17 and the
-train phase's kill-and-resume (``train_launches`` apart; the
+its ``launches`` the sum over every serving run of phases 11-17, the
+train phase's kill-and-resume (``train_launches`` apart), the dryrun
+phase's steps and the analysis phase's audits (the stream kernel's: the
+stream phase's and popcount-path's; the
 attention kernels' float and SC entries split as their wrappers counted
 them), its ``tuned`` the tune phase's keys of the kernel; the last line is ``{"ok": true, "device": {...}}``. Details go to
 ``build/chip_smoke.json`` (``$CHIP_SMOKE_OUT`` names another directory).
@@ -3797,6 +3814,86 @@ def phase_dryrun() -> dict:
     return out
 
 
+#: the analysis phase's full-width model: the audits' own schedules at
+#: smollm-360m's width (bf16 as registered, SC-GEMM at 8 bits, seed 0)
+ANALYSIS_ARCH = "smollm-360m"
+#: the audits run again at that width: the two that serve through graphs
+ANALYSIS_FULL_WIDTH = ("capture-counts", "cow-protocol")
+#: the kernels (launch counter names) each audit must launch on the card
+ANALYSIS_KERNELS = {
+    "popcount-path": ("sc_stream_mul",),
+    "reduction-parity": ("paged_attention",),
+    "capture-counts": ("sc_linear", "paged_attention", "flash_attention"),
+    "cow-protocol": ("sc_linear", "paged_attention", "flash_attention")}
+
+
+def _audit_run(tag: str, name: str, audit, dev, **kwargs) -> dict:
+    """One contract audit on the card, the launch counters set to 0 just
+    before and read just after; any problem, or a kernel of its path that
+    did not launch, fails the phase."""
+    import torch
+    from repro_torch.launch.steps import launch_counters
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    t = time.perf_counter()
+    problems = audit(dev, **kwargs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = {n: c.launches for n, c in counters.items()}
+    if problems:
+        raise AssertionError(f"[analysis] {tag}: " + "; ".join(problems))
+    idle = [k for k in ANALYSIS_KERNELS[name] if not launches[k]]
+    if idle:
+        raise AssertionError(f"[analysis] {tag}: {idle} never launched")
+    log(f"[analysis] {tag}: pass in {seconds:.2f}s, launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    return {"seconds": seconds, "launches": launches}
+
+
+def phase_analysis() -> dict:
+    """The port's lint over this checkout's ``src/repro_torch`` (no
+    finding), the four contract audits on the card (graphed engines),
+    then capture-counts and cow-protocol again at smollm-360m's full
+    width, each with the launch counters set to 0 just before it."""
+    import dataclasses
+    import torch
+    from repro_torch.analysis import DEFAULT_RULES, contracts, run_lint
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import bind
+    t0 = time.perf_counter()
+    lint = run_lint([ROOT / "src" / "repro_torch"], list(DEFAULT_RULES))
+    if lint.findings or lint.errors:
+        raise AssertionError("[analysis] lint: " + "; ".join(
+            [f.render() for f in lint.findings] + lint.errors))
+    out = {"lint": {"files": lint.files_checked, "findings": 0,
+                    "seconds": time.perf_counter() - t0}}
+    log(f"[analysis] lint: {lint.files_checked} files, 0 findings in "
+        f"{out['lint']['seconds']:.2f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    audits = dict(contracts.AUDITS)
+    out["audits"] = {name: _audit_run(name, name, audit, dev)
+                     for name, audit in contracts.AUDITS}
+    cfg = dataclasses.replace(ARCHS[ANALYSIS_ARCH], use_sc_gemm=True,
+                              sc_bits=8).validate()
+    params = bind(cfg, dev).init_params(0)
+    out["full_width"] = {
+        name: _audit_run(f"{name} at {ANALYSIS_ARCH}", name, audits[name],
+                         dev, cfg=cfg, params=params)
+        for name in ANALYSIS_FULL_WIDTH}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = [*out["audits"].values(), *out["full_width"].values()]
+    out["launches"] = {n: sum(r["launches"][n] for r in runs)
+                       for n in runs[0]["launches"]}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[analysis] phase {out['seconds']:.1f}s")
+    return out
+
+
 #: what ``serve_spec`` takes from ``serve`` (key False) and ``serve_sc``
 #: (key True): the baseline streams and the chunked cell's graphed
 #: tokens/s (absent when that phase did not run in this call)
@@ -4634,7 +4731,7 @@ def main() -> int:
               ("serve_moe_llama4", phase_serve_moe_llama4),
               ("train", phase_train),
               ("dist", lambda: phase_dist(report)),
-              ("dryrun", phase_dryrun))
+              ("dryrun", phase_dryrun), ("analysis", phase_analysis))
     seconds = {}
     for name, fn in phases:
         if only is None or name in only:
@@ -4779,9 +4876,12 @@ def main() -> int:
     trained = report["train"]["launches"]
     for name, n in trained.items():
         total[name] += n
-    # the dryrun phase's mesh-bound train and paged decode steps
-    for name, n in report["dryrun"]["launches"].items():
-        total[name] += n
+    # the dryrun phase's mesh-bound train and paged decode steps, and the
+    # analysis phase's audits (the stream kernel's go to its own entry)
+    for phase in ("dryrun", "analysis"):
+        for name, n in report[phase]["launches"].items():
+            if name in total:
+                total[name] += n
     kernels = [
         {"name": "sc_gemm", "route": "cuda",
          "source": f"{src}/sc_matmul.cu",
@@ -4816,7 +4916,8 @@ def main() -> int:
         {"name": "sc_stream_mul", "route": "cuda",
          "source": f"{src}/sc_bitops.cu",
          "replaces": "src/repro/kernels/sc_bitops.py:84",
-         "launches": report["stream"]["launches"],
+         "launches": report["stream"]["launches"]
+         + report["analysis"]["launches"]["sc_stream_mul"],
          "tuned": tuned("stream"),
          "max_abs_err": report["stream"]["max_abs_err"],
          "ms": stream["ms"], "plain_ms": stream["plain_ms"],

@@ -81,7 +81,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True) -> torch.Tensor:
     if causal:
         s = _causal(s)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(torch.float32), v).to(q.dtype)
 
 
 def sc_attention_scores_ref(q, k, *, bits: int) -> torch.Tensor:

@@ -858,6 +858,15 @@ def clear_decode_steps() -> None:
     _STEPS.clear()
 
 
+def drop_decode_steps(cfg) -> int:
+    """Forget the cached decode steps of ``cfg``'s model (engines holding
+    one keep it); returns how many were dropped."""
+    keys = [k for k in _STEPS if k[0] == cfg]
+    for k in keys:
+        del _STEPS[k]
+    return len(keys)
+
+
 # ------------------------------------------------------------- specs
 
 def activation_spec(mesh, strategy: str = "tp_sp"):

@@ -382,7 +382,9 @@ def _flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 if bf16_probs:
                     # probs and values squeezed to bf16 for the PV
                     # product, sums kept in float32
+                    # repro-lint: disable=R5 -- deliberate bf16_probs squeeze, config-gated and never on the SC path; _pv sums in float32 by tree_sum
                     p = p.to(torch.bfloat16).to(torch.float32)
+                    # repro-lint: disable=R5 -- deliberate bf16_probs squeeze; _pv casts the values to float32 before its tree_sum
                     vb = vb.to(torch.bfloat16)
                 pv = _pv(p, vb)
             o = o * alpha[..., None] + pv

@@ -28,6 +28,8 @@ from repro.core.sc_matmul import sc_matmul as jsc_matmul
 from repro.core.sc_numerics import recover_counts as jrecover
 from repro.kernels import autotune as jtune
 from repro.kernels import ops as jops
+from repro_torch.analysis.rules import \
+    CacheKeyCompleteness as PortCacheKeyCompleteness
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import ARCHS
 from repro_torch.configs.shapes import Shape, sc_gemm_problems
@@ -580,21 +582,26 @@ def test_flash_and_paged_tuners_key_sweep_and_hit(tmp_path):
 
 # -------------------------------------------------- R4: key completeness
 
-def _r4(src: str, path: str = "src/repro_torch/kernels/autotune.py"):
-    return list(CacheKeyCompleteness().check(ast.parse(src), src, path))
+def _r4(src: str, path: str = "src/repro_torch/kernels/autotune.py",
+        rule=CacheKeyCompleteness):
+    return list(rule().check(ast.parse(src), src, path))
 
 
 def test_the_ports_cache_keys_pass_r4():
+    """The JAX package's R4 and the port's own (``repro_torch.analysis``)
+    agree on the port's key builders."""
     src = (SRC / "repro_torch" / "kernels" / "autotune.py").read_text()
-    assert _r4(src) == []
-    # the rule reads the key builders: a key without the device/kernel
-    # segment, or without the mode, is a finding
-    broken = src.replace('f"sc_gemm:{_mode(device)}:{backend}:m{bucket_m(m)}',
-                         'f"sc_gemm:m{bucket_m(m)}')
-    assert broken != src and len(_r4(broken)) == 1
-    broken = src.replace('f"sc_stream:{_mode(device)}:{backend}:s{size}',
-                         'f"sc_stream:{backend}:s{size}')
-    assert broken != src and len(_r4(broken)) == 1
+    for rule in (CacheKeyCompleteness, PortCacheKeyCompleteness):
+        assert _r4(src, rule=rule) == []
+        # the rule reads the key builders: a key without the device/kernel
+        # segment, or without the mode, is a finding
+        broken = src.replace(
+            'f"sc_gemm:{_mode(device)}:{backend}:m{bucket_m(m)}',
+            'f"sc_gemm:m{bucket_m(m)}')
+        assert broken != src and len(_r4(broken, rule=rule)) == 1
+        broken = src.replace('f"sc_stream:{_mode(device)}:{backend}:s{size}',
+                             'f"sc_stream:{backend}:s{size}')
+        assert broken != src and len(_r4(broken, rule=rule)) == 1
 
 
 # ---------------------------------------------------------- choose_impl

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import contracts
 from repro_torch.configs.registry import ARCHS
 from repro_torch.errors import ConfigError
 from repro_torch.kernels.flash_attention import (flash_attention,
@@ -2291,3 +2292,25 @@ def test_mesh_steps_on_one_nccl_rank_are_bit_equal(cuda):
             assert torch.equal(a.full_tensor(), b)
     finally:
         dist.destroy_process_group()
+
+
+# -- the analysis layer's contract audits on the card ----------------------
+
+#: the kernels (launch counter names) each audit's path runs on the card
+AUDIT_KERNELS = {
+    "popcount-path": {"sc_stream_mul"},
+    "reduction-parity": {"paged_attention"},
+    "capture-counts": {"sc_linear", "paged_attention", "flash_attention"},
+    "cow-protocol": {"sc_linear", "paged_attention", "flash_attention"}}
+
+
+@pytest.mark.parametrize("name", [n for n, _ in contracts.AUDITS])
+def test_analysis_audit_passes_on_the_card(cuda, name):
+    """Each contract audit on the card, its engines graphed: the stream
+    kernel, the paged kernel for both decode paths, SC-GEMM, flash and
+    paged through captured steps."""
+    counters = ops.launch_counters()
+    before = {k: c.launches for k, c in counters.items()}
+    assert dict(contracts.AUDITS)[name](cuda) == []
+    launched = {k for k, c in counters.items() if c.launches > before[k]}
+    assert AUDIT_KERNELS[name] <= launched, launched

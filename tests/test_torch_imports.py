@@ -53,7 +53,10 @@ PORT_MODULES = [
     "repro_torch.data", "repro_torch.data.pipeline",
     "repro_torch.data.tokenizer", "repro_torch.checkpoint",
     "repro_torch.checkpoint.checkpointer", "repro_torch.runtime",
-    "repro_torch.runtime.fault_tolerance",
+    "repro_torch.runtime.fault_tolerance", "repro_torch.analysis",
+    "repro_torch.analysis.base", "repro_torch.analysis.scopes",
+    "repro_torch.analysis.rules", "repro_torch.analysis.contracts",
+    "repro_torch.analysis.cli",
 ]
 
 
