@@ -211,7 +211,19 @@ Phases (each raises on failure, so any failure exits non-zero):
     and paged decode steps on one NCCL rank against the plain-tensor
     steps and the dry run's prediction, one production cell dry-run
     (``phase_dryrun``);
-21. ``analysis``: the port's lint (``repro_torch.analysis``, R1-R5) over
+21. ``serve_mesh``: the engine on a mesh (``Engine(mesh=...)``) on one
+    NCCL rank (an in-process ``HashStore``, as ``dist``): smollm-360m as
+    registered (bf16, 32 layers, d 960), SC-GEMM at 8 bits, seed-0
+    weights, on ``serving.default_serving_mesh()`` (1 x 1); three requests
+    (two 64-token prompts, then the first again: a prefix hit whose
+    resume page is copied on write; 8-16 new tokens) through
+    ``Engine(capacity=2, max_seq=256, block=64, chunk=16)``, chunked and
+    then one-shot: streams, prefix hits, tokens saved and CoW copies
+    equal to the graphed plain engine's (``mesh=None``) on the same
+    requests and weights; the counters, set to 0 just before each mesh
+    run and read just after, must show SC-GEMM, paged and flash
+    launches; ms a decode step, tokens/s and peak memory of both;
+22. ``analysis``: the port's lint (``repro_torch.analysis``, R1-R5) over
     this checkout's ``src/repro_torch`` must find nothing; the four
     contract audits run on the card (``analysis.contracts``: the stream
     kernel integer-only and equal to its plain version, the paged plain
@@ -242,7 +254,8 @@ the reference.
 The line before the last is a JSON object with one entry per kernel,
 its ``launches`` the sum over every serving run of phases 11-17, the
 train phase's kill-and-resume (``train_launches`` apart), the dryrun
-phase's steps and the analysis phase's audits (the stream kernel's: the
+phase's steps, the serve_mesh phase's mesh runs and the analysis phase's
+audits (the stream kernel's: the
 stream phase's and popcount-path's; the
 attention kernels' float and SC entries split as their wrappers counted
 them), its ``tuned`` the tune phase's keys of the kernel; the last line is ``{"ok": true, "device": {...}}``. Details go to
@@ -3814,6 +3827,126 @@ def phase_dryrun() -> dict:
     return out
 
 
+#: the serve_mesh phase's engine and its requests' new tokens (two
+#: 64-token prompts, then the first again)
+MESH_ENGINE = dict(capacity=2, max_seq=256, block=64, chunk=16)
+MESH_GENS = (12, 16, 8)
+
+
+def phase_serve_mesh() -> dict:
+    """The engine on a mesh at smollm-360m's full width on one NCCL rank,
+    chunked and one-shot, against the graphed plain engine (module
+    docstring, 21)."""
+    import dataclasses
+    from datetime import timedelta
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import bind
+    from repro_torch.serving import Engine, Request, default_serving_mesh
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cfg = dataclasses.replace(ARCHS[TRAIN_ARCH], use_sc_gemm=True,
+                              sc_bits=8).validate()
+    params = bind(cfg, dev).init_params(0)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(64,), dtype=np.int32)
+               for _ in range(2)]
+    prompts.append(prompts[0])
+
+    def requests(tag):
+        return [Request(uid=f"{tag}-{i}", prompt=p, max_new_tokens=g)
+                for i, (p, g) in enumerate(zip(prompts, MESH_GENS))]
+
+    counters = _serve_launch_counters()
+    keys = ("prefix_hits", "prefill_tokens_saved", "cow_copies",
+            "preemptions")
+    timed = ("decode_ms_per_step", "tok_per_s", "ttft_p50_s",
+             "decode_steps", "prefill_chunks", "prefills")
+    out: dict = {"launches": {n: 0 for n in counters}}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, timeout=timedelta(seconds=60))
+    try:
+        mesh = default_serving_mesh()
+        got_mesh = (mesh.device_type, tuple(mesh.shape),
+                    tuple(mesh.mesh_dim_names))
+        if got_mesh != ("cuda", (1, 1), ("data", "model")):
+            raise AssertionError(f"[serve_mesh] default_serving_mesh() "
+                                 f"gave {got_mesh}")
+        for mode in ("chunked", "oneshot"):
+            plain = Engine(cfg, params, prefill_mode=mode, **MESH_ENGINE)
+            want = plain.run(requests(f"{mode}-plain"))
+            plain_stats = dict(plain.stats)
+            del plain
+            gc.collect()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t_build = time.perf_counter()
+            engine = Engine(cfg, params, mesh=mesh, prefill_mode=mode,
+                            **MESH_ENGINE)
+            build_s = time.perf_counter() - t_build
+            for c in counters.values():
+                c.launches = 0
+            got = engine.run(requests(f"{mode}-mesh"))
+            torch.cuda.synchronize()
+            launches = {n: c.launches for n, c in counters.items()}
+            peak = torch.cuda.max_memory_allocated() - base
+            st = dict(engine.stats)
+            del engine
+            gc.collect()
+            if not plain_stats["decode_graphs"] or st["decode_graphs"]:
+                raise AssertionError("[serve_mesh] the plain engine must "
+                                     "replay graphs, the mesh engine not")
+            if st["mesh"] != {"data": 1, "model": 1}:
+                raise AssertionError(f"[serve_mesh] stats mesh {st['mesh']}")
+            diff = [r.uid for r, w in zip(got, want)
+                    if not np.array_equal(r.tokens, w.tokens)]
+            if diff:
+                raise AssertionError(f"[serve_mesh] {mode}: streams of "
+                                     f"{diff} differ from the graphed "
+                                     f"plain engine's")
+            mine = {k: st.get(k) for k in keys}
+            theirs = {k: plain_stats.get(k) for k in keys}
+            if mine != theirs:
+                raise AssertionError(f"[serve_mesh] {mode}: stats {mine} "
+                                     f"!= the plain engine's {theirs}")
+            if mode == "chunked" and (mine["prefix_hits"] != 1
+                                      or mine["cow_copies"] != 1):
+                raise AssertionError(f"[serve_mesh] chunked: want one "
+                                     f"prefix hit and one CoW copy, got "
+                                     f"{mine}")
+            idle = [n for n in ("sc_linear", "paged_attention",
+                                "flash_attention") if not launches[n]]
+            if idle:
+                raise AssertionError(f"[serve_mesh] {mode}: {idle} never "
+                                     f"launched on the mesh path")
+            for n, v in launches.items():
+                out["launches"][n] += v
+            out[mode] = {"stats": mine, "launches": launches,
+                         "peak_bytes": peak, "build_s": build_s,
+                         "mesh": {k: st[k] for k in timed},
+                         "graphed": {k: plain_stats[k] for k in timed}}
+            log(f"[serve_mesh] {mode}: streams, {mine} equal to the graphed "
+                f"engine's; mesh decode {st['decode_ms_per_step']:.2f} "
+                f"ms/step, {st['tok_per_s']:.2f} tokens/s, TTFT p50 "
+                f"{st['ttft_p50_s'] * 1e3:.1f} ms, {st['decode_steps']} "
+                f"steps, peak {peak / 2**30:.3f} GiB above the weights, "
+                f"built in {build_s:.2f}s; graphed "
+                f"{plain_stats['decode_ms_per_step']:.2f} ms/step, "
+                f"{plain_stats['tok_per_s']:.2f} tokens/s; launches "
+                f"{ {k: v for k, v in launches.items() if v} }")
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[serve_mesh] phase {out['seconds']:.1f}s on {_card_line()}")
+    return out
+
+
 #: the analysis phase's full-width model: the audits' own schedules at
 #: smollm-360m's width (bf16 as registered, SC-GEMM at 8 bits, seed 0)
 ANALYSIS_ARCH = "smollm-360m"
@@ -4731,7 +4864,8 @@ def main() -> int:
               ("serve_moe_llama4", phase_serve_moe_llama4),
               ("train", phase_train),
               ("dist", lambda: phase_dist(report)),
-              ("dryrun", phase_dryrun), ("analysis", phase_analysis))
+              ("dryrun", phase_dryrun), ("serve_mesh", phase_serve_mesh),
+              ("analysis", phase_analysis))
     seconds = {}
     for name, fn in phases:
         if only is None or name in only:
@@ -4876,9 +5010,10 @@ def main() -> int:
     trained = report["train"]["launches"]
     for name, n in trained.items():
         total[name] += n
-    # the dryrun phase's mesh-bound train and paged decode steps, and the
-    # analysis phase's audits (the stream kernel's go to its own entry)
-    for phase in ("dryrun", "analysis"):
+    # the dryrun phase's mesh-bound train and paged decode steps, the
+    # serve_mesh phase's mesh runs and the analysis phase's audits (the
+    # stream kernel's go to its own entry)
+    for phase in ("dryrun", "serve_mesh", "analysis"):
         for name, n in report[phase]["launches"].items():
             if name in total:
                 total[name] += n

@@ -31,7 +31,7 @@ from repro_torch.parallel.context import reshape
 
 from .sc_matmul import resolve_impl, sc_matmul
 
-__all__ = ["sc_dense", "sc_proj", "ScDense"]
+__all__ = ["sc_dense", "sc_einsum_bd_df", "sc_proj", "ScDense"]
 
 #: ``sc_impl`` values, once resolved, that ``sc_proj`` serves through the
 #: packed weight: the kernel path's names and the device's own choice.
@@ -81,6 +81,13 @@ def sc_dense(x: torch.Tensor, w: torch.Tensor, bits: int = 8,
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return ScDense.apply(x, w, bits, impl)
     return _sc_forward(x, w, bits, impl)
+
+
+def sc_einsum_bd_df(x: torch.Tensor, w: torch.Tensor, bits: int = 8,
+                    impl: str | None = None) -> torch.Tensor:
+    """:func:`sc_dense` under the name of its ``...d,df->...f``
+    contraction."""
+    return sc_dense(x, w, bits, impl)
 
 
 def sc_proj(x: torch.Tensor, w: torch.Tensor, cfg,

@@ -30,6 +30,19 @@ integer reductions have no DTensor rule, and all give the same bits.
 The names ``cached_*_step`` here are the reference's memos of these
 builders (``functools.lru_cache`` on cfg, mesh and shape); the engine's
 per-shape CUDA-graph caches of the same names are ``launch/steps.py``'s.
+
+The engine serves on a mesh (``serving.Engine(mesh=...)``) through
+:class:`MeshDecodeStep` and the steps it makes (:class:`MeshPrefillStep`,
+and for speculation :class:`MeshDraftStep`, :class:`MeshVerifyStep`,
+:class:`MeshRollbackStep`): thin wrappers over the memos with the
+interface of ``launch/steps.py``'s step objects. The engine writes plain
+input buffers (tokens, block tables, valid lengths, accept counts), which
+every rank holds alike (SPMD: every rank runs the same schedule), and
+calls ``replay()``; the wrapper lays the inputs out by the builder's
+shardings (``"batch_fn"``, ``"tables"``) without communication, runs the
+step eagerly on ``DTensor``s, keeps the outputs in the builders'
+out-shardings (the logits a ``DTensor``; token grids gathered into plain
+buffers) and the placed pool, written in place.
 """
 from __future__ import annotations
 
@@ -41,19 +54,22 @@ import torch
 
 from repro_torch import tree as tr
 from repro_torch.core.sc_matmul import resolve_impl
+from repro_torch.errors import ConfigError
 from repro_torch.launch import steps as eager
 from repro_torch.launch import train as tt
 from repro_torch.launch.mesh import mesh_axes
 from repro_torch.launch.steps import (abstract_opt_state, abstract_params,
                                       activation_spec, opt_pspecs)
-from repro_torch.models import bind, cache_ops
+from repro_torch.models import bind, cache_ops, pack_sc_weights
+from repro_torch.models.transformer import params_to
 from repro_torch.optim import AdamWConfig, apply_updates
 from repro_torch.optim.schedules import warmup_cosine
-from repro_torch.parallel.context import activation_sharding_scope, is_dtensor
+from repro_torch.parallel.context import (activation_sharding_scope,
+                                          gathered, is_dtensor, laid_out_as)
 from repro_torch.parallel.sharding import (DATA_AXES, NamedSharding, P,
                                            batch_pspecs, cache_pspecs,
-                                           fit_spec, is_spec, named,
-                                           paged_pool_pspecs,
+                                           distribute, fit_spec, is_spec,
+                                           named, paged_pool_pspecs,
                                            paged_tables_pspec, param_pspecs)
 
 __all__ = ["build_train_step", "build_prefill_step", "build_decode_step",
@@ -63,7 +79,9 @@ __all__ = ["build_train_step", "build_prefill_step", "build_decode_step",
            "cached_decode_step", "cached_paged_decode_step",
            "cached_chunked_prefill_step", "cached_draft_loop_step",
            "cached_verify_window_step", "cached_rollback_step",
-           "mesh_config", "place_outputs"]
+           "mesh_config", "place_outputs", "MeshDecodeStep",
+           "MeshPrefillStep", "MeshDraftStep", "MeshVerifyStep",
+           "MeshRollbackStep"]
 
 
 def mesh_config(cfg):
@@ -461,3 +479,275 @@ def cached_rollback_step(cfg, mesh, *, capacity: int, block: int,
     return build_rollback_step(cfg, mesh, capacity=capacity, block=block,
                                n_blocks=n_blocks, max_blocks=max_blocks,
                                width=width)
+
+
+# ------------------------------------------------- the engine's steps
+
+def _laid_out(tree, shardings):
+    """A tree of tensors that every rank holds whole (the engine's step
+    inputs) as ``DTensor``s laid out by ``shardings`` (one
+    :class:`NamedSharding`, or a tree of them): each rank keeps its slice,
+    with no communication."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def one(t, s):
+        whole = DTensor.from_local(t, s.mesh, [Replicate()] * s.mesh.ndim)
+        return whole.redistribute(s.mesh, s.placements)
+    if isinstance(shardings, NamedSharding):
+        return one(tree, shardings)
+    return tr.tree_map(one, tree, shardings)
+
+
+def _cache_leaves(cache) -> list:
+    return [t for t in tr.leaves(cache) if isinstance(t, torch.Tensor)]
+
+
+def _adopt(cache, new) -> None:
+    """``new``'s tensors copied into ``cache``'s shards where a step gave
+    back other storage (a step writes its cache in place and returns new
+    positions): the engine's pool and staging caches are one set of
+    tensors for their whole life."""
+    for a, b in zip(_cache_leaves(cache), _cache_leaves(new), strict=True):
+        la = a.to_local() if is_dtensor(a) else a
+        lb = laid_out_as(b, a) if is_dtensor(a) else b
+        if la.data_ptr() != lb.data_ptr():
+            la.copy_(lb)
+
+
+class MeshDecodeStep:
+    """The engine's decode step on ``mesh``: the builder of the pool's
+    shape (``cached_paged_decode_step``, or ``cached_decode_step`` for the
+    contiguous pool, ``max_blocks=None``), run eagerly.
+
+    The float weights of ``params`` (a packed tree's packs dropped) are
+    placed by the builder's ``shardings["params"]`` and, under SC-GEMM,
+    packed once on the mesh (each weight at its whole tensor's scale); the
+    pool (``cache_ops.paged_init``'s layout, or the contiguous cache) is
+    placed by ``shardings["cache"]``. The caller writes ``tokens
+    (capacity, 1)`` (``(capacity, 1, K)`` with codebooks) and ``tables
+    (capacity, max_blocks)``, plain int32 tensors on the mesh's device, and
+    calls :meth:`replay`; ``logits`` is then the step's ``DTensor``
+    (``(capacity, 1, vocab)``). The pool advances in place. ``prefills``
+    and ``specs`` hold the steps made from this one, by the keys of
+    ``launch/steps.py``'s entries."""
+
+    captures = 0
+
+    def __init__(self, cfg, mesh, params, *, capacity: int, max_seq: int,
+                 max_blocks: int | None = None, block: int | None = None,
+                 n_blocks: int | None = None, fused: bool = True):
+        self.mesh = mesh
+        self.model = _bound(cfg, mesh)
+        cfg = self.model.cfg
+        self.paged = max_blocks is not None
+        self.block, self.n_blocks, self.fused = block, n_blocks, fused
+        if self.paged:
+            self._fn, sh, _ = cached_paged_decode_step(
+                cfg, mesh, capacity=capacity, block=block, n_blocks=n_blocks,
+                max_blocks=max_blocks, fused=fused)
+            cache = cache_ops.paged_init(self.model.init_cache, capacity,
+                                         n_blocks, block)
+        else:
+            self._fn, sh, _ = cached_decode_step(cfg, mesh,
+                                                 batch_size=capacity,
+                                                 seq_len=max_seq)
+            cache = self.model.init_cache(capacity, max_seq)
+        self.shardings = sh
+        dev = self.model.device
+        floats = params_to(eager._floats(params), dev)
+        self.params = pack_sc_weights(distribute(floats, sh["params"]), cfg)
+        self.cache = distribute(cache, sh["cache"])
+        kb = eager._codebooks(cfg)
+        self.tokens = torch.zeros((capacity, 1, *kb), dtype=torch.int32,
+                                  device=dev)
+        self.tables = None if not self.paged else torch.full(
+            (capacity, max_blocks), -1, dtype=torch.int32, device=dev)
+        self.logits = None
+        self.prefills: dict[tuple, MeshPrefillStep] = {}
+        self.specs: dict[tuple, object] = {}
+        self.replays = 0
+
+    def placed_tables(self):
+        return _laid_out(self.tables, self.shardings["tables"])
+
+    def replay(self) -> None:
+        batch = {"tokens": self.tokens}
+        batch = _laid_out(batch, self.shardings["batch_fn"](batch))
+        if self.paged:
+            self.logits, new = self._fn(self.params, self.cache,
+                                        self.placed_tables(), batch)
+        else:
+            self.logits, new = self._fn(self.params, self.cache, batch)
+        _adopt(self.cache, new)
+        self.replays += 1
+
+    def prefill_step(self, *, extent: int,
+                     chunk: int | None = None) -> MeshPrefillStep:
+        """The chunked (``chunk``) or one-shot prefill step of ``extent``
+        positions over this step's weights, made on first use."""
+        key = ("chunked", extent, chunk) if chunk else ("oneshot", extent)
+        if key not in self.prefills:
+            self.prefills[key] = MeshPrefillStep(self, extent=extent,
+                                                 chunk=chunk)
+        return self.prefills[key]
+
+    def spec_steps(self, *, k: int, draft_bits: int) -> tuple:
+        """The draft, verify and rollback steps of a round of ``k``
+        proposals at ``draft_bits``, made on first use."""
+        width = k + 1
+        if ("verify", width) not in self.specs:
+            if not self.paged:
+                raise ConfigError("speculative steps run on the paged pool")
+            self.specs[("verify", width)] = MeshVerifyStep(self, width=width)
+            self.specs[("rollback", width)] = MeshRollbackStep(self,
+                                                               width=width)
+        verify = self.specs[("verify", width)]
+        if ("draft", k, draft_bits) not in self.specs:
+            self.specs[("draft", k, draft_bits)] = MeshDraftStep(
+                self, verify, k=k, draft_bits=draft_bits)
+        return (self.specs[("draft", k, draft_bits)], verify,
+                self.specs[("rollback", width)])
+
+
+class MeshPrefillStep:
+    """A prefill step of ``decode``'s engine on its mesh, over its placed
+    weights: chunked (``cached_chunked_prefill_step``; ``tokens (1,
+    chunk)`` and ``n_valid (1,)`` written by the caller, the chunk landing
+    in the placed B=1 staging ``cache`` of ``extent`` positions, advanced
+    in place) or one-shot (``cached_prefill_step``; ``tokens (1,
+    extent)``, ``cache`` the prefill's new cache). ``logits`` is the
+    step's ``DTensor`` ``(1, 1, vocab)``."""
+
+    captures = 0
+
+    def __init__(self, decode: MeshDecodeStep, *, extent: int,
+                 chunk: int | None = None):
+        m, mesh = decode.model, decode.mesh
+        self.decode, self.extent, self.chunk = decode, extent, chunk
+        dev = m.device
+        if chunk is None:
+            self._fn, self._sh, _ = cached_prefill_step(
+                m.cfg, mesh, batch_size=1, seq_len=extent)
+            self.cache = None
+        else:
+            self._fn, self._sh, _ = cached_chunked_prefill_step(
+                m.cfg, mesh, seq_len=extent, chunk=chunk)
+            self.cache = distribute(m.init_cache(1, extent),
+                                    self._sh["cache"])
+        kb = eager._codebooks(m.cfg)
+        self.tokens = torch.zeros((1, extent if chunk is None else chunk,
+                                   *kb), dtype=torch.int32, device=dev)
+        self.n_valid = None if chunk is None else torch.zeros(
+            (1,), dtype=torch.int32, device=dev)
+        self.logits = None
+        self.replays = 0
+
+    def replay(self) -> None:
+        params = self.decode.params
+        if self.chunk is None:
+            batch = {"tokens": self.tokens}
+            self.logits, self.cache = self._fn(
+                params, _laid_out(batch, self._sh["batch_fn"](batch)))
+        else:
+            batch = {"tokens": self.tokens, "n_valid": self.n_valid}
+            self.logits, new = self._fn(
+                params, self.cache,
+                _laid_out(batch, self._sh["batch_fn"](batch)))
+            _adopt(self.cache, new)
+        self.replays += 1
+
+    def start(self) -> None:
+        """A new prompt: the staging position back to 0 and the recurrent
+        state zeroed, on every rank's shard (``PrefillStep.start``)."""
+        for t in (self.cache.pos, *cache_ops.slot_leaves(self.cache)):
+            (t.to_local() if is_dtensor(t) else t).zero_()
+
+    def seed(self, data, pages, *, block: int, resume: int) -> None:
+        """A prefix hit's start (``PrefillStep.seed``): the staging rows
+        from the placed pool's ``pages``, the position ``resume``."""
+        cache_ops.prefix_seed(self.cache, data, pages, block=block,
+                              resume=resume)
+
+
+class MeshVerifyStep:
+    """The verify of a speculative round on ``decode``'s mesh
+    (``cached_verify_window_step``): ``window (C, width)`` int32, its
+    column 0 copied from ``decode.tokens`` when the step runs and the
+    rest written by the draft step; ``out (C, width)`` the exact
+    argmaxes, gathered whole."""
+
+    def __init__(self, decode: MeshDecodeStep, *, width: int):
+        m, d = decode.model, decode
+        self.decode, self.width = decode, width
+        capacity, max_blocks = d.tables.shape
+        self._fn, self._sh, _ = cached_verify_window_step(
+            m.cfg, d.mesh, capacity=capacity, block=d.block,
+            n_blocks=d.n_blocks, max_blocks=max_blocks, width=width)
+        self.window = torch.zeros((capacity, width), dtype=torch.int32,
+                                  device=m.device)
+        self.out = torch.zeros_like(self.window)
+        self.replays = 0
+
+    def replay(self) -> None:
+        d = self.decode
+        self.window[:, :1].copy_(d.tokens)
+        batch = {"tokens": self.window}
+        toks, new = self._fn(d.params, d.cache, d.placed_tables(),
+                             _laid_out(batch, self._sh["batch_fn"](batch)))
+        self.out.copy_(gathered(toks))
+        _adopt(d.cache, new)
+        self.replays += 1
+
+
+class MeshDraftStep:
+    """The draft of a speculative round on ``decode``'s mesh
+    (``cached_draft_loop_step``): ``k`` sub-steps of the draft config
+    (``launch.steps.draft_config``) over the weights packed on the mesh at
+    ``draft_bits``, from ``decode.tokens``; the proposals, gathered whole,
+    go into ``verify.window[:, 1:]``."""
+
+    def __init__(self, decode: MeshDecodeStep, verify: MeshVerifyStep, *,
+                 k: int, draft_bits: int):
+        d = decode
+        cfg = mesh_config(eager.draft_config(d.model.cfg, draft_bits))
+        capacity, max_blocks = d.tables.shape
+        self.decode, self.verify, self.k = decode, verify, k
+        self._fn, self._sh, _ = cached_draft_loop_step(
+            cfg, d.mesh, capacity=capacity, block=d.block,
+            n_blocks=d.n_blocks, max_blocks=max_blocks, k=k)
+        self.params = pack_sc_weights(eager._floats(d.params), cfg)
+        self.out = verify.window[:, 1:]
+        self.replays = 0
+
+    def replay(self) -> None:
+        d = self.decode
+        batch = {"tokens": d.tokens}
+        toks, new = self._fn(self.params, d.cache, d.placed_tables(),
+                             _laid_out(batch, self._sh["batch_fn"](batch)))
+        self.out.copy_(gathered(toks))
+        _adopt(d.cache, new)
+        self.replays += 1
+
+
+class MeshRollbackStep:
+    """The rollback of a speculative round on ``decode``'s mesh
+    (``cached_rollback_step``): ``accept (C,)`` int32 written by the
+    caller; the placed pool's positions rewind in place."""
+
+    def __init__(self, decode: MeshDecodeStep, *, width: int):
+        d = decode
+        capacity, max_blocks = d.tables.shape
+        self.decode = decode
+        self._fn, self._sh, _ = cached_rollback_step(
+            d.model.cfg, d.mesh, capacity=capacity, block=d.block,
+            n_blocks=d.n_blocks, max_blocks=max_blocks, width=width)
+        self.accept = torch.zeros((capacity,), dtype=torch.int32,
+                                  device=d.model.device)
+        self.replays = 0
+
+    def replay(self) -> None:
+        d = self.decode
+        new = self._fn(d.cache, d.placed_tables(),
+                       _laid_out(self.accept, NamedSharding(d.mesh, P(None))))
+        _adopt(d.cache, new)
+        self.replays += 1

@@ -33,6 +33,20 @@ serving process; so do the speculative window's ``paged_commit_window`` and
 (``paged_copy_page``, ``paged_zero_pages``, ``prefix_seed``). Page ids are
 host ints (page allocation is host-driven); the ops run eagerly between
 step replays and never read the device.
+
+**Placed pools.** On a mesh (``serving.Engine(mesh=...)``) the caches are
+``DTensor`` trees laid out by ``parallel.sharding``: a paged pool keeps
+its page and slot axes and its positions whole on every rank and splits
+KV heads (or head_dim) and channels over ``model``; a contiguous pool
+splits slots over the data axes; a B=1 staging cache splits its sequence
+over ``data`` where the batch is too small for it. The ops take such
+trees and write each rank's shard in place (``parallel.context``'s
+shard-local writes), so no DTensor indexing rule is needed: the paged ops
+run their plain code on the shards, the source cache first laid out as
+the pool is; ``slot_insert`` / ``slot_evict`` and ``prefix_seed`` write
+boxes (``write_box_``) into whichever slot or rows a rank holds;
+``truncate_seq`` takes the sequence axis whole first. Every rank calls
+every op with the same arguments.
 """
 from __future__ import annotations
 
@@ -42,6 +56,8 @@ import numpy as np
 import torch
 
 from repro_torch.errors import CacheLayoutError, ConfigError
+from repro_torch.parallel.context import (gathered, is_dtensor, laid_out_as,
+                                          narrow_whole, write_box_)
 
 __all__ = ["slot_insert", "slot_read", "slot_evict", "slot_positions",
            "truncate_seq", "paged_init", "paged_gather", "paged_token_entry",
@@ -102,6 +118,62 @@ def _map(cache, *, seq: Callable | None = None,
     return cache._replace(**fields)
 
 
+def _zip_rebuild(node, other, fn):
+    """``_rebuild`` over two trees of one structure, ``fn(a, b)`` a
+    pair."""
+    if isinstance(node, torch.Tensor):
+        return fn(node, other)
+    items = [_zip_rebuild(a, b, fn) for a, b in zip(node, other, strict=True)]
+    return type(node)(*items) if hasattr(node, "_fields") else tuple(items)
+
+
+def _whole_axes(cache) -> None:
+    """A placed pool must hold its page or slot axes (and the leading stack
+    axis and the in-page axis) and its positions whole on every rank, as
+    ``parallel.sharding.paged_pool_pspecs`` lays them out: the shard-local
+    ops address them by host index."""
+    from torch.distributed.tensor import Shard
+    for f in cache._fields:
+        whole = 3 if f in SEQ_FIELDS else 2 if f != "pos" else 1
+        for t in _flat(getattr(cache, f)):
+            if is_dtensor(t) and any(isinstance(p, Shard) and p.dim < whole
+                                     for p in t.placements):
+                raise CacheLayoutError(
+                    f"a placed pool's {f!r} leaf splits an addressed axis "
+                    f"over ranks ({t.placements})")
+
+
+def _shards(cache, like=None):
+    """``cache`` with each ``DTensor`` leaf as this rank's shard, the
+    tensor its in-place writes land in; with ``like`` (a placed cache of
+    the same family), ``cache``'s leaves (``DTensor``s, or tensors whole on
+    every rank) laid out as ``like``'s first (``laid_out_as``)."""
+    if like is None:
+        _whole_axes(cache)
+        return _map(cache, seq=_local, slot=_local, pos=_local(cache.pos))
+    fields = {f: _zip_rebuild(
+        getattr(cache, f), getattr(like, f),
+        lambda t, ref: laid_out_as(t, ref) if is_dtensor(ref) else t)
+        for f in cache._fields}
+    return cache._replace(**fields)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _placed(local: torch.Tensor, like, shape=None):
+    """A tensor computed on the shards (new positions, a gathered view) as
+    a ``DTensor`` laid out as ``like`` is, of ``like``'s global shape or
+    ``shape``."""
+    from torch.distributed.tensor import DTensor
+    shape = torch.Size(like.shape if shape is None else shape)
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
 def _check_rank(leaf: torch.Tensor, seq: bool = True) -> None:
     if leaf.dim() < SLOT_AXIS + 1 + seq:
         raise CacheLayoutError(
@@ -109,16 +181,27 @@ def _check_rank(leaf: torch.Tensor, seq: bool = True) -> None:
             f"{SLOT_AXIS}" + (" and a sequence axis after it" if seq else ""))
 
 
-def _insert_slot_leaves(pool, single, slot: int) -> None:
+def _insert_slot_state(pool, single, slot: int) -> None:
+    """``single``'s slot leaves and position into slot ``slot``."""
     for pl, sl in zip(slot_leaves(pool), slot_leaves(single), strict=True):
         _check_rank(pl, seq=False)
-        pl[:, slot] = sl[:, 0].to(pl.dtype)
+        write_box_(pl, (0, slot), sl)
+    write_box_(pool.pos, (slot,), gathered(single.pos).reshape(-1)[:1])
 
 
-def _zero_slot_leaves(pool, slot: int) -> None:
+def _zero_slot_(leaf, slot: int) -> None:
+    write_box_(leaf, (0, slot), torch.zeros(
+        (leaf.shape[0], 1, *leaf.shape[2:]), dtype=leaf.dtype,
+        device=leaf.device))
+
+
+def _zero_slot_state(pool, slot: int) -> None:
+    """Slot ``slot``'s slot leaves zeroed and its position reset."""
     for pl in slot_leaves(pool):
         _check_rank(pl, seq=False)
-        pl[:, slot] = 0
+        _zero_slot_(pl, slot)
+    write_box_(pool.pos, (slot,), torch.zeros(
+        (1,), dtype=pool.pos.dtype, device=pool.pos.device))
 
 
 def slot_insert(pool, single, slot: int):
@@ -131,9 +214,8 @@ def slot_insert(pool, single, slot: int):
         if s1 > pl.shape[2]:
             raise CacheLayoutError(f"a {s1}-position cache cannot enter a "
                                    f"{pl.shape[2]}-position slot")
-        pl[:, slot, :s1] = sl[:, 0].to(pl.dtype)
-    _insert_slot_leaves(pool, single, slot)
-    pool.pos[slot] = single.pos.reshape(-1)[0]
+        write_box_(pl, (0, slot, 0), sl)
+    _insert_slot_state(pool, single, slot)
     return pool
 
 
@@ -152,9 +234,8 @@ def slot_evict(pool, slot: int):
     pool contents stay a pure function of the admitted requests."""
     for pl in seq_leaves(pool):
         _check_rank(pl)
-        pl[:, slot] = 0
-    _zero_slot_leaves(pool, slot)
-    pool.pos[slot] = 0
+        _zero_slot_(pl, slot)
+    _zero_slot_state(pool, slot)
     return pool
 
 
@@ -167,8 +248,8 @@ def truncate_seq(single, length: int):
     """Slice a single-sequence cache's sequence leaves down to ``length``
     positions (axis 2); slot leaves and ``pos`` pass through: the bridge
     from a bucket-padded staging cache to the exact-extent cache the pools
-    admit."""
-    return _map(single, seq=lambda t: t[:, :, :length])
+    admit. A placed staging cache takes its sequence axis whole first."""
+    return _map(single, seq=lambda t: narrow_whole(t, 2, length))
 
 
 # --------------------------------------------------------------------------
@@ -213,7 +294,8 @@ def paged_gather(data, tables: torch.Tensor, *, block: int):
     """The dense per-slot cache view: each slot's pages gathered in logical
     order into ``max_blocks * block`` positions (unallocated pages read the
     trash page, masked downstream); slot leaves and ``pos`` are the pool's
-    own."""
+    own. On a placed pool each rank gathers its shard's cells: the view is
+    laid out as the pool is on its head (or head_dim) axis."""
     capacity, max_blocks = tables.shape
 
     def one(leaf):
@@ -221,6 +303,13 @@ def paged_gather(data, tables: torch.Tensor, *, block: int):
         return gathered.reshape(leaf.shape[0], capacity, max_blocks * block,
                                 *leaf.shape[3:])
 
+    if is_dtensor(data.pos):
+        _whole_axes(data)
+        tables = gathered(tables)
+        return _map(data, seq=lambda leaf: _placed(
+            one(leaf.to_local()), leaf,
+            shape=(leaf.shape[0], capacity, max_blocks * block,
+                   *leaf.shape[3:])))
     return _map(data, seq=one)
 
 
@@ -257,6 +346,10 @@ def paged_commit(data, dense, tables: torch.Tensor, *, block: int):
     its page (in place): the column at each slot's pre-step position goes
     to ``(tables[slot, pos // block], pos % block)``; slot leaves and
     ``pos`` are adopted from ``dense``."""
+    if is_dtensor(data.pos):
+        new = paged_commit(_shards(data), _shards(dense, like=data),
+                           gathered(tables), block=block)
+        return data._replace(pos=_placed(new.pos, data.pos))
     capacity = tables.shape[0]
     wpos = data.pos.to(torch.long)
     entry, off = paged_token_entry(tables, wpos, block=block)
@@ -289,6 +382,10 @@ def paged_commit_window(data, dense, tables: torch.Tensor, *, block: int,
     commits its whole window: :func:`paged_rollback` zeroes what
     verification rejects, and a free slot's window lands in the trash
     page. ``pos`` is adopted from ``dense``."""
+    if is_dtensor(data.pos):
+        new = paged_commit_window(_shards(data), _shards(dense, like=data),
+                                  gathered(tables), block=block, width=width)
+        return data._replace(pos=_placed(new.pos, data.pos))
     capacity = tables.shape[0]
     wpos, entry, off = _window(tables, data.pos, width, block=block)
     rows = torch.arange(capacity, device=tables.device)[:, None]
@@ -309,6 +406,10 @@ def paged_rollback(data, tables: torch.Tensor, *, block: int, width: int,
     slot passes ``accept = 0``: its window committed to the trash page, so
     the rewind restores its position and its zeros land there again.
     Returns the cache with the rewound ``pos`` (a new tensor)."""
+    if is_dtensor(data.pos):
+        new = paged_rollback(_shards(data), gathered(tables), block=block,
+                             width=width, accept=gathered(accept))
+        return data._replace(pos=_placed(new.pos, data.pos))
     accept = torch.as_tensor(accept, device=tables.device).to(torch.long)
     start = data.pos.to(torch.long) - width + accept
     _, entry, off = _window(tables, start, width, block=block)
@@ -336,6 +437,10 @@ def paged_insert(data, single, slot: int, pages, *, block: int,
     keep their pool contents. That overlay makes copy-on-write admission
     exact: the page copy supplies the shared rows the staging prefill never
     computed, and ``single`` everything from the divergence point."""
+    if is_dtensor(data.pos):
+        paged_insert(_shards(data), _shards(single, like=data), slot, pages,
+                     block=block, start=start)
+        return data
     ids = _page_ids(data, pages)
     n_pages = int(ids.shape[0])
     pstart = (start // block) * block
@@ -359,8 +464,7 @@ def paged_insert(data, single, slot: int, pages, *, block: int,
                 x = torch.cat([x, x.new_zeros((lead, pad, *x.shape[2:]))],
                               dim=1)
         pl[:, ids] = x.reshape(lead, n_pages, block, *x.shape[2:])
-    _insert_slot_leaves(data, single, slot)
-    data.pos[slot] = single.pos.reshape(-1)[0]
+    _insert_slot_state(data, single, slot)
     return data
 
 
@@ -368,9 +472,11 @@ def paged_evict(data, slot: int, pages):
     """Zero ``pages`` and ``slot``'s slot leaves and reset its position (in
     place), so a reused page or slot never carries a previous tenant's
     state."""
+    if is_dtensor(data.pos):
+        paged_evict(_shards(data), slot, pages)
+        return data
     paged_zero_pages(data, pages)
-    _zero_slot_leaves(data, slot)
-    data.pos[slot] = 0
+    _zero_slot_state(data, slot)
     return data
 
 
@@ -389,6 +495,9 @@ def paged_copy_page(data, src: int, dst: int):
     copy-on-write primitive. Before the first write into a shared
     (refcount > 1 or prefix-retained) page, the pool copies it to a private
     page and rewrites the slot's block table."""
+    if is_dtensor(data.pos):
+        paged_copy_page(_shards(data), src, dst)
+        return data
     for pl in seq_leaves(data):
         pl[:, int(dst)].copy_(pl[:, int(src)])
     return data
@@ -399,6 +508,9 @@ def paged_zero_pages(data, pages):
     place): the reclaim half of prefix retention, and what eviction does
     to the pages it frees, so pool contents stay a pure function of the
     live requests and the retained prefix set."""
+    if is_dtensor(data.pos):
+        paged_zero_pages(_shards(data), pages)
+        return data
     ids = _page_ids(data, pages)
     if ids.numel():
         for pl in seq_leaves(data):
@@ -413,7 +525,24 @@ def prefix_seed(single, data, pages, *, block: int, resume: int):
     runs at offset ``resume`` over the seeded rows as if the chunks before
     it had run. Rows at or after ``resume`` are overwritten by the suffix
     chunks before any query reaches them. The position is set by a fill on
-    the cache's device, in its buffer, so a captured chunk step sees it."""
+    the cache's device, in its buffer, so a captured chunk step sees it.
+    From a placed pool each rank reads its shard's cells of the pages and
+    writes the staging rows its shard holds."""
+    if is_dtensor(data.pos):
+        _whole_axes(data)
+        ids = _page_ids(data, pages)
+        n = int(ids.numel())
+        for sl, dl in zip(seq_leaves(single), seq_leaves(data), strict=True):
+            n_rows = min(n * block, sl.shape[2])
+            if n_rows:
+                local = dl.to_local()[:, ids]
+                local = local.reshape(local.shape[0], 1, n * block,
+                                      *local.shape[3:])[:, :, :n_rows]
+                rows = _placed(local, dl, shape=(
+                    dl.shape[0], 1, n_rows, *dl.shape[3:]))
+                write_box_(sl, (0, 0, 0), rows)
+        _local(single.pos).fill_(resume)
+        return single
     ids = _page_ids(data, pages)
     n = int(ids.numel())
     for sl, dl in zip(seq_leaves(single), seq_leaves(data), strict=True):

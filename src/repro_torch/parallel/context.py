@@ -20,8 +20,11 @@ tensor does: index writes that DTensor cannot place in place
 layouts that keep a head group, a router group or a gathered table on
 one rank (:func:`whole_groups`, :func:`whole_groups_grad`,
 :func:`split_leading_over_data`, :func:`whole_rows`, :func:`gathered`),
-and a :func:`reshape` that gathers where a PyTorch release refuses to
-flatten a split dim. Each returns a plain tensor's result unchanged.
+a :func:`reshape` that gathers where a PyTorch release refuses to
+flatten a split dim, and the host-driven cache writes of a placed pool
+(:func:`shard_range`, :func:`laid_out_as`, :func:`write_box_`,
+:func:`narrow_whole`), which work on each rank's shard with no DTensor
+operator rule. Each returns a plain tensor's result unchanged.
 """
 from __future__ import annotations
 
@@ -36,7 +39,8 @@ _ACTIVATION_SPEC: ContextVar = ContextVar("activation_spec", default=None)
 __all__ = ["activation_sharding_scope", "shard_activations", "constrain",
            "batch_axes", "is_dtensor", "gathered", "write_positions_",
            "split_leading_over_data", "whole_groups", "whole_groups_grad",
-           "index_copy_", "index_put_", "reshape", "whole_rows"]
+           "index_copy_", "index_put_", "reshape", "whole_rows",
+           "shard_range", "laid_out_as", "write_box_", "narrow_whole"]
 
 
 def is_dtensor(x) -> bool:
@@ -173,13 +177,42 @@ def index_put_(dst, index: tuple, value) -> None:
 
 
 def index_copy_(dst, dim: int, index, src) -> None:
-    """``dst.index_copy_(dim, index, src)``; on a ``DTensor``, which may
-    not change ``dst``'s layout in place, the out-of-place copy placed
-    back into ``dst`` (``copy_``)."""
-    if is_dtensor(dst):
-        dst.copy_(dst.index_copy(dim, index, src))
-    else:
+    """``dst.index_copy_(dim, index, src)``. On a ``DTensor`` (DTensor has
+    no ``index_copy`` rule in every PyTorch it runs on) each rank copies
+    into its own shard: ``src`` laid out as ``dst`` with axis ``dim``
+    whole, the index whole on every rank. Where ``dim`` is split over
+    ranks, an entry outside the rank's range ``[lo, hi)`` is sent to the
+    nearest row inside it with the value that row ends with (its last
+    writer's, or its own), so only the index's rows are read and written
+    and no shape depends on the index's values."""
+    if not is_dtensor(dst):
         dst.index_copy_(dim, index, src)
+        return
+    import torch
+    dim = dim % dst.dim()
+    local = dst.to_local()
+    idx = gathered(index).to(torch.long)
+    value = laid_out_as(src, dst, whole=(dim,)).to(local.dtype)
+    lo, hi = shard_range(dst, dim)
+    if (lo, hi) == (0, dst.shape[dim]):
+        local.index_copy_(dim, idx, value)
+        return
+    n = hi - lo
+    if n == 0:
+        return
+    inside = (idx >= lo) & (idx < hi)
+    last = torch.full((n + 1,), -1, dtype=torch.long, device=idx.device)
+    last.scatter_reduce_(0, torch.where(inside, idx - lo, n),
+                         torch.arange(idx.numel(), device=idx.device),
+                         "amax")
+    rows = (idx - lo).clamp(0, n - 1)
+    writer = last.index_select(0, rows)
+    keep = [1] * local.dim()
+    keep[dim] = -1
+    local.index_copy_(dim, rows, torch.where(
+        (writer >= 0).reshape(keep),
+        value.index_select(dim, writer.clamp(min=0)),
+        local.index_select(dim, rows)))
 
 
 def write_positions_(dst, pos, value) -> None:
@@ -212,6 +245,92 @@ def write_positions_(dst, pos, value) -> None:
         value = laid_out(value, [p if isinstance(p, Shard) and p.dim != 1
                                  else Replicate() for p in place])
     dst.copy_(torch.where(mask, value, dst))
+
+
+def shard_range(x, dim: int) -> tuple[int, int]:
+    """The global index range ``[lo, hi)`` of axis ``dim`` that this rank's
+    shard of a ``DTensor`` ``x`` holds: DTensor's split of the axis over
+    each mesh dimension that shards it, in mesh order, major first (the
+    whole axis for any other tensor)."""
+    n = x.shape[dim]
+    if not is_dtensor(x):
+        return 0, n
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    lo = 0
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim % x.dim() == dim % x.dim():
+            chunk = -(-n // mesh.size(i))
+            a = min(coord[i] * chunk, n)
+            b = min(a + chunk, n)
+            lo, n = lo + a, b - a
+    return lo, lo + n
+
+
+def laid_out_as(src, dst, whole: tuple = ()):
+    """This rank's shard of ``src`` laid out as the ``DTensor`` ``dst`` is
+    (``dst``'s placements on its mesh), the axes in ``whole`` taken whole:
+    ``src`` a ``DTensor`` or a tensor whole on every rank, of ``dst``'s
+    rank. A collective where ``src`` must move: every rank calls it."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = dst.device_mesh
+    place = [Replicate() if isinstance(p, Shard) and p.dim in whole else p
+             for p in dst.placements]
+    if not is_dtensor(src):
+        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim)
+    return src.redistribute(mesh, place).to_local()
+
+
+def write_box_(dst, starts: tuple, value) -> None:
+    """``dst[s0:s0 + v0, s1:s1 + v1, ...] = value`` in place: ``value``, of
+    ``dst``'s rank, at offset ``starts[d]`` on each of ``dst``'s first
+    ``len(starts)`` axes and whole on the others. On a ``DTensor`` each
+    rank writes the part of the box its shard holds (:func:`shard_range`),
+    ``value`` laid out as ``dst`` and taken whole on the boxed axes
+    (:func:`laid_out_as`; every rank calls it)."""
+    if not is_dtensor(dst):
+        dst[tuple(slice(s, s + value.shape[d])
+                  for d, s in enumerate(starts))] = value.to(dst.dtype)
+        return
+    v = laid_out_as(value, dst, whole=tuple(range(len(starts))))
+    local, part = [], []
+    for d, s in enumerate(starts):
+        lo, hi = shard_range(dst, d)
+        a, b = max(s, lo), min(s + value.shape[d], hi)
+        if a >= b:
+            return                      # no cell of the box on this rank
+        local.append(slice(a - lo, b - lo))
+        part.append(slice(a - s, b - s))
+    dst.to_local()[tuple(local)] = v[tuple(part)].to(dst.dtype)
+
+
+def narrow_whole(x, dim: int, length: int):
+    """The first ``length`` entries of ``x`` on axis ``dim``. A ``DTensor``
+    takes that axis whole on every rank first (its other placements kept)
+    and is narrowed on each rank's shard: a ``DTensor`` of that layout.
+    As with a slice, ``length`` past the axis takes the whole axis."""
+    length = min(length, x.shape[dim])
+    if not is_dtensor(x):
+        return x.narrow(dim, 0, length)
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = x.device_mesh
+    place = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+             for p in x.placements]
+    local = x.redistribute(mesh, place).to_local().narrow(dim, 0, length)
+    shape = list(x.shape)
+    shape[dim] = length
+    return DTensor.from_local(local, mesh, place, shape=torch.Size(shape),
+                              stride=_contiguous_strides(shape))
+
+
+def _contiguous_strides(shape) -> tuple:
+    strides, step = [], 1
+    for n in reversed(shape):
+        strides.append(step)
+        step *= max(int(n), 1)
+    return tuple(reversed(strides))
 
 
 _WholeGroupsGrad = _whole_groups_grad_fn()

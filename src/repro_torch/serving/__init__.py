@@ -4,12 +4,12 @@ and the engine loop driving the steps."""
 from repro_torch.errors import (ConfigError, EngineInvariantError,
                                 PrefixCacheInvariantError)
 
-from .engine import Engine
+from .engine import Engine, default_serving_mesh
 from .prefix import PrefixCache, PrefixMatch
 from .queue import Request, RequestQueue, RequestResult
 from .slots import PagedSlotPool, PoolExhausted, SlotEntry, SlotPool
 
-__all__ = ["Engine", "Request", "RequestQueue", "RequestResult", "SlotEntry",
+__all__ = ["Engine", "default_serving_mesh", "Request", "RequestQueue", "RequestResult", "SlotEntry",
            "SlotPool", "PagedSlotPool", "PoolExhausted", "PrefixCache",
            "PrefixMatch", "ConfigError", "EngineInvariantError",
            "PrefixCacheInvariantError"]

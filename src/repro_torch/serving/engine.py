@@ -68,6 +68,22 @@ cache; a step's tokens route as one group (its router's capacity
 positions depend on the group), so its streams equal the baseline's
 while no group drops a token.
 
+*Mesh* (``mesh=``, a named ``("data", "model")`` ``DeviceMesh`` from
+``launch.mesh.make_mesh`` over an initialized process group): the engine
+serves through the reference's mesh-bound step builders
+(``launch.mesh_steps``) on ``DTensor``s, as the reference's engine does on
+its ``jax.sharding.Mesh``. Every rank builds the same engine and runs the
+same requests (SPMD); the host schedule depends on token counts alone and
+a sampled token on the request's own seeded generator, so every rank
+takes the same decisions. The weights are placed by the builders'
+parameter shardings and packed on the mesh, the pool (and each staging
+cache) by their cache shardings; the cache operations write each rank's
+shard (``models/cache_ops.py``), and the logits are gathered whole before
+sampling. The steps run eagerly; a mesh with ``graphs=True``, or a
+``device`` of another type than the mesh's, is refused. ``mesh=None``
+keeps the one-device path above, the counterpart of the reference's 1x1
+mesh (:func:`default_serving_mesh`).
+
 Determinism: with SC-GEMM on, per-request streams equal the sequential
 ``launch.serve.generate`` baseline token for token — the projections are
 integer-exact with per-row scales, and every float reduction on the path
@@ -85,6 +101,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import sc_attention_bits_ok
+from repro_torch.device import resolve_device
 from repro_torch.errors import (CacheLayoutError, ConfigError,
                                 EngineInvariantError)
 from repro_torch.launch.steps import (DecodeStep, PrefillStep, bucket_for,
@@ -95,14 +112,16 @@ from repro_torch.launch.steps import (DecodeStep, PrefillStep, bucket_for,
                                       cached_rollback_step,
                                       cached_verify_window_step,
                                       prompt_buckets)
+from repro_torch.launch.mesh import make_mesh, mesh_axes
 from repro_torch.models import bind, cache_ops, pack_sc_weights
 from repro_torch.models.transformer import params_to
+from repro_torch.parallel.context import gathered
 
 from .prefix import PrefixCache, PrefixMatch
 from .queue import Request, RequestQueue, RequestResult
 from .slots import PagedSlotPool, PoolExhausted, SlotEntry, SlotPool
 
-__all__ = ["Engine"]
+__all__ = ["Engine", "default_serving_mesh"]
 
 #: ``on_token(uid, index, token, finished_reason)`` — ``index`` is the
 #: 0-based position in the stream, ``token`` a 0-d array (``(K,)`` with
@@ -110,6 +129,29 @@ __all__ = ["Engine"]
 #: final token ("eos" / "length"). A preempted-and-readmitted request
 #: replays its stream from index 0; ``Engine.stream`` dedupes by index.
 TokenCallback = Callable[[str, int, np.ndarray, "str | None"], None]
+
+
+def default_serving_mesh():
+    """A 1x1 ``("data", "model")`` mesh over the current process group of
+    one rank, on the card: ``Engine(cfg, params,
+    mesh=default_serving_mesh())`` serves through the mesh-bound steps on
+    one device. Without a process group, or in a group of more than one
+    rank, it raises :class:`ConfigError`, as ``launch.mesh.make_mesh``
+    does.
+
+    The reference's engine always serves on a mesh, this one when no other
+    is given. ``Engine(mesh=None)`` does not call this: its one-device path
+    (a CUDA graph replay a step on the card) is the 1x1 mesh's
+    counterpart, with the same streams, and needs no process group."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ConfigError("a serving mesh needs a process group: call "
+                          "torch.distributed.init_process_group first")
+    if dist.get_world_size() != 1:
+        raise ConfigError(f"the default serving mesh is 1x1; the process "
+                          f"group holds {dist.get_world_size()} ranks: pass "
+                          f"a mesh of that size")
+    return make_mesh((1, 1), ("data", "model"))
 
 
 @dataclass
@@ -122,7 +164,7 @@ class _StagingPrefill:
     progress starts at ``match.resume``."""
     entry: SlotEntry
     bucket: int
-    step: PrefillStep
+    step: Any                    # a PrefillStep, or a MeshPrefillStep
     rows: np.ndarray | None = None
     match: PrefixMatch | None = None
 
@@ -167,6 +209,12 @@ class Engine:
     dense family; elsewhere ``self.prefix`` is None. ``prefix_hash_seed``
     keys the block hash; streams do not depend on it.
 
+    ``mesh`` (a named ``("data", "model")`` ``DeviceMesh``) serves through
+    the mesh-bound step builders on ``DTensor``s, every rank running this
+    engine with the same requests (module docstring); the device is the
+    mesh's, the steps eager (``graphs=True``, or a ``device`` of another
+    type, raises :class:`ConfigError`).
+
     ``speculate_k`` (default ``cfg.speculate_k``) > 0 serves by
     self-speculative rounds with drafts at ``draft_bits`` (default
     ``cfg.draft_bits``, 2..8); it needs the paged layout, a transformer
@@ -177,7 +225,7 @@ class Engine:
     """
 
     def __init__(self, cfg, params, *, capacity: int = 4, max_seq: int = 256,
-                 device: str | torch.device | None = None,
+                 mesh=None, device: str | torch.device | None = None,
                  continuous: bool = True, paged: bool = True, block: int = 64,
                  n_blocks: int | None = None, fused: bool = True,
                  prefill_mode: str = "chunked", chunk: int = 16,
@@ -212,6 +260,20 @@ class Engine:
             if not sc_attention_bits_ok(self.draft_bits):
                 raise ConfigError(f"speculative draft needs 2 <= draft_bits "
                                   f"<= 8, got {self.draft_bits}")
+        self.mesh = mesh
+        if mesh is not None:
+            mesh_axes(mesh)             # named axes, or ConfigError
+            if graphs:
+                raise ConfigError(
+                    "graphs=True with a mesh: the mesh path runs its steps "
+                    "eagerly on DTensors; pass graphs=None or False")
+            if device is None:
+                device = mesh.device_type
+            if resolve_device(device).type != mesh.device_type:
+                raise ConfigError(
+                    f"device {device!r} is not the mesh's device type "
+                    f"{mesh.device_type!r}")
+            graphs = False
         self._m = bind(cfg, device)
         self.device = self._m.device
         self.cfg = cfg
@@ -232,10 +294,12 @@ class Engine:
         self.graphs = self.device.type == "cuda" if graphs is None \
             else graphs
         self._source = params
-        self._params = params_to(params, self.device)
-        if not self.graphs:
+        if mesh is None:
+            self._params = params_to(params, self.device)
+        if not self.graphs and mesh is None:
             # SC-GEMM weights are quantized and packed here, once per
-            # engine; a graphed engine serves from its entry's one copy
+            # engine; a graphed engine serves from its entry's one copy,
+            # a mesh engine from its decode step's, packed on the mesh
             self._params = pack_sc_weights(self._params, cfg)
 
         max_blocks = None
@@ -243,7 +307,14 @@ class Engine:
             block, max_blocks, n_blocks = PagedSlotPool.plan(
                 capacity, max_seq, block, n_blocks)
         cache = None
-        if self.graphs:
+        if mesh is not None:
+            from repro_torch.launch.mesh_steps import MeshDecodeStep
+            self._decode = MeshDecodeStep(
+                cfg, mesh, params, capacity=capacity, max_seq=max_seq,
+                max_blocks=max_blocks, block=block, n_blocks=n_blocks,
+                fused=self.fused)
+            self._params, cache = self._decode.params, self._decode.cache
+        elif self.graphs:
             self._decode = cached_decode_step(
                 self._m, self._params, capacity=capacity, max_seq=max_seq,
                 block=block, n_blocks=n_blocks, max_blocks=max_blocks,
@@ -256,7 +327,7 @@ class Engine:
                                            cache=cache)
         else:
             self.pool = SlotPool(self._m, capacity, max_seq, cache=cache)
-        if not self.graphs:
+        if not self.graphs and mesh is None:
             self._decode = DecodeStep(self._m, self._params, self.pool.cache,
                                       capacity=capacity,
                                       max_blocks=max_blocks, block=block,
@@ -339,10 +410,14 @@ class Engine:
         time the draft and verify replays."""
         k, width = self.speculate_k, self.speculate_k + 1
         d = self._decode
-        self._verify = cached_verify_window_step(d, width=width)
-        self._draft = cached_draft_loop_step(d, k=k,
-                                             draft_bits=self.draft_bits)
-        self._rollback = cached_rollback_step(d, width=width)
+        if self.mesh is not None:
+            self._draft, self._verify, self._rollback = d.spec_steps(
+                k=k, draft_bits=self.draft_bits)
+        else:
+            self._verify = cached_verify_window_step(d, width=width)
+            self._draft = cached_draft_loop_step(d, k=k,
+                                                 draft_bits=self.draft_bits)
+            self._rollback = cached_rollback_step(d, width=width)
         pin = self.device.type == "cuda"
         self._window_host, self._exact_host = (
             torch.zeros((self.capacity, width), dtype=torch.int32,
@@ -394,8 +469,10 @@ class Engine:
                 f"temperature={req.temperature}")
 
     def _rows(self, logits: torch.Tensor) -> np.ndarray:
-        # a copy: the decode step's logits buffer is overwritten each step
-        return logits[:, -1].to("cpu", torch.float32, copy=True).numpy()
+        # a copy: the decode step's logits buffer is overwritten each step;
+        # a mesh step's logits are read whole on every rank
+        return gathered(logits)[:, -1].to("cpu", torch.float32,
+                                          copy=True).numpy()
 
     @property
     def _holds_requests(self) -> bool:
@@ -512,8 +589,11 @@ class Engine:
         self.pool.check_fits(req)
         bucket = bucket_for(req.prompt_len, self.buckets)
         self._prefill_shapes.add((bucket, self.chunk))
-        step = cached_chunked_prefill_step(self._decode, bucket=bucket,
-                                           chunk=self.chunk)
+        if self.mesh is not None:
+            step = self._decode.prefill_step(extent=bucket, chunk=self.chunk)
+        else:
+            step = cached_chunked_prefill_step(self._decode, bucket=bucket,
+                                               chunk=self.chunk)
         self._stage_prompt(req, bucket)
         step.start()
         entry = SlotEntry(request=req, admitted_at=0.0, admit_step=self._step,
@@ -623,7 +703,10 @@ class Engine:
     def _admit_one(self, req: Request) -> None:
         n = req.prompt_len
         self._prefill_shapes.add((n, 0))
-        step = cached_prefill_step(self._decode, prompt_len=n)
+        if self.mesh is not None:
+            step = self._decode.prefill_step(extent=n)
+        else:
+            step = cached_prefill_step(self._decode, prompt_len=n)
         self._stage_prompt(req, n)
         self._copy_in(step.tokens, self._prompt_host[:, :n])
         step.replay()
@@ -964,6 +1047,7 @@ class Engine:
             "prefill_captures": self._prefill_captures() - captures0,
             "prefill_mode": self.prefill_mode,
             "device": str(self.device),
+            "mesh": None if self.mesh is None else mesh_axes(self.mesh),
             "requests": len(out),
             "generated_tokens": generated,
             "decode_steps": steps,

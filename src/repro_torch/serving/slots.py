@@ -26,6 +26,11 @@ unretained; retained refcount-0 pages stay warm for later hits until the
 LRU reclaimer (``PrefixCache.reclaim``) surrenders them under page
 pressure.
 
+A pool's ``cache`` may be placed on a mesh (a ``DTensor`` tree, as
+``serving.Engine(mesh=...)`` makes it): the bookkeeping is host state that
+every rank keeps alike, and every write goes through ``cache_ops``, which
+writes each rank's shard.
+
 Invariants: a slot is free or holds exactly one live request; a page is
 free, referenced by ≥ 1 block table or staging pin, retained warm by the
 prefix tree, or the trash page (never handed out); refusals are typed
@@ -48,6 +53,7 @@ from repro_torch.errors import (ConfigError, PoolExhausted,
                                 PrefixCacheInvariantError)
 from repro_torch.models import cache_ops
 from repro_torch.models.cache_ops import slot_evict, slot_insert, slot_read
+from repro_torch.parallel.context import gathered
 
 from .prefix import PrefixCache, PrefixMatch
 from .queue import Request
@@ -145,7 +151,7 @@ class SlotPool:
         return slot_read(self.cache, slot)
 
     def positions(self) -> np.ndarray:
-        return self.cache.pos.cpu().numpy()
+        return gathered(self.cache.pos).cpu().numpy()
 
 
 class PagedSlotPool:
@@ -511,4 +517,4 @@ class PagedSlotPool:
                                     block=self.block)
 
     def positions(self) -> np.ndarray:
-        return self.cache.pos.cpu().numpy()
+        return gathered(self.cache.pos).cpu().numpy()

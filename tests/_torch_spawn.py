@@ -1,11 +1,11 @@
 """Run a test case on ``world`` ranks of a ``torch.distributed`` group, each
 in a process of its own (``multiprocessing`` spawn), as
 ``tests/test_torch_parallel.py`` does: gloo with a ``file://`` rendezvous
-in the test's temporary directory (or the single-process ``fake``
-backend at any world size), a group timeout, and a deadline of the
-parent's own after which it kills the children and fails. A process
-group is process-global, so a test never starts one in the pytest
-worker itself.
+in the test's temporary directory (NCCL the same way for a test on the
+card, or the single-process ``fake`` backend at any world size), a group
+timeout, and a deadline of the parent's own after which it kills the
+children and fails. A process group is process-global, so a test never
+starts one in the pytest worker itself.
 
 A case is ``"module:function"``; ``function(rank, world)`` runs in each
 child after the group is up, and its result is saved (``torch.save``)

@@ -2294,6 +2294,72 @@ def test_mesh_steps_on_one_nccl_rank_are_bit_equal(cuda):
         dist.destroy_process_group()
 
 
+#: the mesh engine's requests on the card: two 32-token prompts, then the
+#: first again (a prefix hit whose resume page is copied on write)
+ENGINE_MESH_KW = dict(capacity=2, max_seq=64, block=16, chunk=8)
+
+
+def case_engine_mesh_on_one_nccl_rank(rank: int, world: int) -> dict:
+    """Reduced smollm-360m (bf16, SC-GEMM at 8 bits) served by the graphed
+    plain engine and then on ``default_serving_mesh()`` chunked and
+    one-shot, the launch counters read around each mesh run."""
+    from repro_torch.serving import default_serving_mesh
+    torch.cuda.set_device(0)
+    cfg = dataclasses.replace(ARCHS["smollm-360m"].reduced(
+        dtype="bfloat16"), use_sc_gemm=True, sc_bits=8).validate()
+    params = bind(cfg, "cuda").init_params(0)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, (32,)).astype(np.int32)
+               for _ in range(2)]
+    prompts.append(prompts[0])
+
+    def requests():
+        return [Request(uid=f"r{i}", prompt=p, max_new_tokens=g)
+                for i, (p, g) in enumerate(zip(prompts, (6, 9, 5)))]
+
+    keys = ("prefix_hits", "cow_copies", "prefill_tokens_saved")
+    out = {}
+    mesh = default_serving_mesh()
+    counters = ops.launch_counters()
+    for mode in ("chunked", "oneshot"):
+        plain = Engine(cfg, params, prefill_mode=mode, **ENGINE_MESH_KW)
+        want = plain.run(requests())
+        for c in counters.values():
+            c.launches = 0
+        engine = Engine(cfg, params, mesh=mesh, prefill_mode=mode,
+                        **ENGINE_MESH_KW)
+        got = engine.run(requests())
+        torch.cuda.synchronize()
+        out[mode] = {
+            "graphs": plain.stats["decode_graphs"],
+            "mesh": engine.stats["mesh"],
+            "equal": all(np.array_equal(a.tokens, b.tokens)
+                         for a, b in zip(got, want)),
+            "stats": ({k: engine.stats.get(k) for k in keys},
+                      {k: plain.stats.get(k) for k in keys}),
+            "launches": {n: c.launches for n, c in counters.items()}}
+    return out
+
+
+def test_engine_mesh_on_one_nccl_rank_equals_the_graphed_engine(cuda,
+                                                                tmp_path):
+    """One NCCL rank in a process of its own (``tests/_torch_spawn.py``):
+    the mesh engine's streams and prefix stats bit-equal to the graphed
+    plain engine's, chunked and one-shot, through the SC-GEMM, paged and
+    flash kernels."""
+    from _torch_spawn import spawn
+    out = spawn("test_torch_gpu:case_engine_mesh_on_one_nccl_rank", 1,
+                tmp_path / "ranks", deadline_s=600, backend="nccl")[0]
+    for mode, r in out.items():
+        assert r["graphs"] and r["mesh"] == {"data": 1, "model": 1}, mode
+        assert r["equal"], mode
+        assert r["stats"][0] == r["stats"][1], (mode, r["stats"])
+        for name in ("sc_linear", "paged_attention", "flash_attention"):
+            assert r["launches"][name] > 0, (mode, name, r["launches"])
+    assert out["chunked"]["stats"][0]["prefix_hits"] == 1
+    assert out["chunked"]["stats"][0]["cow_copies"] == 1
+
+
 # -- the analysis layer's contract audits on the card ----------------------
 
 #: the kernels (launch counter names) each audit's path runs on the card
