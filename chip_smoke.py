@@ -9,9 +9,10 @@ musicgen-large's, mamba2-130m's, zamba2-7b's, qwen3-moe-235b-a22b's and
 llama4-maverick-400b-a17b's (the vlm, audio, ssm, hybrid and moe
 families), and checks the streams against the sequential baseline; then
 it trains smollm-360m at full width, killed and resumed; last it runs the
-distribution layer on one NCCL rank at the same width.
+distribution layer on one NCCL rank at the same width, and the port's
+four examples.
 
-    python3 chip_smoke.py            # one CUDA card; ~15-18 minutes
+    python3 chip_smoke.py            # one CUDA card; ~12-17 minutes
     python3 chip_smoke.py --only build,flash   # a subset, for debugging
 
 Phases (each raises on failure, so any failure exits non-zero):
@@ -135,14 +136,14 @@ Phases (each raises on failure, so any failure exits non-zero):
     one shared 128-token preamble (cache off, eager, graphed cold and
     warm, speculative, a rebind), its stats held to the script's plan;
 15. ``serve_ssm`` and ``serve_hybrid``: mamba2-130m as registered, whole,
-    and zamba2-7b at full width and 27 of its 81 layers (9 shared-block
-    sites; ``FAMILY_CUTS``: the moe cells' time is found here), SC-GEMM at
+    and zamba2-7b at full width and 9 of its 81 layers (3 shared-block
+    sites; ``FAMILY_CUTS``), SC-GEMM at
     8 bits, float attention, random weights from seed 0: 8 requests of
     128- and 256-token prompts (whole ``ssm_chunk``s) and 16-64 new
     tokens through ``Engine(capacity=4, max_seq=384, block=64,
     chunk=128)``;
 16. ``serve_vlm`` and ``serve_audio``: qwen2-vl-2b as registered, whole
-    (28 layers), and musicgen-large at full width and 24 of its 48
+    (28 layers), and musicgen-large at full width and 12 of its 48
     layers, likewise, with the ``serve`` cell's traffic and engine (8
     requests of 64-token prompts, ``(64, 4)`` codebook frames for
     musicgen-large, 16-64 new tokens);
@@ -152,10 +153,10 @@ Phases (each raises on failure, so any failure exits non-zero):
     projections against plain attention, the cell's numeric against
     plain SC-GEMM);
 17. ``serve_moe`` and ``serve_moe_llama4``: qwen3-moe-235b-a22b at full
-    width and 4 of its 94 layers (all 128 experts, top-8, C = 64) and
+    width and 2 of its 94 layers (all 128 experts, top-8, C = 64) and
     llama4-maverick-400b-a17b at its one whole period of 4 layers and 32
     of its 128 experts (top-1, a shared expert, windows on 3 of 4
-    layers), ~43 GB of weights and planes each; the ``serve`` cell's
+    layers), ~22 and ~43 GB of weights and planes; the ``serve`` cell's
     traffic and engine with 4 requests (``MOE_REQUESTS``); first the
     static check that C covers every router group the cell forms (a
     decode step's 4 slots, a 16-row chunk, a 64-token one-shot prompt, a
@@ -233,15 +234,27 @@ Phases (each raises on failure, so any failure exits non-zero):
     then capture-counts and cow-protocol again at smollm-360m's full
     width (bf16, SC-GEMM at 8 bits, seed-0 weights) on their own short
     schedules; the launch counters, set to 0 just before each audit,
-    must show the kernels of its path.
+    must show the kernels of its path;
+23. ``examples``: the port's four examples (``repro_torch.examples``),
+    each ``main`` in this process on the card at the reference example's
+    sizes (``train_lm`` at ``--steps 8 --batch 8 --seq 128``), within a
+    45 s budget that it reports, the counters set to 0 just before each and read just after: quickstart's Table I,
+    MAE and Table II equal to a CPU run's, the SC-GEMM kernel's counts on
+    its operands equal to ``mxu_split``'s; sc_gemm_inference (reduced
+    smollm-360m, float32, every SC projection one SC-GEMM launch) within
+    stated tolerances of a CPU run on the same parameters and equal to
+    ``mxu_split`` on the card; serve_lm's ``(4, 16)`` streams of three
+    families, repeated by the same seed and at temperature 0 equal to the
+    CPU's; train_lm restored from its checkpoint with a falling, finite
+    loss.
 
 Each family cell (15-17) asks for the prefix cache (the dense-only gate
 turns it off, and the stats must say so) and serves chunked then
 one-shot, each eager and then graphed twice on one engine; every run
 against the sequential baseline, the counters showing one SC-GEMM launch
-a projection (48 a step or chunk for mamba2-130m, 118 for zamba2-7b at
-27 layers, 197 for qwen2-vl-2b, 169 for musicgen-large at 24 layers, 29
-for qwen3-moe and 35 for llama4, an expert projection one launch for all
+a projection (48 a step or chunk for mamba2-130m, 40 for zamba2-7b at
+9 layers, 197 for qwen2-vl-2b, 85 for musicgen-large at 12 layers, 15
+for qwen3-moe at 2 and 35 for llama4, an expert projection one launch for all
 experts) and one paged launch an attention site a step and one flash
 launch an unwindowed site a prefill call (llama4's windowed sites take
 the plain formulation, as in the reference); tokens/s, TTFT p50, decode
@@ -251,11 +264,21 @@ draft_bits) = (1, 4) serves qwen2-vl-2b and qwen3-moe against the
 baseline and must be refused for the ssm, hybrid and audio cells, as in
 the reference.
 
+The sequential baselines of phases 11-17 but the moe cells' (one B=1
+``generate`` call a request, on the cell's weights from the same seed)
+are computed on the card by one child process, started with the first
+of those phases (phase 13, which runs before 11 and 12: its eager run
+covers their baselines), in the order the phases read them, while this
+process serves; a cell's runs wait for its baseline at their first
+comparison; the child is stopped while a graphed run or replay is timed;
+the moe cells wait for it to end, then compute their own. The script
+stops the child when it ends or fails.
+
 The line before the last is a JSON object with one entry per kernel,
 its ``launches`` the sum over every serving run of phases 11-17, the
 train phase's kill-and-resume (``train_launches`` apart), the dryrun
-phase's steps, the serve_mesh phase's mesh runs and the analysis phase's
-audits (the stream kernel's: the
+phase's steps, the serve_mesh phase's mesh runs, the analysis phase's
+audits and the examples phase's runs (the stream kernel's: the
 stream phase's and popcount-path's; the
 attention kernels' float and SC entries split as their wrappers counted
 them), its ``tuned`` the tune phase's keys of the kernel; the last line is ``{"ok": true, "device": {...}}``. Details go to
@@ -264,11 +287,13 @@ Nothing of JAX or of the JAX package is imported.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -1886,8 +1911,9 @@ def _serve_run(cfg, eng, reqs, mode, baseline, *, run: int = 1,
     for fn in counters.values():
         fn.launches = 0
     sweeps0 = autotune.sweeps
-    results = eng.run(reqs)
-    torch.cuda.synchronize()
+    with _BASELINES.paused(graphs):
+        results = eng.run(reqs)
+        torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
     sweeps = autotune.sweeps - sweeps0
     st = eng.stats
@@ -2060,19 +2086,16 @@ def _serve_phase(attn_sc: bool, modes) -> dict:
     """Serve 8 requests (64-token prompts, 16-64 new tokens) at smollm-360m's
     full width with SC-GEMM on, in each prefill mode, against the
     sequential B=1 ``generate`` baseline on the card (batch invariance)."""
-    import dataclasses
     import torch
-    from repro_torch.configs.registry import ARCHS
     from repro_torch.launch import steps
-    from repro_torch.launch.serve import generate
     from repro_torch.models import bind
     from repro_torch.serving import Engine
-    cfg = dataclasses.replace(ARCHS["smollm-360m"], use_sc_gemm=True,
-                              attn_sc=attn_sc, sc_bits=8).validate()
+    tag = "[serve_sc]" if attn_sc else "[serve]"
+    cfg, reqs = _baseline_cell(tag[1:-1])
+    baseline = _BASELINES.pending(tag[1:-1], tag)
     t0 = time.perf_counter()
     params = bind(cfg, "cuda").init_params(0)
     torch.cuda.synchronize()
-    tag = "[serve_sc]" if attn_sc else "[serve]"
     log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, SC-GEMM "
@@ -2083,13 +2106,6 @@ def _serve_phase(attn_sc: bool, modes) -> dict:
     Engine(cfg, params, device="cuda", capacity=4, max_seq=256, block=64,
            chunk=16, prefix_cache=False, graphs=False).run(
         _workload(cfg, 1, 20, 2, 2, seed=99))
-    reqs = _workload(cfg, 8, 64, 16, 64, seed=5)
-    t1 = time.perf_counter()
-    baseline = [generate(cfg, params, r.prompt[None],
-                         gen_tokens=r.max_new_tokens,
-                         device="cuda")[0].cpu().numpy() for r in reqs]
-    log(f"{tag} sequential baseline: {len(reqs)} requests in "
-        f"{time.perf_counter() - t1:.1f}s")
     out = {}
     for mode in modes:
         # no cached step is alive during the eager run, so its peak memory
@@ -2109,10 +2125,6 @@ def _serve_phase(attn_sc: bool, modes) -> dict:
         graphed["eager"] = eager
         graphed["eager_vs_graphed"] = _side_by_side(
             f"{tag[:-1]}:{mode}]", eager, graphed)
-        if mode == "chunked":
-            _SERVE_CELLS[attn_sc] = {
-                "baseline": baseline,
-                "tok_per_s": graphed["stats"]["tok_per_s"]}
         fs = first["stats"]
         log(f"{tag[:-1]}:{mode}] graphed first run (its prefill capture "
             f"included): tokens/s {fs['tok_per_s']:.2f}, TTFT p50 "
@@ -2147,17 +2159,22 @@ def _family_workload(cfg, seed=7):
 
 
 #: The cuts of the family cells, every width kept. The moe configs do not
-#: fit the card whole: qwen3-moe-235b-a22b at 4 of its 94 layers (all 128
-#: experts, C = 64); llama4-maverick-400b-a17b at its one whole period of
-#: 4 layers (windowed dense, windowed MoE, windowed dense, global MoE) and
-#: 32 of its 128 experts (C = 64 at capacity factor 4). The moe cells'
-#: ~5 minutes would take the script past its 1,200 s time limit, so two
-#: earlier cells run at a smaller depth: zamba2-7b at 27 of its 81 layers
-#: (9 of 27 shared-block sites), musicgen-large at 24 of its 48
-FAMILY_CUTS = {"qwen3-moe-235b-a22b": {"n_layers": 4},
+#: fit the card whole: qwen3-moe-235b-a22b at 2 of its 94 layers (all 128
+#: experts, C = 64; every layer MoE); llama4-maverick-400b-a17b at its one
+#: whole period of 4 layers (windowed dense, windowed MoE, windowed dense,
+#: global MoE) and 32 of its 128 experts (C = 64 at capacity factor 4).
+#: zamba2-7b at 9 of its 81 layers (3 of 27 shared-block sites, the
+#: pattern kept) and musicgen-large at 12 of its 48. The script has 1,200
+#: s and on a slow host (an eager smollm-360m step ~160 ms) ran 1,257 s
+#: with these three cells at 4, 27 and 24 layers; the depth comes out of
+#: the cells that were cut already, whose checks are exact (streams
+#: bitwise, launches by formula), while mamba2-130m and qwen2-vl-2b
+#: (whose vision prefill is held within shares of its largest logit) run
+#: whole.
+FAMILY_CUTS = {"qwen3-moe-235b-a22b": {"n_layers": 2},
                "llama4-maverick-400b-a17b": {"n_layers": 4, "n_experts": 32},
-               "zamba2-7b": {"n_layers": 27},
-               "musicgen-large": {"n_layers": 24}}
+               "zamba2-7b": {"n_layers": 9},
+               "musicgen-large": {"n_layers": 12}}
 
 
 def _family_cfg(arch: str):
@@ -2201,6 +2218,192 @@ MOE_TRAFFIC = (lambda cfg: _workload(cfg, MOE_REQUESTS, 64, 16, 64, seed=5),
                dict(max_seq=256, chunk=16))
 #: a family cell's speculative engine: (k, draft_bits)
 FAMILY_SPEC = (1, 4)
+#: each family cell's traffic
+CELL_TRAFFIC = {"serve_ssm": FAMILY_TRAFFIC, "serve_hybrid": FAMILY_TRAFFIC,
+                "serve_vlm": SERVE_TRAFFIC, "serve_audio": SERVE_TRAFFIC,
+                "serve_moe": MOE_TRAFFIC, "serve_moe_llama4": MOE_TRAFFIC}
+#: phase -> the cells whose sequential baselines it reads from the child
+#: process (``_Baselines``). Not the moe cells': a B=1 step there is ~0.2 s
+#: of batched expert projections on the card, whose kernels would share
+#: it with every run of the main process (on an H100 80GB HBM3 at 700 W
+#: the serve cell's graphed step took 19.49 ms beside llama4's baseline,
+#: 9.98 alone), so those cells compute theirs in line, after the child
+#: has ended.
+BASELINE_KEYS = {"serve": ("serve",), "serve_sc": ("serve_sc",),
+                 "serve_spec": ("serve", "serve_sc"),
+                 "serve_prefix": ("serve_prefix",),
+                 **{name: (name,) for name in PROFILED_CELLS}}
+
+
+def _baseline_cell(key: str):
+    """(config, requests) of the serving cell whose baseline ``key``
+    names: the cell's own, built as its phase builds them."""
+    if key in ("serve", "serve_sc"):
+        cfg = _spec_cfg(key == "serve_sc")
+        return cfg, _workload(cfg, 8, 64, 16, 64, seed=5)
+    if key == "serve_prefix":
+        cfg = _spec_cfg(False)
+        return cfg, _prefix_workload(cfg)
+    cfg = _family_cfg(FAMILY_CELLS[key])
+    return cfg, CELL_TRAFFIC[key][0](cfg)
+
+
+def _generate_streams(cfg, params, reqs) -> list:
+    """The sequential baseline: each request alone through B=1
+    ``generate`` on the card, its stream as a numpy array."""
+    from repro_torch.launch.serve import generate
+    return [generate(cfg, params, r.prompt[None],
+                     gen_tokens=r.max_new_tokens,
+                     device="cuda")[0].cpu().numpy() for r in reqs]
+
+
+def _baseline_worker(keys, queue) -> None:
+    """A child process's body: each cell's sequential B=1 ``generate``
+    baseline on the card, on the cell's weights (``init_params(0)``, the
+    phases' seed), in ``keys``' order; each put on ``queue`` as ``(key,
+    streams, seconds, peak allocated bytes)``, or ``(key, None,
+    traceback, None)`` and an end at the first failure."""
+    import traceback
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.device import exact_float32
+    from repro_torch.models import bind
+    exact_float32()
+    torch.set_num_threads(2)     # the serving process has the other cores
+    for key in keys:
+        try:
+            cfg, reqs = _baseline_cell(key)
+            params = bind(cfg, "cuda").init_params(0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            streams = _generate_streams(cfg, params, reqs)
+            torch.cuda.synchronize()
+            queue.put((key, streams, time.perf_counter() - t0,
+                       torch.cuda.max_memory_allocated()))
+        except BaseException:
+            queue.put((key, None, traceback.format_exc(), None))
+            return
+        finally:
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+class _Baselines:
+    """The serving cells' sequential baselines (``BASELINE_KEYS``),
+    computed by one child process (``_baseline_worker``) while the main
+    process serves: a baseline is host-bound (one B=1 eager step at a
+    time, the card ~7% busy), and computed in line the seven took 236 s
+    of a 1,257 s run (H100 80GB HBM3, 700 W). A cell's runs read it through ``pending``,
+    which waits for it at the first comparison. The child is stopped
+    (``paused``) while a graphed run or replay is timed, so that no
+    kernel of its shares the card with them; the moe cells' phases first
+    ``finish`` it."""
+
+    def __init__(self):
+        self.proc = self.queue = None
+        self.keys: tuple = ()
+        self.got: dict = {}
+
+    def start(self, keys) -> None:
+        import multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.keys = tuple(keys)
+        self.queue = ctx.Queue()
+        self.proc = ctx.Process(target=_baseline_worker, daemon=True,
+                                args=(self.keys, self.queue),
+                                name="chip_smoke baselines")
+        self.proc.start()
+        log(f"[baselines] a child process computes {list(self.keys)}")
+
+    def get(self, key: str) -> dict:
+        """``{"streams", "seconds", "peak", "waited"}`` of ``key``'s cell,
+        waiting for the child when it has not sent it yet."""
+        import queue as q
+        if key not in self.got and key not in self.keys:
+            raise AssertionError(f"[baselines] {key} was not asked of the "
+                                 f"child process")
+        t0 = time.perf_counter()
+        while key not in self.got:
+            try:
+                k, streams, secs, peak = self.queue.get(timeout=5)
+            except q.Empty:
+                if not self.proc.is_alive():
+                    raise AssertionError(
+                        f"[baselines] the child process exited with "
+                        f"{self.proc.exitcode} before sending {key}")
+                continue
+            if streams is None:
+                raise AssertionError(f"[baselines] {k} failed in the child "
+                                     f"process:\n{secs}")
+            self.got[k] = {"streams": streams, "seconds": secs,
+                           "peak": peak, "waited": 0.0}
+        self.got[key]["waited"] += time.perf_counter() - t0
+        return self.got[key]
+
+    def pending(self, key: str, tag: str) -> "_PendingBaseline":
+        return _PendingBaseline(self, key, tag)
+
+    @contextlib.contextmanager
+    def paused(self, on: bool = True):
+        """The child stopped (``SIGSTOP``) for the block when ``on``; the
+        kernels it has queued drain in a few ms."""
+        proc = self.proc if on else None
+        try:
+            if proc is not None:
+                os.kill(proc.pid, signal.SIGSTOP)
+        except ProcessLookupError:     # it has ended
+            proc = None
+        try:
+            yield
+        finally:
+            if proc is not None:
+                try:
+                    os.kill(proc.pid, signal.SIGCONT)
+                except ProcessLookupError:
+                    pass
+
+    def finish(self) -> None:
+        """Every baseline received and the child gone (its memory too)."""
+        for key in self.keys:
+            self.get(key)
+        self.stop()
+
+    def stop(self) -> None:
+        if self.proc is None:
+            return
+        # the child ends by itself once it has sent every baseline
+        self.proc.join(timeout=30 if set(self.keys) <= set(self.got) else 0)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(timeout=10)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join()
+        self.proc = None
+
+
+class _PendingBaseline:
+    """A cell's baseline streams as an iterable read at first use: the
+    cell's first run serves while the child still computes them."""
+
+    def __init__(self, baselines: _Baselines, key: str, tag: str):
+        self.baselines, self.key, self.tag = baselines, key, tag
+        self.streams = None
+
+    def __iter__(self):
+        if self.streams is None:
+            b = self.baselines.get(self.key)
+            self.streams = b["streams"]
+            log(f"{self.tag} sequential baseline (in a child process): "
+                f"{len(self.streams)} requests in {b['seconds']:.1f}s, peak "
+                f"allocated {b['peak'] / 2**30:.3f} GiB there; waited "
+                f"{b['waited']:.1f}s for it")
+        return iter(self.streams)
+
+
+_BASELINES = _Baselines()
 
 
 def _family_line(cfg, n_params: int) -> str:
@@ -2420,10 +2623,10 @@ def _family_speculate(cfg, params, reqs, baseline, shape, name: str):
     return cell
 
 
-def _family_phase(name: str, traffic) -> dict:
-    """Serve ``traffic`` (``FAMILY_TRAFFIC`` or ``SERVE_TRAFFIC``) at the
-    cell's arch as registered, whole (SC-GEMM at 8 bits, float attention,
-    random weights from seed 0), with the prefix cache asked for (its
+def _family_phase(name: str) -> dict:
+    """Serve the cell's ``CELL_TRAFFIC`` at the cell's arch as registered,
+    whole (SC-GEMM at 8 bits, float attention, random weights from seed
+    0), with the prefix cache asked for (its
     dense-only gate turns it off, and the stats must say so): chunked and
     one-shot, each eager and then graphed twice on one engine (the second
     run the cell), every run against the sequential B=1 ``generate``
@@ -2434,12 +2637,16 @@ def _family_phase(name: str, traffic) -> dict:
     ``phase_profile``'s."""
     import torch
     from repro_torch.launch import steps
-    from repro_torch.launch.serve import generate
     from repro_torch.models import bind
-    workload, shape = traffic
-    cfg = _family_cfg(FAMILY_CELLS[name])
+    shape = CELL_TRAFFIC[name][1]
+    cfg, reqs = _baseline_cell(name)
     if cfg.family == "moe":
         _no_drops(cfg, name, shape)
+        # the cell's engines need most of the card: the child process that
+        # computes the other cells' baselines goes first
+        _BASELINES.finish()
+    else:
+        baseline = _BASELINES.pending(name, f"[{name}]")
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     params = bind(cfg, "cuda").init_params(0)
@@ -2451,20 +2658,21 @@ def _family_phase(name: str, traffic) -> dict:
     out = {"n_layers": cfg.n_layers, "parameters": n_params}
     if cfg.mrope_sections:
         out["vision_prefill"] = _vision_prefill(cfg, params, name)
-    torch.cuda.reset_peak_memory_stats()
-    reqs = workload(cfg)
     longest = max(r.prompt_len for r in reqs)
-    t1 = time.perf_counter()
-    baseline = [generate(cfg, params, r.prompt[None],
-                         gen_tokens=r.max_new_tokens,
-                         device="cuda")[0].cpu().numpy() for r in reqs]
-    torch.cuda.synchronize()
-    log(f"[{name}] sequential baseline: {len(reqs)} requests "
-        f"({sum(r.prompt_len for r in reqs)} prompt tokens"
-        + (f" of {cfg.n_codebooks} codebooks" if cfg.n_codebooks else "")
-        + f", {sum(r.max_new_tokens for r in reqs)} new) in "
-        f"{time.perf_counter() - t1:.1f}s, peak allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    what = (f"{len(reqs)} requests ({sum(r.prompt_len for r in reqs)} "
+            f"prompt tokens"
+            + (f" of {cfg.n_codebooks} codebooks" if cfg.n_codebooks else "")
+            + f", {sum(r.max_new_tokens for r in reqs)} new)")
+    if cfg.family == "moe":
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        baseline = _generate_streams(cfg, params, reqs)
+        torch.cuda.synchronize()
+        log(f"[{name}] sequential baseline: {what} in "
+            f"{time.perf_counter() - t1:.1f}s, peak allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    else:
+        log(f"[{name}] {what}")
     modes = (True,) if name in GRAPHED_ONLY else (False, True)
     for mode in ("chunked", "oneshot"):
         steps.clear_decode_steps()
@@ -2483,8 +2691,9 @@ def _family_phase(name: str, traffic) -> dict:
                 runs[kind] = _serve_run(cfg, eng, reqs, mode, baseline,
                                         run=2, name=name)
             if mode == "chunked":
-                runs[kind]["prefill_chunk"] = _family_chunk_ms(
-                    eng, cfg, f"[{name}:{mode}:{kind}]", longest)
+                with _BASELINES.paused(graphs):
+                    runs[kind]["prefill_chunk"] = _family_chunk_ms(
+                        eng, cfg, f"[{name}:{mode}:{kind}]", longest)
             del eng
             gc.collect()
             # a moe cell's next entry needs ~40 GiB more in one piece
@@ -2558,27 +2767,27 @@ def _no_drops(cfg, name: str, shape: dict) -> None:
 
 
 def phase_serve_ssm() -> dict:
-    return _family_phase("serve_ssm", FAMILY_TRAFFIC)
+    return _family_phase("serve_ssm")
 
 
 def phase_serve_hybrid() -> dict:
-    return _family_phase("serve_hybrid", FAMILY_TRAFFIC)
+    return _family_phase("serve_hybrid")
 
 
 def phase_serve_vlm() -> dict:
-    return _family_phase("serve_vlm", SERVE_TRAFFIC)
+    return _family_phase("serve_vlm")
 
 
 def phase_serve_audio() -> dict:
-    return _family_phase("serve_audio", SERVE_TRAFFIC)
+    return _family_phase("serve_audio")
 
 
 def phase_serve_moe() -> dict:
-    return _family_phase("serve_moe", MOE_TRAFFIC)
+    return _family_phase("serve_moe")
 
 
 def phase_serve_moe_llama4() -> dict:
-    return _family_phase("serve_moe_llama4", MOE_TRAFFIC)
+    return _family_phase("serve_moe_llama4")
 
 
 #: The train phase: smollm-360m at full width as registered (32 layers,
@@ -4027,10 +4236,207 @@ def phase_analysis() -> dict:
     return out
 
 
-#: what ``serve_spec`` takes from ``serve`` (key False) and ``serve_sc``
-#: (key True): the baseline streams and the chunked cell's graphed
-#: tokens/s (absent when that phase did not run in this call)
-_SERVE_CELLS: dict = {}
+#: the examples phase's budget in seconds (an overrun is logged)
+EXAMPLES_BUDGET_S = 45.0
+EXAMPLES_TRAIN = ["--steps", "8", "--batch", "8", "--seq", "128"]
+
+
+def _top2_margins(cfg, params, prompts, tokens) -> list:
+    """The CPU's greedy decode of ``prompts`` fed ``tokens (B, n)``: each
+    step's gap between the two largest logits of every row, as
+    ``generate`` computes the logits."""
+    import torch
+    from repro_torch.launch.steps import decode_step, prefill_step
+    from repro_torch.models import bind, pack_sc_weights
+    m = bind(cfg, "cpu")
+    params = pack_sc_weights(params, cfg)
+    logits, cache = prefill_step(m, params, {"tokens": prompts},
+                                 extra_slots=tokens.shape[1])
+    margins = []
+    for i in range(tokens.shape[1]):
+        top = torch.topk(logits[:, -1].float(), 2, dim=-1).values
+        margins.append((top[:, 0] - top[:, 1]).tolist())
+        logits, cache = decode_step(m, params, cache,
+                                    {"tokens": tokens[:, i:i + 1]})
+    return margins
+
+
+def phase_examples() -> dict:
+    """The port's four examples (``repro_torch.examples``), each ``main``
+    called in this process on the card at the reference's own sizes (the
+    training run at ``EXAMPLES_TRAIN``), its launch counters set to 0 just
+    before and read just after, and checked: quickstart's Table I, MAE and
+    Table II equal a CPU run's value for value, and on its SC-GEMM
+    operands the kernel (``impl="pallas"``) gives the counts of
+    ``mxu_split``; sc_gemm_inference within the example's own
+    ``CARD_*`` tolerances of a CPU run on the same parameters, its SC run through the SC-GEMM kernel (launches
+    counted) equal to ``mxu_split`` on the card; serve_lm's three families
+    ``(4, 16)`` streams, the same again from the same seed, and at
+    temperature 0 the CPU's streams (else the first differing step and
+    its top-two logit margin); train_lm restored, its loss falling and
+    finite. Every problem is collected, then the phase fails on any."""
+    import math
+    import contextlib
+    import dataclasses
+    import io
+    import torch
+    from repro_torch.core import sc_matmul
+    from repro_torch.core.sc_numerics import recover_counts
+    from repro_torch.examples import (quickstart, sc_gemm_inference,
+                                      serve_lm, train_lm)
+    from repro_torch.launch.steps import launch_counters
+    t0 = time.perf_counter()
+    dev = torch.device("cuda:0")
+    card, cpu = ["--device", "cuda:0"], ["--device", "cpu"]
+    counters = launch_counters()
+    problems: list[str] = []
+    out: dict = {}
+
+    def counted(name, fn):
+        gc.collect()
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = {"seconds": time.perf_counter() - t,
+                     "launches": {n: c.launches
+                                  for n, c in counters.items()}}
+        return res
+
+    def quiet(fn):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn()
+
+    # quickstart
+    got = counted("quickstart", lambda: quickstart.main(card))
+    want = quiet(lambda: quickstart.main(cpu))
+    for key in ("table1", "mae", "table2"):
+        if got[key] != want[key]:
+            problems.append(f"quickstart {key}: card {got[key]} != CPU "
+                            f"{want[key]}")
+    a, b = quickstart.sc_gemm_operands(dev)
+    counts = {impl: recover_counts(sc_matmul(a, b, bits=8, impl=impl),
+                                   a.cpu(), b.cpu())
+              for impl in ("pallas", "mxu_split")}
+    cpu_counts = recover_counts(sc_matmul(a.cpu(), b.cpu(), bits=8,
+                                          impl="mxu_split"), a.cpu(), b.cpu())
+    same = {"kernel_eq_mxu_split": bool((counts["pallas"]
+                                         == counts["mxu_split"]).all()),
+            "kernel_eq_cpu": bool((counts["pallas"] == cpu_counts).all())}
+    if not all(same.values()):
+        problems.append(f"quickstart SC-GEMM counts: {same}")
+    out["quickstart"].update(same, cosine=got["cosine"],
+                             cpu_cosine=want["cosine"], mae=got["mae"])
+    log(f"[examples] quickstart: Table I, MAE {got['mae']!r} and Table II "
+        f"= the CPU's: {not problems}; kernel counts = mxu_split's and the "
+        f"CPU's: {same}; cosine {got['cosine']:.6f} (CPU "
+        f"{want['cosine']:.6f})")
+
+    # sc_gemm_inference
+    got = counted("sc_gemm_inference", lambda: sc_gemm_inference.main(card))
+    want = quiet(lambda: sc_gemm_inference.main(cpu))
+    cfg_exact, cfg_sc, params, tokens = sc_gemm_inference.inputs(dev)
+    plain = sc_gemm_inference.compare(
+        cfg_exact, dataclasses.replace(cfg_sc, sc_impl="mxu_split"), params,
+        tokens, dev)
+    errs = {k: abs(got[k] - want[k]) for k in
+            ("rel_err", "cosine", "loss_exact", "loss_sc")}
+    problems += [f"sc_gemm_inference {p}"
+                 for p in sc_gemm_inference.card_mismatches(got, want)]
+    kernel_eq_plain = all(got[k] == plain[k] for k in plain)
+    if not kernel_eq_plain:
+        problems.append(f"sc_gemm_inference: the kernel's {got} != "
+                        f"mxu_split's {plain} on the card")
+    launches = out["sc_gemm_inference"]["launches"]
+    sc_calls = sc_gemm_inference.sc_launches(cfg_sc)
+    if launches["sc_linear"] != sc_calls:
+        problems.append(f"sc_gemm_inference: {launches['sc_linear']} "
+                        f"SC-GEMM launches, expected {sc_calls}")
+    out["sc_gemm_inference"].update(card=got, cpu=want, errors=errs,
+                                    kernel_eq_mxu_split=kernel_eq_plain)
+    log(f"[examples] sc_gemm_inference: card - CPU "
+        f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} }; kernel = "
+        f"mxu_split on the card: {kernel_eq_plain}; SC-GEMM launches "
+        f"{launches['sc_linear']} (expected {sc_calls}), flash "
+        f"{launches['flash_attention']}")
+
+    # serve_lm
+    got = counted("serve_lm", lambda: serve_lm.main(card))
+    serve = {}
+    for arch in serve_lm.ARCH_NAMES:
+        cfg, params, prompts = serve_lm.setup(arch, dev)
+        tokens = got[arch]["tokens"]
+        again = serve_lm.serve(cfg, params, prompts, serve_lm.TEMPERATURE,
+                               dev)["tokens"]
+        greedy = serve_lm.serve(cfg, params, prompts, 0.0, dev)["tokens"]
+        _, cpu_params, _ = serve_lm.setup(arch, "cpu")
+        cpu_greedy = serve_lm.serve(cfg, cpu_params, prompts, 0.0,
+                                    "cpu")["tokens"]
+        row = {"shape": tuple(tokens.shape),
+               "same_seed_equal": torch.equal(again, tokens),
+               "greedy_eq_cpu": torch.equal(greedy, cpu_greedy)}
+        if row["shape"] != (serve_lm.BATCH, serve_lm.GEN_TOKENS):
+            problems.append(f"serve_lm {arch}: streams {row['shape']}")
+        if not row["same_seed_equal"]:
+            problems.append(f"serve_lm {arch}: a second call with the same "
+                            f"seed gave other streams")
+        if not row["greedy_eq_cpu"]:
+            step = int((greedy != cpu_greedy).any(0).nonzero()[0])
+            rows = (greedy[:, step] != cpu_greedy[:, step]).nonzero()
+            margins = _top2_margins(cfg, cpu_params, prompts, cpu_greedy)
+            row["first_difference"] = {
+                "step": step, "rows": rows[:, 0].tolist(),
+                "top2_margin": [margins[step][r] for r in rows[:, 0]]}
+            problems.append(f"serve_lm {arch}: greedy card streams differ "
+                            f"from the CPU's: {row['first_difference']}")
+        serve[arch] = row
+    out["serve_lm"].update(families=serve, seconds_by_arch={
+        arch: got[arch]["seconds"] for arch in serve_lm.ARCH_NAMES})
+    log(f"[examples] serve_lm: {serve}; launches "
+        f"{ {k: n for k, n in out['serve_lm']['launches'].items() if n} }")
+
+    # train_lm
+    args = EXAMPLES_TRAIN
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        got = counted("train_lm", lambda: train_lm.main(card + args))
+    log(printed.getvalue().rstrip("\n"))
+    half = int(args[1]) // 2
+    losses = got["losses"][0] + got["losses"][1]
+    checks = {"restored": f"[train] restored step {half} from"
+              in printed.getvalue(),
+              "loss_falls": got["last"] < got["first"],
+              "finite": all(math.isfinite(x) for x in losses),
+              "steps": [len(x) for x in got["losses"]] == [half, half]}
+    if not all(checks.values()):
+        problems.append(f"train_lm: {checks}")
+    out["train_lm"].update(args=args, checks=checks, losses=got["losses"],
+                           call_seconds=got["seconds"],
+                           peak_bytes=got["peak_bytes"])
+    log(f"[examples] train_lm {' '.join(args)}: {checks}; losses "
+        f"{[round(x, 4) for x in losses]}; launches "
+        f"{ {k: n for k, n in out['train_lm']['launches'].items() if n} }")
+
+    names = ("quickstart", "sc_gemm_inference", "serve_lm", "train_lm")
+    runs = [out[name] for name in names]
+    out["launches"] = {n: sum(r["launches"][n] for r in runs)
+                       for n in counters}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[examples] phase {out['seconds']:.1f}s (budget "
+        f"{EXAMPLES_BUDGET_S:.0f}s; the examples' own "
+        f"{ {r: round(out[r]['seconds'], 2) for r in names} }) on "
+        f"{_card_line()}; launches "
+        f"{ {k: n for k, n in out['launches'].items() if n} }")
+    if out["seconds"] > EXAMPLES_BUDGET_S:
+        log(f"[examples] over its budget by "
+            f"{out['seconds'] - EXAMPLES_BUDGET_S:.1f}s")
+    if problems:
+        raise AssertionError("[examples] " + "; ".join(problems))
+    return out
+
+
 #: (k, draft_bits, graphs, SC attention): the last is the ``serve_sc``
 #: cell drafting at its own 8 bits, an exact draft
 SPEC_RUNS = ((3, 4, False, False), (1, 4, True, False), (3, 4, True, False),
@@ -4090,8 +4496,9 @@ def _serve_spec_run(cfg, eng, reqs, baseline, *, run: int = 1,
     for fn in counters.values():
         fn.launches = 0
     sweeps0 = autotune.sweeps
-    results = eng.run(reqs)
-    torch.cuda.synchronize()
+    with _BASELINES.paused(graphs):
+        results = eng.run(reqs)
+        torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
     sweeps = autotune.sweeps - sweeps0
     if grids is not None:
@@ -4216,27 +4623,16 @@ def phase_serve_spec() -> dict:
     entry, one draft's weights) and run twice, the second run the cell;
     every run against its cell's sequential baseline."""
     from repro_torch.launch import steps
-    from repro_torch.launch.serve import generate
     from repro_torch.models import bind
     from repro_torch.serving import Engine
     out = {}
     for attn_sc in (False, True):
         # one cell's weights alive at a time, so each run's peak is its own
-        cfg = _spec_cfg(attn_sc)
-        params = bind(cfg, "cuda").init_params(0)
-        reqs = _workload(cfg, 8, 64, 16, 64, seed=5)
-        baseline = _SERVE_CELLS.get(attn_sc, {}).get("baseline")
         name = "serve_sc" if attn_sc else "serve"
-        if baseline is None:
-            t1 = time.perf_counter()
-            baseline = [generate(cfg, params, r.prompt[None],
-                                 gen_tokens=r.max_new_tokens,
-                                 device="cuda")[0].cpu().numpy()
-                        for r in reqs]
-            log(f"[serve_spec] the {name} cell's sequential baseline: "
-                f"{len(reqs)} requests in {time.perf_counter() - t1:.1f}s")
-        else:
-            log(f"[serve_spec] the {name} cell's sequential baseline")
+        cfg, reqs = _baseline_cell(name)
+        params = bind(cfg, "cuda").init_params(0)
+        baseline = _BASELINES.pending(name, f"[serve_spec] the {name} "
+                                            f"cell's")
         for k, bits, graphs, sc in SPEC_RUNS:
             if sc != attn_sc:
                 continue
@@ -4254,20 +4650,27 @@ def phase_serve_spec() -> dict:
                 f"{'graphed' if graphs else 'eager'}"] = cell
         del params
     steps.clear_decode_steps()
-    tps = {attn_sc: _SERVE_CELLS.get(attn_sc, {}).get("tok_per_s")
-           for attn_sc in (False, True)}
+    return out
+
+
+def _spec_beside(report: dict) -> None:
+    """``serve_spec``'s cells' tokens/s beside the non-speculative graphed
+    cells' (``serve`` and ``serve_sc`` chunked), which run after it."""
+    spec = report["serve_spec"]
+    tps = {"serve": report.get("serve", {}).get("stats", {}).get(
+               "tok_per_s"),
+           "serve_sc": report.get("serve_sc", {}).get("chunked", {}).get(
+               "stats", {}).get("tok_per_s")}
     log("[serve_spec] tokens/s beside the non-speculative graphed cells' "
-        "(serve " + (f"{tps[False]:.2f}" if tps[False] else "not run")
-        + ", serve_sc " + (f"{tps[True]:.2f}" if tps[True] else "not run")
-        + "): " + ", ".join(
+        "(" + ", ".join(f"{name} {v:.2f}" if v else f"{name} not run"
+                        for name, v in tps.items()) + "): " + ", ".join(
             f"{name} {r['stats']['tok_per_s']:.2f} (acceptance "
             f"{r['stats']['spec_acceptance_rate']:.3f}, "
             f"{r['stats']['spec_tokens_per_round']:.2f} tokens a round, "
             f"{r['stats']['decode_ms_per_step']:.2f} ms a round)"
-            for name, r in out.items()))
-    out["serve_graphed_tok_per_s"] = tps[False]
-    out["serve_sc_graphed_tok_per_s"] = tps[True]
-    return out
+            for name, r in spec.items()))
+    spec["serve_graphed_tok_per_s"] = tps["serve"]
+    spec["serve_sc_graphed_tok_per_s"] = tps["serve_sc"]
 
 
 def phase_serve_sc() -> dict:
@@ -4369,20 +4772,14 @@ def phase_serve_prefix() -> dict:
     two runs of a warm engine, whose tree must go: its next run misses
     first and its streams stay the baseline's."""
     from repro_torch.launch import steps
-    from repro_torch.launch.serve import generate
     from repro_torch.models import bind
     from repro_torch.serving import Engine
-    cfg = _spec_cfg(False)
+    cfg, reqs = _baseline_cell("serve_prefix")
     params = bind(cfg, "cuda").init_params(0)
-    reqs = _prefix_workload(cfg)
-    t1 = time.perf_counter()
-    baseline = [generate(cfg, params, r.prompt[None],
-                         gen_tokens=r.max_new_tokens,
-                         device="cuda")[0].cpu().numpy() for r in reqs]
+    baseline = _BASELINES.pending("serve_prefix", "[serve_prefix]")
     log(f"[serve_prefix] {len(reqs)} requests (prompts "
         f"{[r.prompt_len for r in reqs]}, new tokens "
-        f"{[r.max_new_tokens for r in reqs]}); sequential baseline in "
-        f"{time.perf_counter() - t1:.1f}s")
+        f"{[r.max_new_tokens for r in reqs]})")
     cold, warm = _prefix_plan(reqs, False), _prefix_plan(reqs, True)
 
     def engine(graphs, prefix_cache, **kw):
@@ -4853,8 +5250,10 @@ def main() -> int:
               ("paged", phase_paged), ("flash", phase_flash),
               ("stream", phase_stream), ("paper", phase_paper),
               ("small_model", phase_small_model),
-              ("profile", phase_profile), ("serve", phase_serve),
-              ("serve_sc", phase_serve_sc), ("serve_spec", phase_serve_spec),
+              # serve_spec first: its eager run (~1 minute) gives the
+              # child time to compute the serve and serve_sc baselines
+              ("profile", phase_profile), ("serve_spec", phase_serve_spec),
+              ("serve", phase_serve), ("serve_sc", phase_serve_sc),
               ("serve_prefix", phase_serve_prefix),
               ("serve_ssm", phase_serve_ssm),
               ("serve_hybrid", phase_serve_hybrid),
@@ -4865,15 +5264,30 @@ def main() -> int:
               ("train", phase_train),
               ("dist", lambda: phase_dist(report)),
               ("dryrun", phase_dryrun), ("serve_mesh", phase_serve_mesh),
-              ("analysis", phase_analysis))
+              ("analysis", phase_analysis), ("examples", phase_examples))
+    chosen = [(name, fn) for name, fn in phases
+              if only is None or name in only]
+    # the serving cells' baselines, in the order the phases read them
+    keys = list(dict.fromkeys(key for name, _ in chosen
+                              for key in BASELINE_KEYS.get(name, ())))
     seconds = {}
-    for name, fn in phases:
-        if only is None or name in only:
+    try:
+        for name, fn in chosen:
+            if keys and name in BASELINE_KEYS and not _BASELINES.keys:
+                _BASELINES.start(keys)
             t1 = time.perf_counter()
             report[name] = fn()
             seconds[name] = time.perf_counter() - t1
             log(f"[phase] {name}: {seconds[name]:.1f}s")
+        _BASELINES.finish()
+    finally:
+        _BASELINES.stop()
     report["phase_seconds"] = seconds
+    if "serve_spec" in report:
+        _spec_beside(report)
+    report["baselines"] = {key: {k2: b[k2] for k2 in ("seconds", "peak",
+                                                      "waited")}
+                           for key, b in _BASELINES.got.items()}
     for mod in ("jax", "repro"):
         if mod in sys.modules:
             raise AssertionError(f"{mod} was imported")
@@ -5011,9 +5425,9 @@ def main() -> int:
     for name, n in trained.items():
         total[name] += n
     # the dryrun phase's mesh-bound train and paged decode steps, the
-    # serve_mesh phase's mesh runs and the analysis phase's audits (the
-    # stream kernel's go to its own entry)
-    for phase in ("dryrun", "serve_mesh", "analysis"):
+    # serve_mesh phase's mesh runs, the analysis phase's audits and the
+    # examples phase's runs (the stream kernel's go to its own entry)
+    for phase in ("dryrun", "serve_mesh", "analysis", "examples"):
         for name, n in report[phase]["launches"].items():
             if name in total:
                 total[name] += n
@@ -5052,7 +5466,8 @@ def main() -> int:
          "source": f"{src}/sc_bitops.cu",
          "replaces": "src/repro/kernels/sc_bitops.py:84",
          "launches": report["stream"]["launches"]
-         + report["analysis"]["launches"]["sc_stream_mul"],
+         + report["analysis"]["launches"]["sc_stream_mul"]
+         + report["examples"]["launches"]["sc_stream_mul"],
          "tuned": tuned("stream"),
          "max_abs_err": report["stream"]["max_abs_err"],
          "ms": stream["ms"], "plain_ms": stream["plain_ms"],

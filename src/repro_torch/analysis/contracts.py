@@ -176,10 +176,12 @@ def audit_popcount_path(device=None, bits: int = 8) -> list[str]:
     """No float tensor in the stream multiplier, counts equal to its
     plain version, no floating-point type in its CUDA source; no
     half-precision tensor in the SC-GEMM closed form."""
-    from repro_torch.core import sc_matmul
+    import importlib
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.sc_bitops import sc_stream_mul_torch
 
+    # the module: the package's ``sc_matmul`` is the function
+    sc_matmul = importlib.import_module("repro_torch.core.sc_matmul")
     dev = resolve_device(device)
     problems: list[str] = []
     rng = np.random.default_rng(0)

@@ -10,8 +10,12 @@ straight-through gradient (``sc_layers``).
 The package re-exports the names the reference's ``repro.core`` does,
 each imported on first use: ``kernels.sc_matmul`` imports this package's
 modules, and ``sc_layers`` the kernels, so an eager re-export would close
-an import cycle."""
+an import cycle. Importing the submodule ``sc_matmul`` would bind the
+package's attribute of that name to the module; the package keeps the
+function there, as the reference's eager re-export does."""
 import importlib
+import sys
+import types
 
 _EXPORTS = {
     "tcu": ("correlation_encode", "pack_stream", "popcount_u32",
@@ -42,4 +46,17 @@ def __getattr__(name: str):
 
 def __dir__():
     return sorted(set(globals()) | set(__all__))
+
+
+class _Core(types.ModuleType):
+    """The package's module type: a re-exported name is never rebound to
+    the submodule of the same name (``sc_matmul``) by its import."""
+
+    def __setattr__(self, name, value):
+        if name in _HOME and isinstance(value, types.ModuleType):
+            return
+        super().__setattr__(name, value)
+
+
+sys.modules[__name__].__class__ = _Core
 

@@ -57,18 +57,19 @@ __all__ = ["generate", "main"]
 def generate(cfg, params, prompts, *, gen_tokens: int,
              temperature: float = 0.0, seed: int = 0,
              device: str | torch.device | None = None) -> torch.Tensor:
-    """``prompts: (B, S)`` int token ids → ``(B, gen_tokens)`` sampled
-    continuations, every sequence decoding ``gen_tokens`` steps in
-    lockstep over a dense cache; with codebooks ``(B, S, K)`` →
-    ``(B, gen_tokens, K)``, a token per codebook a step. With B=1 and
-    greedy sampling this is the reference stream the serving engine
-    reproduces token for token. With ``cfg.use_sc_gemm`` the weights are
+    """``prompts: (B, S)`` int token ids (an array, or a tensor on any
+    device) → ``(B, gen_tokens)`` sampled continuations, every sequence
+    decoding ``gen_tokens`` steps in lockstep over a dense cache; with
+    codebooks ``(B, S, K)`` → ``(B, gen_tokens, K)``, a token per codebook
+    a step. With B=1 and greedy sampling this is the reference stream the
+    serving engine reproduces token for token. With ``cfg.use_sc_gemm`` the weights are
     packed once, here, for the call. An ssm or hybrid prompt is a whole
     number of ``cfg.ssm_chunk`` tokens (:class:`ConfigError` otherwise,
     from the SSD scan)."""
     m = bind(cfg, device)
     params = pack_sc_weights(params, cfg)
-    prompts = torch.as_tensor(np.asarray(prompts), device=m.device)
+    prompts = (prompts.to(m.device) if torch.is_tensor(prompts) else
+               torch.as_tensor(np.asarray(prompts), device=m.device))
     b = prompts.shape[0]
     logits, cache = prefill_step(m, params, {"tokens": prompts},
                                  extra_slots=gen_tokens)

@@ -467,7 +467,8 @@ def test_contracts_cli_without_a_card_fails_and_names_it(monkeypatch,
 
 
 def test_popcount_audit_catches_injected_half_cast(monkeypatch):
-    from repro_torch.core import sc_matmul
+    import importlib
+    sc_matmul = importlib.import_module("repro_torch.core.sc_matmul")
     real = sc_matmul.signed_counts
 
     def poisoned(sx, mx, sy, my, bits):

@@ -16,7 +16,8 @@ serves the same requests through the mesh-bound step builders on
   the streams are held).
 * One reduced config of each other family (gemma2-9b, qwen3-moe, mamba2,
   zamba2, musicgen with its codebooks, qwen2-vl with text prompts),
-  chunked, on (1, 2): streams equal the port's one-rank engine's.
+  chunked, on (1, 2), and llama4 and mamba2 chunked on (2, 1): streams
+  equal the port's one-rank engine's.
 * A tight page budget on (2, 1) preempts and replays the same streams;
   the gather decode (``fused=False``) on (2, 1) serves the one-rank
   engine's streams.
@@ -54,6 +55,8 @@ MODES = {"chunked": {}, "oneshot": dict(prefill_mode="oneshot"),
          "contiguous": dict(paged=False)}
 FAMILIES = ("gemma2-9b", "qwen3-moe-235b-a22b", "mamba2-130m", "zamba2-7b",
             "musicgen-large", "qwen2-vl-2b")
+#: served chunked on (2, 1), each sequence's rows on one rank
+DATA_SPLIT_FAMILIES = ("llama4-maverick-400b-a17b", "mamba2-130m")
 TIGHT = dict(capacity=2, max_seq=12, block=2, n_blocks=8, chunk=4)
 TIGHT_LENS, TIGHT_GENS = (6, 5, 6, 4), (6, 6, 5, 6)
 STATS = ("prefix_hits", "prefix_misses", "prefill_tokens_saved",
@@ -178,17 +181,19 @@ def case_engine_mesh(rank: int, world: int) -> dict:
 
 
 def case_families(rank: int, world: int) -> dict:
-    """One reduced config of each other family, chunked, on (1, 2)."""
+    """One reduced config of each other family, chunked, on (1, 2); then
+    ``DATA_SPLIT_FAMILIES`` on (2, 1)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import bind
     from repro_torch.serving import Engine
-    mesh = make_mesh((1, 2), ("data", "model"), device_type="cpu")
     out = {}
-    for arch in FAMILIES:
-        cfg = _cfg(arch, True)
-        params = bind(cfg, "cpu").init_params(0)
-        out[((1, 2), arch, True, "chunked")] = _serve(
-            Engine(cfg, params, mesh=mesh, **KW), cfg)
+    for shape, archs in (((1, 2), FAMILIES), ((2, 1), DATA_SPLIT_FAMILIES)):
+        mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
+        for arch in archs:
+            cfg = _cfg(arch, True)
+            params = bind(cfg, "cpu").init_params(0)
+            out[(shape, arch, True, "chunked")] = _serve(
+                Engine(cfg, params, mesh=mesh, **KW), cfg)
     return out
 
 
@@ -253,7 +258,7 @@ def served(tmp_path_factory):
             _cfg("smollm-360m", True), tp, fused=False, **KW)
         want[("port", True, "tight")] = _one_rank(
             _cfg("smollm-360m", True), tp, TIGHT_LENS, TIGHT_GENS, **TIGHT)
-        for arch in FAMILIES:
+        for arch in dict.fromkeys(FAMILIES + DATA_SPLIT_FAMILIES):
             fcfg = _cfg(arch, True)
             want[("port", arch)] = _one_rank(
                 fcfg, bind(fcfg, "cpu").init_params(0), **KW)
@@ -324,12 +329,24 @@ def test_exact_streams_equal_jax(served):
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_every_family_serves_on_a_mesh(served, arch):
     got, want = served
-    cells = _cells(got, lambda k: k[1] == arch)
+    cells = _cells(got, lambda k: k[:2] == ((1, 2), arch))
     assert len(cells) == 1
     _, key, r = cells[0]
     assert _same_streams(r, want[("port", arch)]), key
     if arch == "musicgen-large":
         assert all(t.shape[1:] == (4,) for t in r["tokens"])
+
+
+@pytest.mark.parametrize("arch", DATA_SPLIT_FAMILIES)
+def test_families_serve_with_sequences_split_over_data(served, arch):
+    """llama4 (windows, a shared expert, top-1 routing) and mamba2 (the
+    recurrent state) on (2, 1): each rank holds one slot's rows, and the
+    streams equal the one-rank engine's."""
+    got, want = served
+    cells = _cells(got, lambda k: k[:2] == ((2, 1), arch))
+    assert len(cells) == 1
+    _, key, r = cells[0]
+    assert _same_streams(r, want[("port", arch)]), key
 
 
 def test_a_tight_budget_preempts_and_replays_the_streams(served):

@@ -2380,3 +2380,69 @@ def test_analysis_audit_passes_on_the_card(cuda, name):
     assert dict(contracts.AUDITS)[name](cuda) == []
     launched = {k for k, c in counters.items() if c.launches > before[k]}
     assert AUDIT_KERNELS[name] <= launched, launched
+
+
+# ------------------------------------------------------------- examples
+
+def test_examples_quickstart_on_the_card(cuda):
+    """Table I, the MAE and Table II on the card equal the CPU's value for
+    value; on the SC-GEMM operands the kernel (one launch) gives the
+    counts of ``mxu_split``."""
+    from repro_torch.core import sc_matmul
+    from repro_torch.core.sc_numerics import recover_counts
+    from repro_torch.examples import quickstart
+    got = quickstart.main(["--device", "cuda"])
+    want = quickstart.main(["--device", "cpu"])
+    for key in ("table1", "mae", "table2"):
+        assert got[key] == want[key], key
+    a, b = quickstart.sc_gemm_operands(cuda)
+    before = sc_matmul_counts_signed.launches
+    kernel = sc_matmul(a, b, bits=8, impl="pallas")
+    assert sc_matmul_counts_signed.launches == before + 1
+    plain = sc_matmul(a, b, bits=8, impl="mxu_split")
+    np.testing.assert_array_equal(recover_counts(kernel, a.cpu(), b.cpu()),
+                                  recover_counts(plain, a.cpu(), b.cpu()))
+
+
+def test_examples_sc_gemm_inference_on_the_card(cuda):
+    """The card's numbers within the example's stated tolerances of the
+    CPU's on the same parameters; every SC projection one SC-GEMM launch,
+    equal to ``mxu_split``'s on the card."""
+    from repro_torch.examples import sc_gemm_inference as ex
+    before = sc_linear.launches
+    got = ex.main(["--device", "cuda"])
+    cfg_exact, cfg_sc, params, tokens = ex.inputs(cuda)
+    assert sc_linear.launches - before == ex.sc_launches(cfg_sc)
+    assert ex.card_mismatches(got, ex.main(["--device", "cpu"])) == []
+    plain = ex.compare(cfg_exact,
+                       dataclasses.replace(cfg_sc, sc_impl="mxu_split"),
+                       params, tokens, cuda)
+    assert {k: got[k] for k in plain} == plain
+
+
+def test_examples_serve_lm_on_the_card(cuda):
+    """Three families' ``(4, 16)`` streams, the same again from the same
+    seed, and at temperature 0 the CPU's."""
+    from repro_torch.examples import serve_lm
+    out = serve_lm.main(["--device", "cuda"])
+    for arch in serve_lm.ARCH_NAMES:
+        assert tuple(out[arch]["tokens"].shape) == (4, 16)
+        cfg, params, prompts = serve_lm.setup(arch, cuda)
+        again = serve_lm.serve(cfg, params, prompts, 0.8, cuda)["tokens"]
+        assert torch.equal(again, out[arch]["tokens"]), arch
+        greedy = serve_lm.serve(cfg, params, prompts, 0.0, cuda)["tokens"]
+        _, cpu_params, _ = serve_lm.setup(arch, "cpu")
+        cpu = serve_lm.serve(cfg, cpu_params, prompts, 0.0, "cpu")["tokens"]
+        assert torch.equal(greedy, cpu), arch
+
+
+def test_examples_train_lm_on_the_card(cuda, capsys):
+    """Two calls on one checkpoint folder: the second restores the first's
+    save, the loss falls and every loss is finite."""
+    from repro_torch.examples import train_lm
+    out = train_lm.main(["--device", "cuda", "--steps", "8", "--batch", "8",
+                         "--seq", "128"])
+    assert "[train] restored step 4 from" in capsys.readouterr().out
+    assert out["last"] < out["first"]
+    assert all(math.isfinite(x) for x in out["losses"][0] + out["losses"][1])
+    assert out["peak_bytes"] > 0

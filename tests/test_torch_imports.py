@@ -56,7 +56,10 @@ PORT_MODULES = [
     "repro_torch.runtime.fault_tolerance", "repro_torch.analysis",
     "repro_torch.analysis.base", "repro_torch.analysis.scopes",
     "repro_torch.analysis.rules", "repro_torch.analysis.contracts",
-    "repro_torch.analysis.cli",
+    "repro_torch.analysis.cli", "repro_torch.examples",
+    "repro_torch.examples.quickstart",
+    "repro_torch.examples.sc_gemm_inference",
+    "repro_torch.examples.serve_lm", "repro_torch.examples.train_lm",
 ]
 
 

@@ -496,6 +496,41 @@ def test_engine_streams_equal_jax_engine_and_baseline(arch, mode,
     _assert_streams(res, jres, _baseline(tcfg, tp, prompts, gens))
 
 
+@pytest.mark.parametrize("mode", ["chunked", "oneshot"])
+@pytest.mark.parametrize("arch", ARCHS_MOE)
+def test_decode_groups_past_the_capacity_drop_as_in_jax(arch, mode,
+                                                        monkeypatch):
+    """A decode step routes its batch of slots as one group. With
+    ``capacity_factor`` 0.5 the capacity is C = 4, and six slots serving
+    one prompt send six equal tokens to the same experts: the last two of
+    each step's group are dropped. Chunked, the chunks (4 rows) drop
+    nothing, so every drop is in decode; one-shot, a 9-token prompt drops
+    too. Exact projections; streams equal the JAX engine's in the same
+    mode."""
+    jcfg, tcfg = _cfgs(arch, capacity_factor=0.5)
+    jp = _jax_params(arch)
+    tp = from_jax_params(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    assert moe.moe_capacity(tcfg) == 4
+    prompts = _prompts((9,), seed=6) * 6
+    gens = [5, 5, 5, 4, 4, 3]
+    kw = dict(capacity=6, max_seq=16, block=4, chunk=4, prefill_mode=mode)
+    jres = JaxEngine(jcfg, jp, **kw).run(_requests(JaxRequest, prompts, gens))
+    groups = []
+    route = moe.route
+
+    def recording(probs, top_k, capacity):
+        r = route(probs, top_k, capacity)
+        groups.append((probs.shape[1], bool((~r.keep).any())))
+        return r
+
+    monkeypatch.setattr(moe, "route", recording)
+    res = Engine(tcfg, tp, device="cpu", **kw).run(
+        _requests(Request, prompts, gens))
+    dropping = {g for g, dropped in groups if dropped}
+    assert dropping == ({6} if mode == "chunked" else {6, 9})
+    _assert_streams(res, jres)
+
+
 def test_sc_engine_streams_equal_baseline():
     """SC-GEMM at 8 bits, chunked and one-shot: the port's baseline."""
     _, _, tcfg, tp = _setup("qwen3-moe-235b-a22b", True)

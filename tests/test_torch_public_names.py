@@ -183,3 +183,15 @@ def test_the_core_package_re_exports_the_references_names():
     from repro_torch.core.error_analysis import mae as home_mae
     from repro_torch.core.sc_layers import sc_dense as home_sc_dense
     assert (mae, sc_dense) == (home_mae, home_sc_dense)
+
+
+def test_the_core_package_keeps_the_function_sc_matmul():
+    """As in the reference, ``repro_torch.core.sc_matmul`` is the dispatch
+    function, also once its submodule of the same name is imported (which
+    every model import does)."""
+    import importlib
+    import repro_torch.core as core
+    module = importlib.import_module("repro_torch.core.sc_matmul")
+    from repro_torch.core import sc_matmul
+    assert sc_matmul is module.sc_matmul is core.sc_matmul
+    assert callable(sc_matmul) and module is not sc_matmul

@@ -342,6 +342,38 @@ def test_speculative_streams_equal_baseline_and_jax(k, bits):
     assert eng.pool.pages_live == 0
 
 
+def test_speculative_streams_over_a_windowed_softcapped_arch():
+    """Reduced gemma2-9b (windows of 8 keys on alternate layers, attention
+    and final-logit softcaps, post-norms), SC-GEMM at 8 bits, (k,
+    draft_bits) = (2, 4), prompts of 12 tokens and streams that run past
+    the window: the streams equal the port's ``generate``, its
+    non-speculative engine's and the JAX speculative engine's."""
+    from repro.configs.registry import ARCHS as JAX_ARCHS
+    from repro_torch.configs.registry import ARCHS
+    over = dict(dtype="float32", use_sc_gemm=True)
+    jcfg = JAX_ARCHS["gemma2-9b"].reduced(**over)
+    tcfg = ARCHS["gemma2-9b"].reduced(**over)
+    assert None in tcfg.windows and min(w for w in tcfg.windows if w) == 8
+    assert tcfg.attn_softcap and tcfg.final_softcap
+    jp = jbind(jcfg).init_params(jax.random.PRNGKey(0))
+    tp = from_jax_params(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    prompts, gens = _prompts(3, s=12, seed=2), [10, 7, 5]
+    kw = dict(capacity=2, max_seq=32, block=4, speculate_k=2, draft_bits=4)
+    eng = Engine(tcfg, tp, device="cpu", **kw)
+    res = eng.run(_requests(Request, prompts, gens))
+    _assert_baseline(tcfg, tp, res, prompts, gens)
+    plain = Engine(tcfg, tp, device="cpu", capacity=2, max_seq=32,
+                   block=4).run(_requests(Request, prompts, gens))
+    jres = JaxEngine(jcfg, jp, prefix_cache=False, **kw).run(
+        _requests(JaxRequest, prompts, gens))
+    for r, p, j in zip(res, plain, jres):
+        np.testing.assert_array_equal(r.tokens, p.tokens, err_msg=r.uid)
+        np.testing.assert_array_equal(r.tokens, j.tokens, err_msg=r.uid)
+    st = eng.stats
+    assert st["spec_rounds"] > 0 and st["generated_tokens"] == sum(gens)
+    assert eng.pool.pages_live == 0
+
+
 class _Grids(Engine):
     """An engine that keeps, every round, the live slots and the round's
     draft and exact token grids."""
