@@ -7,7 +7,8 @@ rows, then serves requests through the port's engine at smollm-360m's
 full width — float attention, then SC attention — and at qwen2-vl-2b's,
 musicgen-large's, mamba2-130m's, zamba2-7b's, qwen3-moe-235b-a22b's and
 llama4-maverick-400b-a17b's (the vlm, audio, ssm, hybrid and moe
-families), and checks the streams against the sequential baseline; then
+families) and qwen2-7b's, qwen2.5-14b's and gemma2-9b's (the plain dense
+LLMs), and checks the streams against the sequential baseline; then
 it trains smollm-360m at full width, killed and resumed; last it runs the
 distribution layer on one NCCL rank at the same width, and the port's
 four examples.
@@ -44,7 +45,9 @@ Phases (each raises on failure, so any failure exits non-zero):
    then mamba2-130m's and zamba2-7b's shapes (K up to 14,336, N up to
    32,000) at M = 1, 4, 128 and 256, bit-equal to the plain version, and
    at M = 4 and 128 timed and summed to a decode step and a prefill chunk
-   of each; then the batched launch (one MoE projection of all experts)
+   of each (likewise qwen2-vl-2b's and musicgen-large's), and gemma2-9b's
+   tied head (K 3,584, N 256,000) at M = 1 and 4, timed at M = 4 against
+   its bound; then the batched launch (one MoE projection of all experts)
    at qwen3-moe's (E = 128) and llama4's (E = 32) expert shapes, M = C =
    64 rows an expert, a NaN row and an expert of zero rows: bit-equal to
    its plain version and to E unbatched launches at the default and the
@@ -53,11 +56,15 @@ Phases (each raises on failure, so any failure exits non-zero):
 5. paged decode-attention kernel vs its plain version at smollm's layout,
    f32 and bf16, float and SC at 4 and 8 bits, fragmented tables, windows,
    a single-KV-head layout (SC), zamba2-7b's layout (KV 32, G 1, D 112;
-   float and SC); kernel ms, device ms, plain and bound ms
-   of both paths at the serve shape (MB 4) and a long context (MB 64, up
-   to 4,096 keys); then bitwise paging invariance (block 16, 32, 48, 64,
-   256 and the dense view) and batch invariance (a slot alone against
-   four together), any difference failing the phase;
+   float and SC), gemma2-9b's (KV 8, G 2, D 256, MB 68) with its logit
+   softcap 50, windowed (4,096) and global, float and SC at 4 and 8 bits,
+   and without the cap, qwen2-7b's (KV 4, G 7, D 128) and qwen2.5-14b's
+   (KV 8, G 5, D 128); kernel ms, device ms, plain and bound ms
+   of both paths at the serve shape (MB 4), a long context (MB 64, up
+   to 4,096 keys) and each of the dense cells' bf16 layouts; then
+   bitwise paging invariance (block 16, 32, 48, 64, 256 and the dense
+   view) and batch invariance (a slot alone against four together),
+   without and with a softcap, any difference failing the phase;
 6. flash-attention kernel vs its plain version: f32 and bf16, float and SC
    at 4 and 8 bits, D 64, 112 and 128, G 3, 2 and 1, ragged Sq/Skv,
    smollm's and zamba2-7b's one-shot and chunked shapes (a 128-row chunk
@@ -91,7 +98,8 @@ Phases (each raises on failure, so any failure exits non-zero):
     step or chunk, the device's busy share, the graphed step's and
     chunk's wall split, and the kernel records of the graphed steps and
     chunks against the launches their capture recorded; then the same
-    graphed-step profile of each family cell's model (15, 16). It runs
+    graphed-step profile of each family cell's model (15, 16; not 17 and
+    18, whose steps are the same kernels at other widths). It runs
     before any cell serves: the profiler drops kernel records now and
     then, more often late in a long process (§7 of ``PERF.md``), so a
     graphed trace that lost records is taken again, up to three times
@@ -164,7 +172,23 @@ Phases (each raises on failure, so any failure exits non-zero):
     batch-invariant. qwen3-moe runs like 16 (eager and graphed twice, a
     speculative engine at (1, 4), the caller's weights on the host
     meanwhile); llama4 graphed only, chunked and one-shot;
-18. ``train``: smollm-360m at full width as registered (bf16, remat on)
+18. ``serve_qwen2_7b``, ``serve_qwen2_5_14b`` and ``serve_gemma2_9b``: the
+    registry's three plain dense LLMs at full width (``DENSE_CELLS``):
+    qwen2-7b whole (28 layers), qwen2.5-14b at 2 of 48 layers and
+    gemma2-9b at 2 of 42 (``FAMILY_CUTS``), the autotuner's SC-GEMM
+    plans (``sc_impl="auto"``, as registered), graphed only,
+    chunked and one-shot, no speculative engine: the qwen cells with the
+    ``serve`` cell's traffic and engine (QKV bias; the paged kernel at G
+    7 and 5, flash at D 128), gemma2-9b with it and one more request, a
+    4,160-token prompt and 16 new tokens, through ``Engine(max_seq=4352,
+    chunk=256)``, so that its 4,096-token window binds in prefill and
+    decode (its softcapped layers
+    prefill through the plain formulation, as in the reference, and
+    decode through the paged kernel's softcap path, whose launches must
+    equal the paged launches); each cell moves its float weights to the
+    host while each engine's entry copies them in and packs them; the
+    peak memory of each engine's build and each run, against the card's;
+19. ``train``: smollm-360m at full width as registered (bf16, remat on)
     with SC-GEMM at 8 bits, the reference CLI's batch 8 x seq 128, lr
     3e-4, synthetic data of seed 0, cut to 8 steps: ``launch.train.train``
     for 4 steps with a checkpoint, then again on the same directory,
@@ -184,7 +208,7 @@ Phases (each raises on failure, so any failure exits non-zero):
     for bit the same; ms a step with the kernels and with exact
     projections, one profiled step, the peak memory; one step with
     compressed gradients;
-19. ``dist``: the distribution layer on one NCCL rank (an in-process
+20. ``dist``: the distribution layer on one NCCL rank (an in-process
     ``HashStore``, no fallback to gloo or the CPU) at the ``train``
     phase's model: the ``(1, 1)`` ``("data", "model")`` mesh from
     ``launch.mesh.make_mesh``; smollm-360m's bf16 weights (seed 0) placed
@@ -208,11 +232,11 @@ Phases (each raises on failure, so any failure exits non-zero):
     every registered arch and ``model_flops`` over the ``train`` phase's
     ms a step and the ``serve`` cell's graphed decode ms/step, each
     against the bf16 dense peak;
-20. ``dryrun``: the kernel operators' fake metas, the mesh-bound train
+21. ``dryrun``: the kernel operators' fake metas, the mesh-bound train
     and paged decode steps on one NCCL rank against the plain-tensor
     steps and the dry run's prediction, one production cell dry-run
     (``phase_dryrun``);
-21. ``serve_mesh``: the engine on a mesh (``Engine(mesh=...)``) on one
+22. ``serve_mesh``: the engine on a mesh (``Engine(mesh=...)``) on one
     NCCL rank (an in-process ``HashStore``, as ``dist``): smollm-360m as
     registered (bf16, 32 layers, d 960), SC-GEMM at 8 bits, seed-0
     weights, on ``serving.default_serving_mesh()`` (1 x 1); three requests
@@ -224,7 +248,7 @@ Phases (each raises on failure, so any failure exits non-zero):
     requests and weights; the counters, set to 0 just before each mesh
     run and read just after, must show SC-GEMM, paged and flash
     launches; ms a decode step, tokens/s and peak memory of both;
-22. ``analysis``: the port's lint (``repro_torch.analysis``, R1-R5) over
+23. ``analysis``: the port's lint (``repro_torch.analysis``, R1-R5) over
     this checkout's ``src/repro_torch`` must find nothing; the four
     contract audits run on the card (``analysis.contracts``: the stream
     kernel integer-only and equal to its plain version, the paged plain
@@ -235,7 +259,7 @@ Phases (each raises on failure, so any failure exits non-zero):
     width (bf16, SC-GEMM at 8 bits, seed-0 weights) on their own short
     schedules; the launch counters, set to 0 just before each audit,
     must show the kernels of its path;
-23. ``examples``: the port's four examples (``repro_torch.examples``),
+24. ``examples``: the port's four examples (``repro_torch.examples``),
     each ``main`` in this process on the card at the reference example's
     sizes (``train_lm`` at ``--steps 8 --batch 8 --seq 128``), within a
     45 s budget that it reports, the counters set to 0 just before each and read just after: quickstart's Table I,
@@ -248,23 +272,25 @@ Phases (each raises on failure, so any failure exits non-zero):
     CPU's; train_lm restored from its checkpoint with a falling, finite
     loss.
 
-Each family cell (15-17) asks for the prefix cache (the dense-only gate
-turns it off, and the stats must say so) and serves chunked then
+Each family cell (15-18) asks for the prefix cache (the dense-only gate
+turns it off, and the stats must say so; the dense cells ask for none,
+as the ``serve`` cell) and serves chunked then
 one-shot, each eager and then graphed twice on one engine; every run
 against the sequential baseline, the counters showing one SC-GEMM launch
 a projection (48 a step or chunk for mamba2-130m, 40 for zamba2-7b at
 9 layers, 197 for qwen2-vl-2b, 85 for musicgen-large at 12 layers, 15
 for qwen3-moe at 2 and 35 for llama4, an expert projection one launch for all
-experts) and one paged launch an attention site a step and one flash
-launch an unwindowed site a prefill call (llama4's windowed sites take
-the plain formulation, as in the reference); tokens/s, TTFT p50, decode
+experts; 7 a layer and the head for the dense cells) and one paged
+launch an attention site a step and one flash launch an unwindowed,
+uncapped site a prefill call (llama4's windowed sites and all of
+gemma2-9b's take the plain formulation, as in the reference); tokens/s, TTFT p50, decode
 ms/step, a prefill chunk of the longest prompt (eager and graphed),
 peak memory and launches. Last, a graphed speculative engine at (k,
 draft_bits) = (1, 4) serves qwen2-vl-2b and qwen3-moe against the
 baseline and must be refused for the ssm, hybrid and audio cells, as in
 the reference.
 
-The sequential baselines of phases 11-17 but the moe cells' (one B=1
+The sequential baselines of phases 11-18 but the moe cells' (one B=1
 ``generate`` call a request, on the cell's weights from the same seed)
 are computed on the card by one child process, started with the first
 of those phases (phase 13, which runs before 11 and 12: its eager run
@@ -275,7 +301,7 @@ the moe cells wait for it to end, then compute their own. The script
 stops the child when it ends or fails.
 
 The line before the last is a JSON object with one entry per kernel,
-its ``launches`` the sum over every serving run of phases 11-17, the
+its ``launches`` the sum over every serving run of phases 11-18, the
 train phase's kill-and-resume (``train_launches`` apart), the dryrun
 phase's steps, the serve_mesh phase's mesh runs, the analysis phase's
 audits and the examples phase's runs (the stream kernel's: the
@@ -331,7 +357,9 @@ N_LAYERS = 32
 # and w2 (8960, 1536) in each of 28 layers, the tied head (1536, 151936)
 # once. musicgen-large: q, k, v, o (2048, 2048), w1, w3 (2048, 8192) and
 # w2 (8192, 2048) in each of 48 layers, the head of 4 codebooks x 2048
-# (2048, 8192) once.
+# (2048, 8192) once. gemma2-9b: its tied head (3584, 256000), the widest N
+# the port serves, once (its other shapes are qwen2-7b's widths or
+# smaller; the serve cells hold them through their streams).
 FAMILY_SC_SHAPES = {
     "mamba2-130m": {(768, 3352): 24, (1536, 768): 24},
     "zamba2-7b": {(3584, 14576): 81, (7168, 3584): 81, (3584, 3584): 108,
@@ -339,7 +367,8 @@ FAMILY_SC_SHAPES = {
     "qwen2-vl-2b": {(1536, 1536): 56, (1536, 256): 56, (1536, 8960): 56,
                     (8960, 1536): 28, (1536, 151936): 1},
     "musicgen-large": {(2048, 2048): 192, (2048, 8192): 97,
-                       (8192, 2048): 48}}
+                       (8192, 2048): 48},
+    "gemma2-9b": {(3584, 256000): 1}}
 #: the row counts each family cell sends through those shapes (each held
 #: bit-equal to the plain version) — the sequential baseline's steps and a
 #: prefill's last row (1), a decode step (4), a prefill chunk (128 rows
@@ -349,9 +378,11 @@ FAMILY_SC_SHAPES = {
 FAMILY_SC_ROWS = {"mamba2-130m": (1, 4, 128, 256),
                   "zamba2-7b": (1, 4, 128, 256),
                   "qwen2-vl-2b": (1, 4, 16, 64, 256),
-                  "musicgen-large": (1, 4, 16, 64)}
+                  "musicgen-large": (1, 4, 16, 64),
+                  "gemma2-9b": (1, 4)}
 FAMILY_SC_TIMED = {"mamba2-130m": (4, 128), "zamba2-7b": (4, 128),
-                   "qwen2-vl-2b": (4, 16), "musicgen-large": (4, 16)}
+                   "qwen2-vl-2b": (4, 16), "musicgen-large": (4, 16),
+                   "gemma2-9b": (4,)}
 
 
 def log(msg: str) -> None:
@@ -885,6 +916,11 @@ def _sc_gemm_families(gen, dev, sms) -> dict:
 #: The autotuner's cache of a run: a fresh file, so every run sweeps from
 #: scratch and no earlier tree's winners serve this one.
 TUNE_CACHE = ROOT / "chiprun_out" / "autotune.json"
+#: The baselines' child process's own cache: ``_Baselines.paused`` stops
+#: the child with SIGSTOP, and a child stopped inside a cache write holds
+#: the cache's lock, which the serving process would then wait on for
+#: good. Every plan gives the same bits, so the baselines do not change.
+BASELINE_TUNE_CACHE = TUNE_CACHE.with_name("autotune_baselines.json")
 #: The tune phase's SC-GEMM problems: (arch, rows, kind) as
 #: ``configs.shapes.Shape``s give them to ``sc_gemm_problems`` — a decode
 #: step of 4 slots, a 16-row chunk (smollm-360m's serve cells) and a
@@ -1110,9 +1146,10 @@ def phase_tune() -> dict:
 
 
 def _paged_case(dtype, window, positions, gen, dev, c=4, kv=5, g=3, d=64,
-                block=64, mb=4):
+                block=64, mb=4, q_scale=1.0):
     """smollm's decode layout with fragmented tables: pages of each slot
-    scattered over the pool, -1 past each slot's last page."""
+    scattered over the pool, -1 past each slot's last page; queries
+    scaled by ``q_scale``."""
     import torch
     n_pages = c * mb + 1
     perm = torch.randperm(n_pages - 1, generator=gen, device=dev)
@@ -1122,7 +1159,8 @@ def _paged_case(dtype, window, positions, gen, dev, c=4, kv=5, g=3, d=64,
         need = p // block + 1
         tables[i, :need] = perm[used:used + need].to(torch.int32)
         used += need
-    q = torch.randn((c, kv, g, d), generator=gen, device=dev).to(dtype)
+    q = (q_scale * torch.randn((c, kv, g, d), generator=gen,
+                               device=dev)).to(dtype)
     k = torch.randn((n_pages, block, kv, d), generator=gen,
                     device=dev).to(dtype)
     v = torch.randn((n_pages, block, kv, d), generator=gen,
@@ -1155,9 +1193,10 @@ def _paginate(k_rows, v_rows, block, gen):
 
 def _paged_invariance(gen, dev) -> list[str]:
     """Bitwise paging and batch invariance of the paged kernel at smollm's
-    layout: the same slots' rows at block 16, 32, 48, 64 and 256 and as
-    the dense view, and each slot alone against all four together, must
-    give identical outputs. Returns what differed."""
+    layout, without and with a logit softcap: the same slots' rows at
+    block 16, 32, 48, 64 and 256 and as the dense view, and each slot
+    alone against all four together, must give identical outputs.
+    Returns what differed."""
     import torch
     from repro_torch.kernels.paged_attention import paged_attention
     bad = []
@@ -1167,38 +1206,43 @@ def _paged_invariance(gen, dev) -> list[str]:
                                       device=dev).to(dtype) for _ in range(2))
         pos = torch.tensor([650, 255, 37, 699], dtype=torch.int32,
                            device=dev)
-        for bits in (None, 4, 8):
-            for window in (None, 300):
-                outs = {block: paged_attention(
-                    q, *_paginate(k_rows, v_rows, block, gen), pos,
-                    window=window, sc_bits=bits)
-                    for block in (None, 16, 32, 48, 64, 256)}
-                what = f"{str(dtype)[6:]} sc_bits={bits} window={window}"
-                differ = [b for b, o in outs.items()
-                          if not torch.equal(o, outs[None])]
-                if differ:
-                    bad.append(f"paging: {what}, blocks {differ} differ "
-                               f"from the dense view")
-                kp, vp, tables = _paginate(k_rows, v_rows, 64, gen)
-                alone = [i for i in range(4) if not torch.equal(
-                    paged_attention(q[i:i + 1], kp, vp, tables[i:i + 1],
-                                    pos[i:i + 1], window=window,
-                                    sc_bits=bits), outs[64][i:i + 1])]
-                if alone:
-                    bad.append(f"batch: {what}, slots {alone} alone differ "
-                               f"from the batch")
-                log(f"[paged] invariance {what}: paging "
-                    f"{'ok' if not differ else 'DIFFERS'}, batch "
-                    f"{'ok' if not alone else 'DIFFERS'}")
+        for bits, window, cap in [(b, w, None) for b in (None, 4, 8)
+                                  for w in (None, 300)] + [
+                (b, 300, 3.0) for b in (None, 8)]:
+            outs = {block: paged_attention(
+                q, *_paginate(k_rows, v_rows, block, gen), pos,
+                window=window, logit_softcap=cap, sc_bits=bits)
+                for block in (None, 16, 32, 48, 64, 256)}
+            what = (f"{str(dtype)[6:]} sc_bits={bits} window={window}"
+                    + (f" softcap={cap}" if cap else ""))
+            differ = [b for b, o in outs.items()
+                      if not torch.equal(o, outs[None])]
+            if differ:
+                bad.append(f"paging: {what}, blocks {differ} differ "
+                           f"from the dense view")
+            kp, vp, tables = _paginate(k_rows, v_rows, 64, gen)
+            alone = [i for i in range(4) if not torch.equal(
+                paged_attention(q[i:i + 1], kp, vp, tables[i:i + 1],
+                                pos[i:i + 1], window=window,
+                                logit_softcap=cap, sc_bits=bits),
+                outs[64][i:i + 1])]
+            if alone:
+                bad.append(f"batch: {what}, slots {alone} alone differ "
+                           f"from the batch")
+            log(f"[paged] invariance {what}: paging "
+                f"{'ok' if not differ else 'DIFFERS'}, batch "
+                f"{'ok' if not alone else 'DIFFERS'}")
     return bad
 
 
 def phase_paged() -> dict:
     """The paged kernel against its plain version; back-to-back and device
     time of both paths at the serve shape (positions [100, 255, 37, 64],
-    MB 4) and at a long context (MB 64, positions up to 4095); then bitwise
-    paging and batch invariance, which fail the phase on any difference
-    (checked last, so the times are printed either way)."""
+    MB 4), at a long context (MB 64, positions up to 4095) and at the
+    dense cells' layouts (gemma2-9b's with its logit softcap, windowed and
+    global, and without it; qwen2-7b's group 7 and qwen2.5-14b's group 5);
+    then bitwise paging and batch invariance, which fail the phase on any
+    difference (checked last, so the times are printed either way)."""
     import torch
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_torch)
@@ -1208,7 +1252,10 @@ def phase_paged() -> dict:
     # (online rescaling) against the plain version's one exact softmax, a
     # few float32 ulps; bf16: both cast the float32 result to bf16 once,
     # so they may land one bf16 ulp (2**-8 relative) apart. SC: the same,
-    # plus one quantization step at most (check_close).
+    # plus one quantization step at most (check_close). With the logit
+    # softcap the same: its division and tanh on the card and in PyTorch
+    # (which multiplies by the cap's reciprocal) part by an ulp or two of
+    # a score, well inside them.
     tol = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1.6e-2, 1e-2)}
     f32, bf16 = torch.float32, torch.bfloat16
     main, long = [100, 255, 37, 64], [4095, 2900, 1500, 4000]
@@ -1247,39 +1294,66 @@ def phase_paged() -> dict:
                   (f32, None, [0, 63, 127, 191], bits, audio, None),
                   (bf16, None, main, bits, audio,
                    "audio" if bits is None else None)]
+    # gemma2-9b's decode layout (8 KV heads, group 2, D 256) at its cell's
+    # block 64 and max_seq 4,352 (MB 68), with its logit softcap 50 and
+    # queries scaled by 8 so that the cap bends the scores: windowed (its
+    # local layers, 4,096) and global, float and SC at 4 and 8 bits; bf16
+    # timed, f32 checked; then the same bf16 calls without the cap, timed
+    # beside them (the cap's cost)
+    gemma, gpos = dict(kv=8, g=2, d=256, mb=68, q_scale=8.0), \
+        [4175, 2900, 1500, 64]
+    for bits in (None, 4, 8):
+        for window, tag in ((4096, "gemma2_local"), (None, "gemma2_global")):
+            cases += [(f32, window, gpos, bits, {**gemma, "cap": 50.0}, None),
+                      (bf16, window, gpos, bits, {**gemma, "cap": 50.0}, tag)]
+    for bits in (None, 8):
+        cases.append((bf16, 4096, gpos, bits, gemma, "gemma2_nocap"))
+    # qwen2-7b's (4 KV heads, group 7) and qwen2.5-14b's (8 KV heads, group
+    # 5) at D 128, the serve cells' block 64 and max_seq 256 (MB 4)
+    for tag, geom in (("qwen2_7b", dict(kv=4, g=7, d=128)),
+                      ("qwen2_5_14b", dict(kv=8, g=5, d=128))):
+        for bits in (None, 8):
+            cases += [(f32, None, main, bits, geom, None),
+                      (bf16, None, main, bits, geom, tag)]
     rows = []
     for dtype, window, positions, bits, geom, shape in cases:
+        geom = dict(geom)
+        cap = geom.pop("cap", None)
         q, k, v, tables, qpos = _paged_case(dtype, window, positions, gen,
                                             dev, **geom)
         got = paged_attention(q, k, v, tables, qpos, window=window,
-                              sc_bits=bits)
+                              logit_softcap=cap, sc_bits=bits)
         want = paged_attention_torch(q, k, v, tables, qpos, window=window,
-                                     sc_bits=bits)
+                                     logit_softcap=cap, sc_bits=bits)
         torch.cuda.synchronize()
         rtol, atol = tol[dtype]
         err = check_close(got, want, rtol=rtol, atol=atol, v=v, bits=bits,
                           what=f"paged ({dtype}, window {window}, sc_bits "
-                               f"{bits}, positions {positions}, {geom})")
+                               f"{bits}, softcap {cap}, positions "
+                               f"{positions}, {geom})")
         c, kv, g, d = q.shape
         row = {"dtype": str(dtype).replace("torch.", ""), "window": window,
-               "positions": positions, "sc_bits": bits, "layout": {
-                   "C": c, "KV": kv, "G": g, "D": d, "block": k.shape[1],
-                   "MB": tables.shape[1]}, "max_abs_err": err,
-               "shape": shape}
+               "positions": positions, "sc_bits": bits, "softcap": cap,
+               "layout": {"C": c, "KV": kv, "G": g, "D": d,
+                          "block": k.shape[1], "MB": tables.shape[1]},
+               "max_abs_err": err, "shape": shape}
         if shape:
             def call():
                 return paged_attention(q, k, v, tables, qpos, window=window,
-                                       sc_bits=bits)
+                                       logit_softcap=cap, sc_bits=bits)
             ms = cuda_ms(call, iters=200)
             dev_ms = device_ms(call, "paged_decode")
             plain_ms = cuda_ms(lambda: paged_attention_torch(
-                q, k, v, tables, qpos, window=window, sc_bits=bits),
-                iters=20)
+                q, k, v, tables, qpos, window=window, logit_softcap=cap,
+                sc_bits=bits), iters=20)
             esz = q.element_size()
             rows_read = sum(min(p + 1, window or p + 1) for p in positions)
             nbytes = (2 * rows_read * kv * d * esz + 2 * q.numel() * esz
                       + tables.numel() * 4 + qpos.numel() * 4)
-            ops = 4 * rows_read * kv * g * d
+            # QK and PV, two operations a term each; the cap a division,
+            # a tanh and a product a score
+            ops = 4 * rows_read * kv * g * d + (3 * rows_read * kv * g
+                                                if cap else 0)
             rate = (INT8_OPS_S if bits else BF16_OPS_S
                     if dtype == torch.bfloat16 else FP32_OPS_S)
             bound = max(nbytes / HBM_BYTES_S, ops / rate) * 1e3
@@ -1292,7 +1366,8 @@ def phase_paged() -> dict:
                   f"{_ms(row['device_ms'])}, plain {row['plain_ms']:.3f} "
                   f"ms, bound {row['bound_ms']:.5f} ms" if shape else "")
         log(f"[paged] {row['dtype']:8s} sc={bits} window={window} "
-            f"pos={positions} {geom or ''}: max abs err {err:.2e}{timing}")
+            f"{f'softcap={cap} ' if cap else ''}pos={positions} "
+            f"{geom or ''}: max abs err {err:.2e}{timing}")
     bad = _paged_invariance(gen, dev)
     if bad:
         raise AssertionError("paged kernel is not invariant: "
@@ -1857,12 +1932,17 @@ def _path_counts(cfg) -> tuple[int, int]:
 
 def _flash_sites(cfg) -> int:
     """The attention sites at which a prefill call launches the flash
-    kernel: every one without a sliding window. A windowed site (llama4's
-    3 of 4 layers) takes the plain formulation, as in the reference,
-    whose TPU kernel's gate refuses windows too; its decode runs the paged
-    kernel, which takes windows."""
+    kernel: every one without a sliding window or a logit softcap, at a
+    head dim the kernel takes. A windowed site (llama4's 3 of 4 layers)
+    or a softcapped one (all of gemma2-9b's, whose head dim 256 is past
+    the kernel's 128 too) takes the plain formulation, as in the
+    reference, whose TPU kernel's gate refuses them too; its decode runs
+    the paged kernel, which takes windows and the softcap."""
+    from repro_torch.kernels.flash_attention import MAX_D
     if cfg.family in ("ssm", "hybrid"):
         return _path_counts(cfg)[1]
+    if cfg.attn_softcap is not None or cfg.head_dim > MAX_D:
+        return 0
     return sum(cfg.window_at(i % cfg.group_size) is None
                for i in range(cfg.n_layers))
 
@@ -1933,6 +2013,10 @@ def _serve_run(cfg, eng, reqs, mode, baseline, *, run: int = 1,
             want["paged_attention"] = sites
         if sc_attn:
             want["paged_attention_sc"] = sc_attn
+        if sites and cfg.attn_softcap:
+            want["paged_attention_softcap"] = sites
+        if sc_attn and cfg.attn_softcap:
+            want["paged_attention_sc_softcap"] = sc_attn
         log(f"{tag} decode graph: captured {step.captures} time(s), "
             f"{captured} new while building this engine, replayed "
             f"{step.replays} times in all; a replay counts "
@@ -1946,7 +2030,7 @@ def _serve_run(cfg, eng, reqs, mode, baseline, *, run: int = 1,
                                  f"(want {want})")
         entries = eng.prefill_steps()
         want_p = {"sc_linear": n_proj}
-        if sites:
+        if flash_sites:
             want_p["flash_attention"] = flash_sites
         if sc_attn:
             want_p["flash_attention_sc"] = flash_sites
@@ -2001,7 +2085,11 @@ def _serve_run(cfg, eng, reqs, mode, baseline, *, run: int = 1,
         f"flash attention {launches['flash_attention']} (= "
         f"{st['prefill_chunks'] if mode == 'chunked' else st['prefills']}"
         f" x {flash_sites} unwindowed sites, and {flash_sites} a warm-up "
-        f"run of a capture in this run); max_memory_allocated {peak / 2**30:.3f} GiB, "
+        f"run of a capture in this run)"
+        + (f", paged with the logit softcap "
+           f"{launches['paged_attention_softcap']} (= paged)"
+           if cfg.attn_softcap else "")
+        + f"; max_memory_allocated {peak / 2**30:.3f} GiB, "
         f"memory_reserved {reserved / 2**30:.3f} GiB")
     if steps < 1:
         raise AssertionError("the engine ran no decode step")
@@ -2027,10 +2115,21 @@ def _serve_run(cfg, eng, reqs, mode, baseline, *, run: int = 1,
         raise AssertionError(f"flash kernel launched "
                              f"{launches['flash_attention']} times for "
                              f"{prefill_calls} prefill calls")
+    # every paged launch of a softcapped model applied the cap, and no
+    # other model's did
+    capped = launches["paged_attention"] if cfg.attn_softcap else 0
+    if launches["paged_attention_softcap"] != capped or \
+            (cfg.attn_softcap and not capped):
+        raise AssertionError(f"{tag} {launches['paged_attention_softcap']} "
+                             f"paged launches with the softcap, want "
+                             f"{capped} (> 0 with a softcap)")
     # every attention launch took the cell's path: SC, or float
-    for name in ("paged_attention", "flash_attention"):
-        if launches[f"{name}_sc"] != (launches[name] if sc_attn else 0):
-            raise AssertionError(f"{tag} {launches[f'{name}_sc']} of "
+    for name, sc in (("paged_attention", "paged_attention_sc"),
+                     ("flash_attention", "flash_attention_sc"),
+                     ("paged_attention_softcap",
+                      "paged_attention_sc_softcap")):
+        if launches[sc] != (launches[name] if sc_attn else 0):
+            raise AssertionError(f"{tag} {launches[sc]} of "
                                  f"{launches[name]} {name} launches on the "
                                  f"SC path")
     mismatched = []
@@ -2170,11 +2269,23 @@ def _family_workload(cfg, seed=7):
 #: the cells that were cut already, whose checks are exact (streams
 #: bitwise, launches by formula), while mamba2-130m and qwen2-vl-2b
 #: (whose vision prefill is held within shares of its largest logit) run
-#: whole.
+#: whole. The dense cells, for the script's time too: qwen2.5-14b at 2 of
+#: its 48 layers and gemma2-9b at 2 of its 42 (one local/global period);
+#: qwen2-7b runs whole. Whole (the kernel's default SC-GEMM plans, on an
+#: H100 80GB HBM3 at 700 W) both fit and serve every stream equal to the
+#: baseline, but take 103.9 s (peak 54.5 GiB) and 797.1 s (58.3 GiB; ~19
+#: s a layer, most of it the 4,160-token prompt's SC-GEMM at 4,160 rows
+#: and plain flash formulation, seven one-shot passes and two chunked);
+#: qwen2-7b alone takes 65.8 s, and the script's estimate on a slow host
+#: was already ~980 s of its 1,200. To serve one whole, drop its entry
+#: here in a copy of the script and run that cell alone (``--only``).
 FAMILY_CUTS = {"qwen3-moe-235b-a22b": {"n_layers": 2},
                "llama4-maverick-400b-a17b": {"n_layers": 4, "n_experts": 32},
                "zamba2-7b": {"n_layers": 9},
-               "musicgen-large": {"n_layers": 12}}
+               "musicgen-large": {"n_layers": 12},
+               "qwen2.5-14b": {"n_layers": 2},
+               "gemma2-9b": {"n_layers": 2}}
+
 
 
 def _family_cfg(arch: str):
@@ -2198,9 +2309,19 @@ PROFILED_CELLS = {"serve_ssm": "mamba2-130m", "serve_hybrid": "zamba2-7b",
 #: of it the batched expert projections, which ``sc_gemm`` times)
 MOE_CELLS = {"serve_moe": "qwen3-moe-235b-a22b",
              "serve_moe_llama4": "llama4-maverick-400b-a17b"}
-FAMILY_CELLS = {**PROFILED_CELLS, **MOE_CELLS}
-#: cells served graphed only (no eager run, no speculative engine)
-GRAPHED_ONLY = {"serve_moe_llama4"}
+#: the plain dense LLMs of the registry at their full widths: QKV bias and
+#: the paged kernel at groups 7 and 5 (the qwen cells); alternating 4,096-
+#: token windows, attention softcap 50 on every layer (the paged kernel's
+#: softcap path), final softcap 30, head dim 256 and a scaled, tied
+#: 256,000-row embedding (gemma2-9b). Not profiled: their steps are the
+#: same kernels at other widths
+DENSE_CELLS = {"serve_qwen2_7b": "qwen2-7b",
+               "serve_qwen2_5_14b": "qwen2.5-14b",
+               "serve_gemma2_9b": "gemma2-9b"}
+FAMILY_CELLS = {**PROFILED_CELLS, **MOE_CELLS, **DENSE_CELLS}
+#: cells served graphed only (no eager run, no speculative engine;
+#: speculation over gemma2's arch is held on the CPU)
+GRAPHED_ONLY = {"serve_moe_llama4", *DENSE_CELLS}
 #: a family cell's traffic: (its requests from the config, the engine's
 #: max_seq and chunk). The ssm and hybrid cells take ``FAMILY_*``'s; the
 #: vlm and audio cells the ``serve`` cell's (8 requests of 64-token
@@ -2216,23 +2337,46 @@ SERVE_TRAFFIC = (lambda cfg: _workload(cfg, 8, 64, 16, 64, seed=5),
 MOE_REQUESTS = 4
 MOE_TRAFFIC = (lambda cfg: _workload(cfg, MOE_REQUESTS, 64, 16, 64, seed=5),
                dict(max_seq=256, chunk=16))
+#: gemma2-9b's traffic: the ``serve`` cell's 8 requests and one of a
+#: 4,160-token prompt and 16 new tokens, last, through ``max_seq`` 4,352
+#: and 256-row chunks, so that the 4,096-token window binds in its
+#: prefill (rows past 4,095, chunked and one-shot) and in its decode
+GEMMA_LONG_PROMPT, GEMMA_LONG_NEW = 4160, 16
+
+
+def _gemma_workload(cfg):
+    import dataclasses
+    return (_workload(cfg, 8, 64, 16, 64, seed=5)
+            + [dataclasses.replace(
+                _workload(cfg, 1, GEMMA_LONG_PROMPT, GEMMA_LONG_NEW,
+                          GEMMA_LONG_NEW, seed=13)[0], uid="req-long")])
+
+
+GEMMA_TRAFFIC = (_gemma_workload, dict(max_seq=4352, chunk=256))
 #: a family cell's speculative engine: (k, draft_bits)
 FAMILY_SPEC = (1, 4)
 #: each family cell's traffic
 CELL_TRAFFIC = {"serve_ssm": FAMILY_TRAFFIC, "serve_hybrid": FAMILY_TRAFFIC,
                 "serve_vlm": SERVE_TRAFFIC, "serve_audio": SERVE_TRAFFIC,
-                "serve_moe": MOE_TRAFFIC, "serve_moe_llama4": MOE_TRAFFIC}
+                "serve_moe": MOE_TRAFFIC, "serve_moe_llama4": MOE_TRAFFIC,
+                "serve_qwen2_7b": SERVE_TRAFFIC,
+                "serve_qwen2_5_14b": SERVE_TRAFFIC,
+                "serve_gemma2_9b": GEMMA_TRAFFIC}
 #: phase -> the cells whose sequential baselines it reads from the child
 #: process (``_Baselines``). Not the moe cells': a B=1 step there is ~0.2 s
 #: of batched expert projections on the card, whose kernels would share
 #: it with every run of the main process (on an H100 80GB HBM3 at 700 W
 #: the serve cell's graphed step took 19.49 ms beside llama4's baseline,
 #: 9.98 alone), so those cells compute theirs in line, after the child
-#: has ended.
+#: has ended. The dense cells' come last: the child computes them (28.6
+#: GiB at most, qwen2-7b's) beside the vlm and audio cells (under 13 GiB)
+#: and has ended before the moe cells start; in line they took ~40 s of
+#: the script (H100 80GB HBM3, 700 W).
 BASELINE_KEYS = {"serve": ("serve",), "serve_sc": ("serve_sc",),
                  "serve_spec": ("serve", "serve_sc"),
                  "serve_prefix": ("serve_prefix",),
-                 **{name: (name,) for name in PROFILED_CELLS}}
+                 **{name: (name,) for name in PROFILED_CELLS},
+                 **{name: (name,) for name in DENSE_CELLS}}
 
 
 def _baseline_cell(key: str):
@@ -2265,6 +2409,7 @@ def _baseline_worker(keys, queue) -> None:
     traceback, None)`` and an end at the first failure."""
     import traceback
     sys.path.insert(0, str(ROOT / "src"))
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(BASELINE_TUNE_CACHE)
     import torch
     from repro_torch.device import exact_float32
     from repro_torch.models import bind
@@ -2438,7 +2583,14 @@ def _family_line(cfg, n_params: int) -> str:
                 + (f" x {cfg.n_codebooks} codebooks" if cfg.n_codebooks
                    else "")
                 + (f", M-RoPE sections {cfg.mrope_sections}"
-                   if cfg.mrope_sections else "") + f", {cfg.act}")
+                   if cfg.mrope_sections else "")
+                + (", QKV bias" if cfg.qkv_bias else "")
+                + (f", windows {cfg.windows}" if any(cfg.windows) else "")
+                + (f", softcap {cfg.attn_softcap} (attention) / "
+                   f"{cfg.final_softcap} (final)" if cfg.attn_softcap
+                   else "")
+                + (", tied scaled embedding" if cfg.tie_embeddings
+                   and cfg.emb_scale else "") + f", {cfg.act}")
     cut = FAMILY_CUTS.get(cfg.name)
     body += (f"; cut {cut} of the registered config, every width kept"
              if cut else "; whole")
@@ -2626,20 +2778,25 @@ def _family_speculate(cfg, params, reqs, baseline, shape, name: str):
 def _family_phase(name: str) -> dict:
     """Serve the cell's ``CELL_TRAFFIC`` at the cell's arch as registered,
     whole (SC-GEMM at 8 bits, float attention, random weights from seed
-    0), with the prefix cache asked for (its
-    dense-only gate turns it off, and the stats must say so): chunked and
+    0), with the prefix cache asked for (its dense-only gate turns it off,
+    and the stats must say so; a dense cell asks for none, as the
+    ``serve`` cell): chunked and
     one-shot, each eager and then graphed twice on one engine (the second
-    run the cell), every run against the sequential B=1 ``generate``
-    baseline, a prefill chunk of the longest prompt timed on the chunked
-    engines. An M-RoPE model first holds its vision prefill
-    (``_vision_prefill``); last, a speculative engine serves or is refused
-    (``_family_speculate``). The graphed step's profile is
-    ``phase_profile``'s."""
+    run the cell; ``GRAPHED_ONLY`` cells graphed only), every run against
+    the sequential B=1 ``generate`` baseline (a moe cell computes it here,
+    once the child process has ended), a prefill chunk timed on the
+    chunked engines. An M-RoPE model first holds its vision
+    prefill (``_vision_prefill``); last, a speculative engine serves or is
+    refused (``_family_speculate``). A dense cell's float weights wait on
+    the host while its engines run: each graphed entry copies them in
+    and packs its own. The graphed step's profile is ``phase_profile``'s."""
     import torch
     from repro_torch.launch import steps
     from repro_torch.models import bind
+    from repro_torch.models.transformer import params_to
     shape = CELL_TRAFFIC[name][1]
     cfg, reqs = _baseline_cell(name)
+    total = torch.cuda.get_device_properties(0).total_memory
     if cfg.family == "moe":
         _no_drops(cfg, name, shape)
         # the cell's engines need most of the card: the child process that
@@ -2656,6 +2813,7 @@ def _family_phase(name: str) -> dict:
         f"{time.perf_counter() - t0:.1f}s, "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     out = {"n_layers": cfg.n_layers, "parameters": n_params}
+    peaks = {}
     if cfg.mrope_sections:
         out["vision_prefill"] = _vision_prefill(cfg, params, name)
     longest = max(r.prompt_len for r in reqs)
@@ -2663,16 +2821,31 @@ def _family_phase(name: str) -> dict:
             f"prompt tokens"
             + (f" of {cfg.n_codebooks} codebooks" if cfg.n_codebooks else "")
             + f", {sum(r.max_new_tokens for r in reqs)} new)")
+    windows = [w for w in cfg.windows if w]
+    if windows:
+        what += (f"; the longest prompt {longest} tokens "
+                 f"({'crosses' if longest > min(windows) else 'within'} "
+                 f"the {min(windows)}-token window)")
+        if name in DENSE_CELLS and not longest > min(windows):
+            raise AssertionError(f"[{name}] no request crosses the "
+                                 f"{min(windows)}-token window")
     if cfg.family == "moe":
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
         baseline = _generate_streams(cfg, params, reqs)
         torch.cuda.synchronize()
+        peaks["baseline"] = torch.cuda.max_memory_allocated()
         log(f"[{name}] sequential baseline: {what} in "
             f"{time.perf_counter() - t1:.1f}s, peak allocated "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+            f"{peaks['baseline'] / 2**30:.3f} GiB")
     else:
         log(f"[{name}] {what}")
+    if name in DENSE_CELLS:
+        # an entry holds its own float copy and the packed one: the
+        # caller's copy waits on the host, so no second device copy exists
+        params = params_to(params, "cpu")
+        gc.collect()
+        torch.cuda.empty_cache()
     modes = (True,) if name in GRAPHED_ONLY else (False, True)
     for mode in ("chunked", "oneshot"):
         steps.clear_decode_steps()
@@ -2680,9 +2853,17 @@ def _family_phase(name: str) -> dict:
         runs = {}
         for graphs in modes:
             n0 = len(steps.decode_steps())
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
             eng = _serve_engine(cfg, params, mode, graphs, **shape,
-                                prefix_cache=True)
+                                prefix_cache=name not in DENSE_CELLS)
+            torch.cuda.synchronize()
             kind = "graphed" if graphs else "eager"
+            peaks[f"{mode}:{kind}:build"] = torch.cuda.max_memory_allocated()
+            log(f"[{name}:{mode}:{kind}] engine built in "
+                f"{time.perf_counter() - t1:.1f}s (its decode graph "
+                f"captured), peak allocated "
+                f"{peaks[f'{mode}:{kind}:build'] / 2**30:.3f} GiB")
             runs[kind] = _serve_run(cfg, eng, reqs, mode, baseline,
                                     name=name, captured=len(
                                         steps.decode_steps()) - n0)
@@ -2691,9 +2872,13 @@ def _family_phase(name: str) -> dict:
                 runs[kind] = _serve_run(cfg, eng, reqs, mode, baseline,
                                         run=2, name=name)
             if mode == "chunked":
+                # the cell's longest prompt, or for a dense cell the
+                # serve prompts' 64 tokens in whole chunks
+                length = longest if name not in DENSE_CELLS else \
+                    eng.chunk * max(1, 64 // eng.chunk)
                 with _BASELINES.paused(graphs):
                     runs[kind]["prefill_chunk"] = _family_chunk_ms(
-                        eng, cfg, f"[{name}:{mode}:{kind}]", longest)
+                        eng, cfg, f"[{name}:{mode}:{kind}]", length)
             del eng
             gc.collect()
             # a moe cell's next entry needs ~40 GiB more in one piece
@@ -2714,7 +2899,8 @@ def _family_phase(name: str) -> dict:
             f"tokens/s {fs['tok_per_s']:.2f}, TTFT p50 "
             f"{fs['ttft_p50_s'] * 1e3:.2f} ms, peak allocated "
             f"{first['max_memory_allocated'] / 2**30:.3f} GiB; prefix cache "
-            f"asked for, off for the {cfg.family} family")
+            + ("off, as in the serve cell" if name in DENSE_CELLS else
+               f"asked for, off for the {cfg.family} family"))
         out[mode] = graphed
     steps.clear_decode_steps()
     gc.collect()
@@ -2725,7 +2911,6 @@ def _family_phase(name: str) -> dict:
             # the draft's planes are a fourth copy of the weights' size:
             # the caller's float copy waits on the host, and the engine
             # brings it over only while its entry copies it in
-            from repro_torch.models.transformer import params_to
             params = params_to(params, "cpu")
             gc.collect()
             torch.cuda.empty_cache()
@@ -2735,15 +2920,18 @@ def _family_phase(name: str) -> dict:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    out["peak_gib"] = max(
-        r["max_memory_allocated"] for m in ("chunked", "oneshot",
-                                            "speculative")
-        if isinstance(out[m], dict)
-        for r in (out[m], out[m].get("first_run"), out[m].get("eager"))
-        if isinstance(r, dict)) / 2**30
-    log(f"[{name}] peak allocated over the cell's serving runs "
-        f"{out['peak_gib']:.3f} GiB of the card's "
-        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.3f}")
+    for m in ("chunked", "oneshot", "speculative"):
+        if isinstance(out[m], dict):
+            for tag, r in (("", out[m]), (":first", out[m].get("first_run")),
+                           (":eager", out[m].get("eager"))):
+                if isinstance(r, dict):
+                    peaks[f"{m}{tag}"] = r["max_memory_allocated"]
+    out["peak_gib"] = {k: v / 2**30 for k, v in peaks.items()}
+    out["peak_gib_max"] = max(peaks.values()) / 2**30
+    log(f"[{name}] peak allocated over the cell (each engine's build and "
+        f"its serving runs{', and its baseline' if 'baseline' in peaks else ''}) {out['peak_gib_max']:.3f} "
+        f"GiB of the card's {total / 2**30:.3f}: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out["peak_gib"].items()))
     return out
 
 
@@ -2788,6 +2976,18 @@ def phase_serve_moe() -> dict:
 
 def phase_serve_moe_llama4() -> dict:
     return _family_phase("serve_moe_llama4")
+
+
+def phase_serve_qwen2_7b() -> dict:
+    return _family_phase("serve_qwen2_7b")
+
+
+def phase_serve_qwen2_5_14b() -> dict:
+    return _family_phase("serve_qwen2_5_14b")
+
+
+def phase_serve_gemma2_9b() -> dict:
+    return _family_phase("serve_gemma2_9b")
 
 
 #: The train phase: smollm-360m at full width as registered (32 layers,
@@ -3735,10 +3935,10 @@ def _op_metas(dev) -> list:
                                               pe.scale, 8, 0, 0, 0)),
         "paged_attention": (ops.paged_attention,
                             (rand(4, 5, 3, 64), pool, pool.clone(), tables,
-                             pos, 0, 0)),
+                             pos, 0, 0, 0.0)),
         "paged_attention_sc": (ops.paged_attention,
                                (rand(4, 5, 3, 64), pool, pool.clone(),
-                                tables, pos, 0, 8)),
+                                tables, pos, 0, 8, 0.0)),
         "flash_attention": (ops.flash_attention,
                             (q_rows, kv_rows, kv_rows, None, 0, True, 64, 0,
                              0, 0)),
@@ -4515,6 +4715,10 @@ def _serve_spec_run(cfg, eng, reqs, baseline, *, run: int = 1,
             "sc_matmul_counts": 0,
             "paged_attention": layers * (k + 1) * rounds,
             "paged_attention_sc": (layers * k + sc_verify) * rounds,
+            "paged_attention_softcap": (layers * (k + 1) * rounds
+                                        if cfg.attn_softcap else 0),
+            "paged_attention_sc_softcap": ((layers * k + sc_verify) * rounds
+                                           if cfg.attn_softcap else 0),
             "flash_attention": flash,
             "flash_attention_sc": flash if cfg.attn_sc else 0}
     steps_seen = {name: {"captures": s.captures,
@@ -5231,9 +5435,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.device import exact_float32
     exact_float32()   # float32 products in full float32, TF32 off
-    # the autotuner's cache: a fresh file of this run's
+    # the autotuner's caches: fresh files of this run's
     TUNE_CACHE.parent.mkdir(parents=True, exist_ok=True)
     TUNE_CACHE.unlink(missing_ok=True)
+    BASELINE_TUNE_CACHE.unlink(missing_ok=True)
     os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(TUNE_CACHE)
 
     only = None
@@ -5261,6 +5466,9 @@ def main() -> int:
               ("serve_audio", phase_serve_audio),
               ("serve_moe", phase_serve_moe),
               ("serve_moe_llama4", phase_serve_moe_llama4),
+              ("serve_qwen2_7b", phase_serve_qwen2_7b),
+              ("serve_qwen2_5_14b", phase_serve_qwen2_5_14b),
+              ("serve_gemma2_9b", phase_serve_gemma2_9b),
               ("train", phase_train),
               ("dist", lambda: phase_dist(report)),
               ("dryrun", phase_dryrun), ("serve_mesh", phase_serve_mesh),
@@ -5319,7 +5527,7 @@ def main() -> int:
         return next(r for r in paged if r["dtype"] == "bfloat16"
                     and r["sc_bits"] == bits and r["shape"] == shape)
 
-    def paged_entry(name, bits, launches):
+    def paged_entry(name, bits, launches, softcap_launches):
         row, long_row = paged_row(bits, "serve"), paged_row(bits, "long")
         hybrid_row = paged_row(bits, "hybrid")
         layouts = {shape: paged_row(b, shape) for shape, b in
@@ -5353,7 +5561,18 @@ def main() -> int:
                     key: r[key] for key in
                     ("positions", "layout", "sc_bits", "ms", "device_ms",
                      "plain_ms", "bound_ms", "bound_by")}
-                   for shape, r in layouts.items()}}
+                   for shape, r in layouts.items()},
+                # the dense cells' layouts: gemma2-9b's with its softcap
+                # (windowed and global) and without it, qwen2-7b's G 7
+                # and qwen2.5-14b's G 5
+                "softcap_launches": softcap_launches,
+                **{f"{shape}_call": {
+                    key: paged_row(bits, shape)[key] for key in
+                    ("positions", "window", "softcap", "layout", "ms",
+                     "device_ms", "plain_ms", "bound_ms", "bound_by")}
+                   for shape in ("gemma2_local", "gemma2_global",
+                                 "gemma2_nocap", "qwen2_7b",
+                                 "qwen2_5_14b")}}
 
     def flash_entry(name, key, bits, launches):
         timing = report["flash"]["timing"][key]
@@ -5450,12 +5669,21 @@ def main() -> int:
                  "(32 layers x 7 projections + the LM head), bf16 rows",
          "families": {
              arch: {what: fam[what] for what in ("decode_step",
-                                                 "prefill_chunk")}
+                                                 "prefill_chunk")
+                    if what in fam}
              for arch, fam in report["sc_gemm"]["families"].items()},
+         "gemma2_head_call": next(
+             {k2: r[k2] for k2 in ("M", "K", "N", "ms", "device_ms",
+                                   "tuned_device_ms", "plain_ms",
+                                   "bound_ms", "bound_by")}
+             for r in report["sc_gemm"]["families"]["gemma2-9b"]["timing"]),
          "moe_batched": report["sc_gemm"]["moe"]["timing"]},
         paged_entry("paged_attention", None,
-                    total["paged_attention"] - total["paged_attention_sc"]),
-        paged_entry("paged_attention_sc", 8, total["paged_attention_sc"]),
+                    total["paged_attention"] - total["paged_attention_sc"],
+                    total["paged_attention_softcap"]
+                    - total["paged_attention_sc_softcap"]),
+        paged_entry("paged_attention_sc", 8, total["paged_attention_sc"],
+                    total["paged_attention_sc_softcap"]),
         flash_entry("flash_attention", "float", None,
                     total["flash_attention"] - total["flash_attention_sc"])
         | {"train_launches": trained["flash_attention"]

@@ -52,6 +52,14 @@
 //   added in rank order. Scores, planes and PV terms repeat the plain
 //   version's float32 operations one for one (sc_attention.cuh).
 //
+// Logit softcap (softcap > 0; gemma2's attention): a key's scaled score s
+// becomes softcap * tanhf(s / softcap) before the causal and window masks,
+// on both paths, as the TPU kernel applies it
+// (repro/kernels/paged_attention.py:134-135 and :158-159). It is one
+// elementwise step on a score and changes no order of summation. The
+// build keeps IEEE division and the accurate tanhf (no --use_fast_math,
+// so no __tanhf).
+//
 // Why the result depends only on the slot's own keys: the tiles, their
 // owners, every order of summation inside a rank and the merge order are
 // functions of the absolute key index, the slot's position and the window
@@ -103,6 +111,7 @@ struct Args {
   int window;           // <= 0: none
   int sc_bits;
   float scale;
+  float softcap;        // <= 0: none
 };
 
 // Bytes of one K or V row in a stage: 16-byte aligned plus 16, so lanes
@@ -121,6 +130,11 @@ __host__ __device__ __forceinline__ size_t sc_smem_bytes(int esz, int G, int D, 
   return 2 * static_cast<size_t>(kTile) * row_stride(D, esz) +
          sizeof(float) * (2 * static_cast<size_t>(G) * D + kTile * (D + 1) + kTile + 5 * G +
                           (scores_in_smem ? static_cast<size_t>(G) * share : 0));
+}
+
+// cap * tanh(s / cap), the plain version's softcap, one rounding a step.
+__device__ __forceinline__ float capped(float s, float cap) {
+  return cap > 0.f ? __fmul_rn(cap, tanhf(__fdiv_rn(s, cap))) : s;
 }
 
 // The keys a slot attends and the tiles that hold them.
@@ -381,7 +395,9 @@ paged_decode_kernel(const Args a) {
       const int key = k0 + lane;
       float s = kMasked;
       if (lane < nt && key >= sp.first)
-        s = dot_row(q_s + g * D, kt + lane * stride, D, static_cast<const T*>(nullptr)) * a.scale;
+        s = capped(dot_row(q_s + g * D, kt + lane * stride, D, static_cast<const T*>(nullptr)) *
+                       a.scale,
+                   a.softcap);
       const float m_old = m_s[g];
       const float m_new = fmaxf(m_old, warp_max(s));
       const float p = s <= kMasked ? 0.f : expf(s - m_new);   // masked: exactly 0
@@ -569,7 +585,7 @@ paged_decode_sc_kernel(const Args a) {
           int count = 0;
 #pragma unroll 8
           for (int d = 0; d < D; ++d) count += signed_term(q_s[g * D + d], kq_s[t * DP + d], half);
-          s = sc_score(count, nq_s[g], kv_scale[t], a.scale);
+          s = capped(sc_score(count, nq_s[g], kv_scale[t], a.scale), a.softcap);
         }
         s_loc[static_cast<size_t>(g) * a.share + jj * kTile + t] = s;
       }
@@ -701,8 +717,8 @@ int launch(void (*kernel)(Args), size_t* checked, const Args& a, int C, size_t b
 
 Args make_args(const void* q, const void* k_pages, const void* v_pages, const void* tables,
                const void* q_positions, void* out, void* work, int KV, int G, int D, int block,
-               int max_blocks, int n_pages, int vec, int share, float scale, int window,
-               int sc_bits) {
+               int max_blocks, int n_pages, int vec, int share, float scale, float softcap,
+               int window, int sc_bits) {
   Args a;
   a.q = q;
   a.k = k_pages;
@@ -722,15 +738,17 @@ Args make_args(const void* q, const void* k_pages, const void* v_pages, const vo
   a.window = window;
   a.sc_bits = sc_bits;
   a.scale = scale;
+  a.softcap = softcap;
   return a;
 }
 
 template <typename T>
 int launch_float(const void* q, const void* k_pages, const void* v_pages, const void* tables,
                  const void* q_positions, void* out, int C, int KV, int G, int D, int block,
-                 int max_blocks, int n_pages, int vec, float scale, int window, void* stream) {
+                 int max_blocks, int n_pages, int vec, float scale, float softcap, int window,
+                 void* stream) {
   const Args a = make_args(q, k_pages, v_pages, tables, q_positions, out, nullptr, KV, G, D,
-                           block, max_blocks, n_pages, vec, 0, scale, window, 0);
+                           block, max_blocks, n_pages, vec, 0, scale, softcap, window, 0);
   static size_t checked[kMaxDevices] = {};
   return launch(paged_decode_kernel<T>, checked, a, C, float_smem_bytes(sizeof(T), G, D),
                 stream);
@@ -740,9 +758,10 @@ template <typename T>
 int launch_sc(const void* q, const void* k_pages, const void* v_pages, const void* tables,
               const void* q_positions, void* out, void* work, int C, int KV, int G, int D,
               int block, int max_blocks, int n_pages, int vec, int share, float scale,
-              int window, int sc_bits, void* stream) {
+              float softcap, int window, int sc_bits, void* stream) {
   const Args a = make_args(q, k_pages, v_pages, tables, q_positions, out, work, KV, G, D,
-                           block, max_blocks, n_pages, vec, share, scale, window, sc_bits);
+                           block, max_blocks, n_pages, vec, share, scale, softcap, window,
+                           sc_bits);
   static size_t checked[kMaxDevices] = {};
   return launch(paged_decode_sc_kernel<T>, checked, a, C,
                 sc_smem_bytes(sizeof(T), G, D, share, work == nullptr), stream);
@@ -763,35 +782,40 @@ extern "C" long long paged_attention_smem_bytes(int sc, int esz, int G, int D, i
 extern "C" int paged_attention_f32(const void* q, const void* k_pages, const void* v_pages,
                                    const void* tables, const void* q_positions, void* out,
                                    int C, int KV, int G, int D, int block, int max_blocks,
-                                   int n_pages, int vec, float scale, int window, void* stream) {
+                                   int n_pages, int vec, float scale, float softcap, int window,
+                                   void* stream) {
   return launch_float<float>(q, k_pages, v_pages, tables, q_positions, out, C, KV, G, D, block,
-                             max_blocks, n_pages, vec, scale, window, stream);
+                             max_blocks, n_pages, vec, scale, softcap, window, stream);
 }
 
 extern "C" int paged_attention_bf16(const void* q, const void* k_pages, const void* v_pages,
                                     const void* tables, const void* q_positions, void* out,
                                     int C, int KV, int G, int D, int block, int max_blocks,
-                                    int n_pages, int vec, float scale, int window, void* stream) {
+                                    int n_pages, int vec, float scale, float softcap, int window,
+                                    void* stream) {
   return launch_float<__nv_bfloat16>(q, k_pages, v_pages, tables, q_positions, out, C, KV, G,
-                                     D, block, max_blocks, n_pages, vec, scale, window, stream);
+                                     D, block, max_blocks, n_pages, vec, scale, softcap, window,
+                                     stream);
 }
 
 extern "C" int paged_attention_sc_f32(const void* q, const void* k_pages, const void* v_pages,
                                       const void* tables, const void* q_positions, void* out,
                                       void* work, int C, int KV, int G, int D, int block,
                                       int max_blocks, int n_pages, int vec, int share,
-                                      float scale, int window, int sc_bits, void* stream) {
+                                      float scale, float softcap, int window, int sc_bits,
+                                      void* stream) {
   return launch_sc<float>(q, k_pages, v_pages, tables, q_positions, out, work, C, KV, G, D,
-                          block, max_blocks, n_pages, vec, share, scale, window, sc_bits,
-                          stream);
+                          block, max_blocks, n_pages, vec, share, scale, softcap, window,
+                          sc_bits, stream);
 }
 
 extern "C" int paged_attention_sc_bf16(const void* q, const void* k_pages, const void* v_pages,
                                        const void* tables, const void* q_positions, void* out,
                                        void* work, int C, int KV, int G, int D, int block,
                                        int max_blocks, int n_pages, int vec, int share,
-                                       float scale, int window, int sc_bits, void* stream) {
+                                       float scale, float softcap, int window, int sc_bits,
+                                       void* stream) {
   return launch_sc<__nv_bfloat16>(q, k_pages, v_pages, tables, q_positions, out, work, C, KV,
-                                  G, D, block, max_blocks, n_pages, vec, share, scale, window,
-                                  sc_bits, stream);
+                                  G, D, block, max_blocks, n_pages, vec, share, scale, softcap,
+                                  window, sc_bits, stream);
 }

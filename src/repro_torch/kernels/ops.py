@@ -35,11 +35,15 @@ def launch_counters() -> dict:
     name: a replayed graph launches their kernels without calling them,
     so a step's ``replay`` adds what its capture recorded. The attention
     wrappers count all their launches and, under ``*_sc``, their SC
-    path's alone."""
+    path's alone; ``paged_attention_softcap`` counts the paged kernel's
+    launches with a logit softcap, and ``paged_attention_sc_softcap``
+    their SC path's alone."""
     return {"sc_linear": sc_linear,
             "sc_matmul_counts": sc_matmul_counts_signed,
             "paged_attention": paged_attention,
             "paged_attention_sc": paged_attention.sc,
+            "paged_attention_softcap": paged_attention.softcap,
+            "paged_attention_sc_softcap": paged_attention.sc.softcap,
             "flash_attention": flash_attention,
             "flash_attention_sc": flash_attention.sc,
             "sc_stream_mul": sc_stream_mul_cuda}

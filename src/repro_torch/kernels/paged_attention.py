@@ -39,8 +39,16 @@ one; the tolerance is the float path's, plus one output quantization step
 (``flash_attention.sc_tolerance``) should a probability land within an ulp
 of a rounding boundary. Every head layout is served under SC.
 
+Logit softcap (``logit_softcap``, gemma2's attention): both paths take
+each scaled score through ``cap * tanh(s / cap)`` before the masks, as the
+TPU kernel does (``repro/kernels/paged_attention.py:134-135``,
+``:158-159``); it is elementwise and moves no order of summation, so the
+tolerances above hold with it.
+
 ``paged_attention.launches`` counts kernel launches, both paths: one a
-call; ``paged_attention.sc.launches`` counts the SC path's alone.
+call; ``paged_attention.sc.launches`` counts the SC path's alone;
+``paged_attention.softcap.launches`` counts those with a logit softcap,
+both paths, and ``paged_attention.sc.softcap.launches`` the SC path's.
 :func:`plan` is the launch plan as a pure function of the shapes. The
 wrapper is the custom operator ``torch.ops.repro_torch.paged_attention``
 (the plain version on the CPU, the launch on the card, a fake
@@ -130,9 +138,10 @@ def plan(c: int, kv: int, g: int, d: int, block: int, max_blocks: int,
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: Argument types of the C entries ``paged_attention_{f32,bf16}`` (float
 #: path) and ``paged_attention_sc_{f32,bf16}``: pointers (the stream last),
-#: the shapes and the plan as ints, the attention scale as a float.
-ARGTYPES = {"float": [_PTR] * 6 + [_I32] * 8 + [_F32, _I32, _PTR],
-            "sc": [_PTR] * 7 + [_I32] * 9 + [_F32, _I32, _I32, _PTR]}
+#: the shapes and the plan as ints, the attention scale and the logit
+#: softcap (0: none) as floats.
+ARGTYPES = {"float": [_PTR] * 6 + [_I32] * 8 + [_F32, _F32, _I32, _PTR],
+            "sc": [_PTR] * 7 + [_I32] * 9 + [_F32, _F32, _I32, _I32, _PTR]}
 _ENTRIES: dict = {}
 
 
@@ -153,6 +162,7 @@ def paged_attention_torch(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, tables: torch.Tensor,
                           q_positions: torch.Tensor, *,
                           window: int | None = None,
+                          logit_softcap: float | None = None,
                           sc_bits: int | None = None) -> torch.Tensor:
     """Plain version: gather the pages dense (−1 → trash page) and run the
     exact-softmax decode attention of ``models.layers``."""
@@ -161,7 +171,7 @@ def paged_attention_torch(q: torch.Tensor, k_pages: torch.Tensor,
     out = _decode_attention_plain(
         q.reshape(c, 1, kv * g, d), _gather_pages(k_pages, tables),
         _gather_pages(v_pages, tables), q_position=q_positions.to(torch.int64),
-        window=window, sc_bits=sc_bits)
+        window=window, logit_softcap=logit_softcap, sc_bits=sc_bits)
     return out.reshape(c, kv, g, d)
 
 
@@ -175,9 +185,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     ``torch.ops.repro_torch.paged_attention``'s implementation (called
     directly for plain tensors, ``build.direct``)."""
     check_sc_bits(sc_bits)
-    if logit_softcap is not None:
-        raise ConfigError("the paged kernel takes no logit softcap; softcap "
-                          "layers stay on the gathered path")
+    if logit_softcap is not None and not logit_softcap > 0:
+        raise ConfigError(f"logit softcap must be > 0, got {logit_softcap}")
     if window is not None and window < 1:
         raise ConfigError(f"sliding window must be >= 1, got {window}")
     if q.dim() != 4 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
@@ -190,7 +199,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                           f"tables {tuple(tables.shape)} do not match q "
                           f"{tuple(q.shape)}")
     args = (q, k_pages, v_pages, tables, q_positions,
-            0 if window is None else int(window), sc_bits or 0)
+            0 if window is None else int(window), sc_bits or 0,
+            0.0 if logit_softcap is None else float(logit_softcap))
     if build.direct(*args[:5]):
         return _paged_attention_impl(*args)
     return torch.ops.repro_torch.paged_attention(*args)
@@ -198,18 +208,21 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 paged_attention.launches = 0
 paged_attention.sc = SimpleNamespace(launches=0)
+paged_attention.softcap = SimpleNamespace(launches=0)
+paged_attention.sc.softcap = SimpleNamespace(launches=0)
 
 
 def _paged_attention_impl(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, tables: torch.Tensor,
                           q_positions: torch.Tensor, window: int,
-                          sc_bits: int) -> torch.Tensor:
-    """:func:`paged_attention` with ``window`` and ``sc_bits`` 0 for none:
-    the plain version on the CPU, else one launch."""
+                          sc_bits: int, softcap: float) -> torch.Tensor:
+    """:func:`paged_attention` with ``window``, ``sc_bits`` and ``softcap``
+    0 for none: the plain version on the CPU, else one launch."""
     window, sc_bits = window or None, sc_bits or None
     if q.device.type == "cpu":
         return paged_attention_torch(q, k_pages, v_pages, tables,
                                      q_positions, window=window,
+                                     logit_softcap=softcap or None,
                                      sc_bits=sc_bits)
     tensors = (q, k_pages, v_pages, tables, q_positions)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
@@ -241,17 +254,22 @@ def _paged_attention_impl(q: torch.Tensor, k_pages: torch.Tensor,
     dims = (c, kv, g, d, block, tables.shape[1], n_pages, vec)
     win = 0 if window is None else int(window)
     if sc_bits is None:
-        rc = _entries()[suffix](*args, *dims, d ** -0.5, win, stream)
+        rc = _entries()[suffix](*args, *dims, d ** -0.5, softcap, win,
+                                stream)
     else:
         work = None if p.workspace is None else torch.empty(
             p.workspace, dtype=torch.float32, device=q.device)
         rc = _entries()[f"sc_{suffix}"](
             *args, 0 if work is None else work.data_ptr(), *dims, p.share,
-            d ** -0.5, win, sc_bits, stream)
+            d ** -0.5, softcap, win, sc_bits, stream)
     build.check(rc, "paged_attention")
     paged_attention.launches += 1
     if sc_bits is not None:
         paged_attention.sc.launches += 1
+    if softcap:
+        paged_attention.softcap.launches += 1
+        if sc_bits is not None:
+            paged_attention.sc.softcap.launches += 1
     return out
 
 
@@ -261,5 +279,5 @@ _paged_attention_op = torch.library.custom_op(
 
 @_paged_attention_op.register_fake
 def _paged_attention_fake(q, k_pages, v_pages, tables, q_positions, window,
-                          sc_bits):
+                          sc_bits, softcap):
     return q.new_empty(q.shape)

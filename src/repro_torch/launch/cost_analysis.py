@@ -299,13 +299,16 @@ def _kernel_work(name: str, args) -> tuple[float, float, float]:
         _, _, nbytes, ops = flash_bound(q, k, max(offset, 0), bits)
         return nbytes, (0.0 if bits else ops), (ops if bits else 0.0)
     if name == "paged_attention":
-        q, k_pages, _, tables, _, _, bits = args[:7]
+        q, k_pages, _, tables, _, _, bits, cap = args[:8]
         c, kv, g, d = q.shape
         keys = tables.shape[1] * k_pages.shape[1]     # a full table row
         esz = q.element_size()
         nbytes = esz * (2 * c * kv * g * d + 2 * c * kv * keys * d) \
             + _nbytes(tables)
-        ops = 4 * c * kv * g * d * keys
+        # QK and PV; a logit softcap adds a division, a tanh and a
+        # product a score
+        ops = 4 * c * kv * g * d * keys + (3 * c * kv * g * keys if cap
+                                           else 0)
         return nbytes, (0.0 if bits else ops), (ops if bits else 0.0)
     raise KeyError(name)
 

@@ -267,19 +267,19 @@ def _codebooks(cfg) -> tuple[int, ...]:
     return (cfg.n_codebooks,) if cfg.n_codebooks else ()
 
 
-def _empty_like(tree):
+def _empty_like(tree, device):
     """A parameter tree of the same structure with new, uninitialised
-    tensors."""
+    tensors on ``device``."""
     if isinstance(tree, dict):
-        return {k: _empty_like(v) for k, v in tree.items()}
+        return {k: _empty_like(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_empty_like(v) for v in tree)
+        return type(tree)(_empty_like(v, device) for v in tree)
     if dataclasses.is_dataclass(tree):
         return dataclasses.replace(tree, **{
-            f.name: _empty_like(getattr(tree, f.name))
+            f.name: _empty_like(getattr(tree, f.name), device)
             for f in dataclasses.fields(tree)})
     if isinstance(tree, torch.Tensor):
-        return torch.empty_like(tree)
+        return torch.empty_like(tree, device=device)
     return tree
 
 
@@ -726,9 +726,10 @@ def cached_decode_step(model, params, *, capacity: int, max_seq: int,
     Table contents, page churn and positions are inputs: they never cause
     a second capture. A new entry owns new weights (``params``' structure,
     loaded from ``params``' float weights and packed from its own copy, so
-    the entry holds the one packed copy it serves from) and a new, empty
-    KV pool; engines bind it through :meth:`DecodeStep.load` and
-    :meth:`DecodeStep.reset`."""
+    the entry holds the one packed copy it serves from; ``params`` may lie
+    on another device, the host included, and are copied in tensor by
+    tensor) and a new, empty KV pool; engines bind it through
+    :meth:`DecodeStep.load` and :meth:`DecodeStep.reset`."""
     key = _decode_key(model.cfg, model.device, capacity=capacity,
                       max_seq=max_seq, block=block, n_blocks=n_blocks,
                       max_blocks=max_blocks, fused=fused)
@@ -737,7 +738,7 @@ def cached_decode_step(model, params, *, capacity: int, max_seq: int,
         cache = model.init_cache(capacity, max_seq) if max_blocks is None \
             else cache_ops.paged_init(model.init_cache, capacity, n_blocks,
                                       block)
-        own = _empty_like(_floats(params))
+        own = _empty_like(_floats(params), model.device)
         with torch.no_grad():
             for dst, src in zip(_tensors(own), _tensors(_floats(params)),
                                 strict=True):

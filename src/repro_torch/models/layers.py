@@ -21,6 +21,17 @@ one-shot engine and the sequential baseline reduce each row identically.
 The MXU alignment is dropped: the gate is causal, no window, no softcap,
 not ``bf16_probs``, SC bits in 2..8.
 
+**Paged-kernel dispatch departs from the reference too.** The JAX package
+keeps logit-softcap layers (gemma2) off its paged kernel
+(``repro/models/layers.py:346-372``): the ``tanh`` chain fuses differently
+in two XLA programs, so the kernel and the gathered path would part bits.
+Here the CUDA kernel applies the softcap itself (``cap * tanh(s / cap)``
+on the scaled scores, as the TPU kernel's body does), and on the card one
+kernel serves paged and dense decode alike, engine and baseline, so
+softcap layers decode through it; only float single-KV-head full MHA
+stays gathered. On the CPU the kernel's plain version is the gathered
+formulation, so no CPU result moves.
+
 **Batch invariance.** The serving engine's streams must equal the
 sequential per-request baseline token for token on the card, where
 PyTorch's reductions and matmuls pick their kernels (and so their order of
@@ -423,18 +434,18 @@ def _gather_pages(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     return g.reshape(c, mb * blk, *g.shape[3:])
 
 
-def _paged_kernel_eligible(g: int, kv: int, logit_softcap: float | None,
+def _paged_kernel_eligible(g: int, kv: int,
                            sc_bits: int | None = None) -> bool:
     """Layouts the CUDA paged kernel serves. Unlike the TPU kernel there is
-    no lane alignment to meet (``head_dim`` 64 is eligible); softcap layers
-    stay on the gathered path, as in the JAX package's dispatch, and so
-    does float single-KV-head full-MHA (``KV == 1``, ``G == 1``). The SC
-    path widens the envelope to every head layout, as the reference's
-    does: its contraction is an integer popcount sum. The layout gate is
-    the autotuner's grid (``autotune.candidate_paged_configs``), empty for
+    no lane alignment to meet (``head_dim`` 64 is eligible), and softcap
+    layers are served (module docstring); float single-KV-head full-MHA
+    (``KV == 1``, ``G == 1``) stays on the gathered path. The SC path
+    widens the envelope to every head layout, as the reference's does:
+    its contraction is an integer popcount sum. The layout gate is the
+    autotuner's grid (``autotune.candidate_paged_configs``), empty for
     what the kernel does not serve, as in the JAX package."""
     from repro_torch.kernels.autotune import candidate_paged_configs
-    if logit_softcap is not None or not sc_attention_bits_ok(sc_bits):
+    if not sc_attention_bits_ok(sc_bits):
         return False
     return bool(candidate_paged_configs(kv, g, sc=sc_bits is not None))
 
@@ -462,8 +473,7 @@ def paged_decode_attention(q: torch.Tensor, paged: PagedKV, *,
     c, _, h, d = q.shape
     kv = paged.k.shape[2]
     g = h // kv
-    if kernel_impl != "jnp" and _paged_kernel_eligible(g, kv, logit_softcap,
-                                                       sc_bits):
+    if kernel_impl != "jnp" and _paged_kernel_eligible(g, kv, sc_bits):
         if kernel_impl == "pallas_tuned" or q.is_cuda:
             from repro_torch.kernels.ops import (
                 paged_decode_attention_tuned as kernel)
@@ -473,7 +483,7 @@ def paged_decode_attention(q: torch.Tensor, paged: PagedKV, *,
         out = kernel(whole_groups(q[:, 0], 1, kv).reshape(c, kv, g, d),
                      paged.k, paged.v,
                      paged.tables, q_position, window=window,
-                     sc_bits=sc_bits)
+                     logit_softcap=logit_softcap, sc_bits=sc_bits)
         return out.reshape(c, 1, h, d)
     return _decode_attention_plain(q, _gather_pages(paged.k, paged.tables),
                                    _gather_pages(paged.v, paged.tables),
@@ -572,15 +582,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     Its plan is looked up through the autotuner, as the paged decode's.
     ``kernel_impl="pallas_tuned"`` takes that route on any device (the
     kernel's plain version on the CPU, which gathers the same rows).
-    Everything else (the CPU, softcap layers) is the plain formulation,
-    whose rows are W-invariant too.
+    Everything else (the CPU, float single-KV-head MHA) is the plain
+    formulation, whose rows are W-invariant too.
     """
     b, w, h, d = q.shape
     _, s, kv, _ = k_cache.shape
     g = h // kv
     if ((q.is_cuda or kernel_impl == "pallas_tuned")
             and k_cache.is_contiguous() and v_cache.is_contiguous()
-            and _paged_kernel_eligible(g, kv, logit_softcap, sc_bits)):
+            and _paged_kernel_eligible(g, kv, sc_bits)):
         if is_dtensor(k_cache):
             return _per_rank_rows(decode_attention, q, k_cache, v_cache,
                                   q_position, window=window,
@@ -596,8 +606,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                                    device=q.device)[None, :]).reshape(b * w)
         out = paged_decode_attention_tuned(
             whole_groups(q, 2, kv).reshape(b * w, kv, g, d), k_cache,
-            v_cache, tables, rows,
-            window=window, sc_bits=sc_bits)
+            v_cache, tables, rows, window=window,
+            logit_softcap=logit_softcap, sc_bits=sc_bits)
         return out.reshape(b, w, h, d)
     return _decode_attention_plain(q, k_cache, v_cache, q_position=q_position,
                                    window=window, logit_softcap=logit_softcap,

@@ -116,7 +116,7 @@ def register() -> None:
         return rules
 
     def paged_attention(q, k_pages, v_pages, tables, q_positions, window,
-                        sc_bits):
+                        sc_bits, softcap):
         # [out, q, k_pages, v_pages, tables, q_positions]
         return [[R] * 6,
                 [Shard(0), Shard(0), R, R, Shard(0), Shard(0)],

@@ -294,13 +294,15 @@ class Engine:
         self.graphs = self.device.type == "cuda" if graphs is None \
             else graphs
         self._source = params
-        if mesh is None:
-            self._params = params_to(params, self.device)
         if not self.graphs and mesh is None:
             # SC-GEMM weights are quantized and packed here, once per
-            # engine; a graphed engine serves from its entry's one copy,
-            # a mesh engine from its decode step's, packed on the mesh
-            self._params = pack_sc_weights(self._params, cfg)
+            # engine; a graphed engine serves from its entry's one copy
+            # (which copies the caller's weights in from wherever they
+            # lie, so weights left on the host never have a second
+            # device copy), a mesh engine from its decode step's, packed
+            # on the mesh
+            self._params = pack_sc_weights(params_to(params, self.device),
+                                           cfg)
 
         max_blocks = None
         if paged:
@@ -316,10 +318,10 @@ class Engine:
             self._params, cache = self._decode.params, self._decode.cache
         elif self.graphs:
             self._decode = cached_decode_step(
-                self._m, self._params, capacity=capacity, max_seq=max_seq,
+                self._m, params, capacity=capacity, max_seq=max_seq,
                 block=block, n_blocks=n_blocks, max_blocks=max_blocks,
                 fused=self.fused)
-            self._bind_decode(self._params)
+            self._bind_decode(params)
             self._params, cache = self._decode.params, self._decode.cache
         if paged:
             self.pool: Any = PagedSlotPool(self._m, capacity, max_seq,
@@ -898,7 +900,7 @@ class Engine:
             # refuses otherwise), so it binds the step back. Its warm
             # prefix pages were zeroed by that bind: the tree and its
             # retained pages go, or the next hit would read zeros
-            self._bind_decode(params_to(self._source, self.device))
+            self._bind_decode(self._source)
             if self.prefix is not None:
                 self.pool.drop_retained()
                 self._new_prefix()

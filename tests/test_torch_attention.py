@@ -105,17 +105,54 @@ def test_paged_wrapper_refuses_what_it_does_not_serve():
     for bits in (1, 9):
         with pytest.raises(ConfigError, match="SC attention"):
             paged_attention(q, k, v, tables, qpos, sc_bits=bits)
-    with pytest.raises(ConfigError, match="softcap"):
-        paged_attention(q, k, v, tables, qpos, logit_softcap=30.0)
+    # a logit softcap is served: the result is the gathered formulation's
+    # (the plain version is that formulation); a cap that is not > 0 is
+    # refused
+    got = paged_attention(q, k, v, tables, qpos, logit_softcap=30.0)
+    want = tl._decode_attention_plain(
+        q.reshape(1, 1, 4, 8), tl._gather_pages(k, tables),
+        tl._gather_pages(v, tables), q_position=qpos, logit_softcap=30.0)
+    assert torch.equal(got.reshape(want.shape), want)
+    assert not torch.equal(got, paged_attention(q, k, v, tables, qpos))
+    for cap in (0.0, -30.0):
+        with pytest.raises(ConfigError, match="softcap"):
+            paged_attention(q, k, v, tables, qpos, logit_softcap=cap)
     with pytest.raises(ConfigError, match="layout"):
         paged_attention(q[0], k, v, tables, qpos)
 
 
-def test_paged_eligibility_keeps_softcap_and_single_kv_mha_gathered():
-    assert tl._paged_kernel_eligible(3, 5, None)        # smollm, head_dim 64
-    assert not tl._paged_kernel_eligible(3, 5, 30.0)    # softcap
-    assert not tl._paged_kernel_eligible(1, 1, None)    # KV == 1, G == 1
-    assert tl._paged_kernel_eligible(1, 2, None)
+def _wrapper_calls(monkeypatch):
+    """Calls that reach the paged kernel's wrapper (on the CPU its plain
+    version; ``paged_attention.launches`` counts launches on the card)."""
+    import repro_torch.kernels.paged_attention as pa
+    calls, wrapped = [], pa.paged_attention
+
+    def spy(*args, **kw):
+        calls.append(kw.get("logit_softcap"))
+        return wrapped(*args, **kw)
+    monkeypatch.setattr(pa, "paged_attention", spy)
+    return calls
+
+
+def test_paged_eligibility_keeps_softcap_and_single_kv_mha_gathered(
+        monkeypatch):
+    """Float single-KV-head full MHA stays gathered; a softcap layer takes
+    the kernel's route (the kernel applies the cap)."""
+    assert tl._paged_kernel_eligible(3, 5)              # smollm, head_dim 64
+    assert not tl._paged_kernel_eligible(1, 1)          # KV == 1, G == 1
+    assert tl._paged_kernel_eligible(1, 2)
+    calls = _wrapper_calls(monkeypatch)
+    for kv, g in ((2, 2), (1, 1)):
+        q, k, v, tables, qpos = (torch.as_tensor(x) for x in _paged_inputs(
+            2, kv, g, 8, 4, 3, [5, 9], seed=kv))
+        out = tl.paged_decode_attention(
+            q.reshape(2, 1, kv * g, 8), tl.PagedKV(k, v, tables),
+            q_position=qpos, logit_softcap=30.0)
+        want = tl._decode_attention_plain(
+            q.reshape(2, 1, kv * g, 8), tl._gather_pages(k, tables),
+            tl._gather_pages(v, tables), q_position=qpos, logit_softcap=30.0)
+        assert torch.equal(out, want)
+    assert calls == [30.0]                  # the GQA layout only
 
 
 @pytest.mark.parametrize("w,window", [(1, None), (3, None), (1, 6)])

@@ -235,7 +235,7 @@ def test_paged_grid_is_one_point_and_the_eligibility_gate(kv, g, sc):
     assert PagedConfig().ranks == RANKS and PagedConfig().fits()
     assert not PagedConfig(RANKS // 2).fits()
     assert bool(cands) == layers._paged_kernel_eligible(
-        g, kv, None, sc_bits=8 if sc else None)
+        g, kv, sc_bits=8 if sc else None)
     assert bool(cands) == (sc or (kv, g) != (1, 1))
 
 

@@ -202,7 +202,9 @@ TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
     (2, 2, 1, 16, 48, 3, [95, 50], 5),               # page not a tile multiple
     (2, 1, 4, 128, 32, 4, [127, 40], None),          # one KV head, D=128
     (1, 8, 2, 256, 16, 2, [31], None),               # big D: dynamic smem
-], ids=range(6))
+    (4, 4, 7, 128, 64, 4, [100, 255, 37, 64], None),  # qwen2-7b: G 7
+    (4, 8, 5, 128, 64, 4, [100, 255, 37, 64], None),  # qwen2.5-14b: G 5
+], ids=range(8))
 def test_paged_kernel_equals_plain(cuda, geom, dtype):
     c, kv, g, d, block, mb, positions, window = geom
     args = _paged(c, kv, g, d, block, mb, positions, sum(positions), dtype,
@@ -501,6 +503,56 @@ def _paginate(k_rows, v_rows, block, seed):
                                                            kv, d)
         pools.append(pool)
     return pools[0], pools[1], perm.reshape(c, mb).to(torch.int32)
+
+
+@pytest.mark.parametrize("window", [None, 100], ids=["full", "window"])
+@pytest.mark.parametrize("bits", [None, 4, 8], ids=["float", "sc4", "sc8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_softcap_kernel_equals_plain(cuda, dtype, bits, window):
+    """gemma2-9b's decode layout (KV 8, G 2, D 256) with its logit softcap
+    50: the kernel caps each scaled score before the masks, as the plain
+    version does; the tolerances are the float and SC paths' own (the
+    cap's tanh on the card and in PyTorch may part by an ulp). Scores
+    are scaled up so the cap bends them."""
+    args = _paged(4, 8, 2, 256, 64, 4, [255, 100, 37, 64], 50 + (bits or 0),
+                  dtype, cuda)
+    args[0] = (args[0].float() * 8).to(dtype)
+    def counts():
+        return (paged_attention.launches, paged_attention.sc.launches,
+                paged_attention.softcap.launches,
+                paged_attention.sc.softcap.launches)
+    launches = counts()
+    got = paged_attention(*args, window=window, logit_softcap=50.0,
+                          sc_bits=bits)
+    sc = bits is not None
+    assert counts() == (launches[0] + 1, launches[1] + sc, launches[2] + 1,
+                        launches[3] + sc)
+    want = paged_attention_torch(*args, window=window, logit_softcap=50.0,
+                                 sc_bits=bits)
+    uncapped = paged_attention_torch(*args, window=window, sc_bits=bits)
+    torch.cuda.synchronize()
+    if bits is None:
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    else:
+        _sc_close(got, want, args[2], bits, TOL[dtype])
+    assert (uncapped.float() - want.float()).abs().max() > 0.05
+
+
+@pytest.mark.parametrize("bits", [None, 8], ids=["float", "sc8"])
+def test_paged_softcap_kernel_is_bitwise_paging_invariant(cuda, bits):
+    """With the softcap, as without: the same rows at block 16, 64 and
+    256 and as the dense view give identical outputs."""
+    q, k_rows, v_rows = _rows(2, 700, 8, 2, 256, torch.bfloat16, 23, cuda)
+    q = (q.float() * 8).to(torch.bfloat16)
+    pos = torch.tensor([650, 333], dtype=torch.int32, device=cuda)
+    outs = {block: paged_attention(q, *_paginate(k_rows, v_rows, block,
+                                                 seed=block or 0), pos,
+                                   window=300, logit_softcap=50.0,
+                                   sc_bits=bits)
+            for block in (16, 64, 256, None)}
+    for block, out in outs.items():
+        assert torch.equal(out, outs[None]), block
 
 
 @pytest.mark.parametrize("window", [None, 300], ids=["full", "window"])
@@ -828,6 +880,42 @@ def test_one_capture_per_shape_over_engine_runs(cuda):
     assert len(steps.decode_steps()) == 1
     assert step.replays == (first.stats["decode_steps"]
                             + second.stats["decode_steps"])
+    steps.clear_decode_steps()
+
+
+def test_a_graphed_engine_builds_its_entry_from_weights_on_the_host(
+        cuda, monkeypatch):
+    """Weights left on the host reach the card once, as the entry's own
+    copy: the engine moves no tree of the caller's to the device, and the
+    streams are those of the same weights on the card; so are they after
+    another engine bound the entry and this one bound it back from the
+    host."""
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import params_to
+    from repro_torch.serving import engine as engine_mod
+    steps.clear_decode_steps()
+    cfg = _graph_cfg(False)
+    params = bind(cfg, cuda).init_params(0)
+    want = Engine(cfg, params, device=cuda, **GRAPH_ENGINE).run(
+        _graph_requests(cfg))
+    steps.clear_decode_steps()
+    host = params_to(params, "cpu")
+    moved = []
+    monkeypatch.setattr(engine_mod, "params_to",
+                        lambda tree, dev: moved.append(dev) or
+                        params_to(tree, dev))
+    eng = Engine(cfg, host, device=cuda, **GRAPH_ENGINE)
+    assert all(t.is_cuda for t in steps._tensors(eng._decode.params))
+    got = eng.run(_graph_requests(cfg))
+    other = Engine(cfg, bind(cfg, cuda).init_params(1), device=cuda,
+                   prefill_mode="oneshot", **GRAPH_ENGINE)
+    other.run(_graph_requests(cfg))
+    again = eng.run([dataclasses.replace(r, uid=f"{r.uid}-again")
+                     for r in _graph_requests(cfg)])
+    assert moved == [] and eng._decode is other._decode
+    for a, b, c in zip(got, want, again):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+        np.testing.assert_array_equal(c.tokens, b.tokens)
     steps.clear_decode_steps()
 
 
@@ -2206,7 +2294,9 @@ def test_kernel_operators_fake_meta_equals_the_real_output(cuda):
                                0))]
     for bits in (0, 8):
         calls += [(ops_.paged_attention, (rand(4, 5, 3, 64), pool, pool,
-                                          tables, pos, 0, bits)),
+                                          tables, pos, 0, bits, 0.0)),
+                  (ops_.paged_attention, (rand(4, 5, 3, 64), pool, pool,
+                                          tables, pos, 0, bits, 50.0)),
                   (ops_.flash_attention, (q_rows, kv_rows, kv_rows, None, 16,
                                           True, 64, bits, 0, 0)),
                   (ops_.flash_attention, (q_rows, kv_rows, kv_rows, off, 0,

@@ -328,11 +328,33 @@ def test_paged_sc_equals_jax_gathered_dense(c, h, kv, d, mb, block, window,
         assert torch.equal(out, got.reshape(c, 1, h, d))
 
 
-def test_sc_widens_the_paged_gate_but_not_softcap():
-    assert not tl._paged_kernel_eligible(1, 1, None)
-    assert tl._paged_kernel_eligible(1, 1, None, sc_bits=8)
-    assert not tl._paged_kernel_eligible(3, 5, 30.0, sc_bits=8)
-    assert not tl._paged_kernel_eligible(3, 5, None, sc_bits=9)
+def test_sc_widens_the_paged_gate_but_not_softcap(monkeypatch):
+    """SC serves every head layout, single-KV MHA included, and a softcap
+    layer takes the kernel's route on the SC path too (the kernel applies
+    the cap); widths outside 2..8 are not served."""
+    import repro_torch.kernels.paged_attention as pa
+    assert not tl._paged_kernel_eligible(1, 1)
+    assert tl._paged_kernel_eligible(1, 1, sc_bits=8)
+    assert tl._paged_kernel_eligible(3, 5, sc_bits=8)
+    assert not tl._paged_kernel_eligible(3, 5, sc_bits=9)
+    calls, wrapped = [], pa.paged_attention
+
+    def spy(*args, **kw):
+        calls.append((kw.get("logit_softcap"), kw.get("sc_bits")))
+        return wrapped(*args, **kw)
+    monkeypatch.setattr(pa, "paged_attention", spy)
+    q, kp, vp, tables, pos = _paged_problem(5, c=2, h=4, kv=1, d=16, mb=3,
+                                            block=4)
+    args = [torch.as_tensor(x) for x in (kp, vp, tables, pos)]
+    out = tl.paged_decode_attention(torch.as_tensor(q), tl.PagedKV(*args[:3]),
+                                    q_position=args[3], logit_softcap=30.0,
+                                    sc_bits=8)
+    want = tl._decode_attention_plain(
+        torch.as_tensor(q), tl._gather_pages(args[0], args[2]),
+        tl._gather_pages(args[1], args[2]), q_position=args[3],
+        logit_softcap=30.0, sc_bits=8)
+    assert torch.equal(out, want)
+    assert calls == [(30.0, 8)]
 
 
 def test_flash_gate_drops_alignment_keeps_features():

@@ -137,10 +137,10 @@ def main() -> int:
                 torch.cuda.synchronize()
                 if bits is None:
                     rc = fn(*ptrs, c, kv, g, d, block, mb, n_pages, 1,
-                            d ** -0.5, 0, stream)
+                            d ** -0.5, 0.0, 0, stream)
                 else:
                     rc = fn(*ptrs, 0, c, kv, g, d, block, mb, n_pages, 1,
-                            p.share, d ** -0.5, 0, bits, stream)
+                            p.share, d ** -0.5, 0.0, 0, bits, stream)
                 torch.cuda.synchronize()
                 if rc:
                     raise SystemExit(f"paged_probe: CUDA error {rc}")
